@@ -1,0 +1,113 @@
+"""Sampler protocol and registry.
+
+Counterpart of ``repro/core/samplers.py``.  Every priority sampler has
+the same five methods (init / update / sample / priorities / total) and
+is built through :func:`make_sampler`, whose builders accept one shared
+kwargs vocabulary and ignore what they do not consume:
+
+  m, lam_fr, csp_ratio, v_max, fr_mode, exact_radius, frac_bits -- AMPER
+  hyper-parameters (``fr_mode``: broadcast / kernel / fused, all
+  bit-identical); csp_capacity -- overrides the csp_ratio-derived CSP
+  size; min_csp -- floor of the derived size (usually the train batch);
+  device -- where the sampler's state lives (default ``"cuda"``).
+
+This slice registers ``uniform`` and ``amper-fr``; the PER and AMPER-k
+samplers and the sharded fronts wait for later slices.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Protocol, runtime_checkable
+
+import torch
+
+from repro_torch.core import quantize as qz
+from repro_torch.core.amper import (AmperConfig, AmperSampler,
+                                    UniformSampler, last_writer)
+
+
+@runtime_checkable
+class Sampler(Protocol):
+    """Structural interface every replay-priority sampler implements."""
+
+    def init(self) -> Any: ...
+
+    def update(self, state: Any, idx: torch.Tensor,
+               priority: torch.Tensor) -> Any: ...
+
+    def sample(self, state: Any, key: torch.Tensor,
+               batch: int) -> torch.Tensor: ...
+
+    def priorities(self, state: Any) -> torch.Tensor: ...
+
+    def total(self, state: Any) -> torch.Tensor: ...
+
+
+def masked_update(sampler: Sampler, state: Any, idx: torch.Tensor,
+                  priority: torch.Tensor, valid: torch.Tensor) -> Any:
+    """Out-of-band (deferred) priority write for any registry sampler.
+
+    Rows with ``valid[i] == False`` are rewritten with their current
+    priority (a no-op write), and every occurrence of a duplicated row
+    carries the value of its last VALID occurrence, so all duplicate
+    writes agree and the scatter's winner, undefined on CUDA, is
+    irrelevant.
+    """
+    prios = sampler.priorities(state)
+    winner = last_writer(idx, valid)
+    value = torch.where(winner >= 0,
+                        priority.to(torch.float32)[winner.clamp(min=0)],
+                        prios[idx])
+    return sampler.update(state, idx, value)
+
+
+_REGISTRY: dict[str, Callable[..., Sampler]] = {}
+
+
+def register_sampler(name: str, *aliases: str):
+    """Decorator: register ``builder(capacity, **kw) -> Sampler``."""
+
+    def deco(builder):
+        for n in (name, *aliases):
+            _REGISTRY[n] = builder
+        return builder
+
+    return deco
+
+
+def available_samplers() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def make_sampler(kind: str, capacity: int, **kw) -> Sampler:
+    """Build a sampler by registry name (unknown kwargs are ignored)."""
+    try:
+        builder = _REGISTRY[kind]
+    except KeyError:
+        raise ValueError(f"unknown sampler kind: {kind!r} "
+                         f"(available: {available_samplers()})") from None
+    return builder(capacity, **kw)
+
+
+@register_sampler("uniform")
+def _build_uniform(capacity: int, *, device="cuda", **_unused) -> Sampler:
+    return UniformSampler(capacity, device=device)
+
+
+def _amper_config(capacity: int, *, m: int = 20, lam_fr: float = 2.0,
+                  csp_ratio: float = 0.15, v_max: float = 1.0,
+                  csp_capacity: int | None = None, min_csp: int = 64,
+                  fr_mode: str = "broadcast", exact_radius: bool = False,
+                  frac_bits: int | None = None, **_unused) -> AmperConfig:
+    """The one place the kwargs vocabulary becomes an AmperConfig."""
+    return AmperConfig(
+        capacity=capacity, m=m, lam_fr=lam_fr, v_max=v_max,
+        csp_capacity=(csp_capacity if csp_capacity is not None
+                      else max(int(capacity * csp_ratio), min_csp)),
+        frac_bits=qz.DEFAULT_FRAC_BITS if frac_bits is None else frac_bits,
+        exact_radius=exact_radius, fr_mode=fr_mode)
+
+
+@register_sampler("amper-fr")
+def _build_amper_fr(capacity: int, *, device="cuda", **kw) -> Sampler:
+    return AmperSampler(_amper_config(capacity, **kw), variant="fr",
+                        device=device)

@@ -1,0 +1,77 @@
+"""Carry weights and agent state over from the JAX reference.
+
+The port imports nothing of the reference package.  These functions take
+the reference's objects as plain numpy pytrees (``jax.tree.map(np.asarray,
+state)``) and read them by field name, so a test can start both packages
+from one state and step them side by side.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.amper import AmperState, UniformState
+from repro_torch.core.replay_buffer import NStepState, ReplayState
+from repro_torch.models.qhead import tree_map
+from repro_torch.rl.dqn import AgentState
+from repro_torch.rl.envs import EnvState
+
+
+def to_tensor(x, device="cuda") -> torch.Tensor:
+    """numpy array (or scalar) -> tensor of the same dtype on ``device``."""
+    return torch.from_numpy(np.array(x, copy=True)).to(resolve_device(device))
+
+
+def params_from_jax(params, device="cuda"):
+    """A Q-head's params (nested lists/dicts of ``{"w", "b"}`` numpy
+    arrays, in the reference's ``(in, out)`` layout) as the port's head
+    params.  The layout is kept, so no weight is transposed."""
+    return tree_map(lambda x: to_tensor(x, device).to(torch.float32), params)
+
+
+def _sampler_state(s, device):
+    if hasattr(s, "pq"):
+        return AmperState(pq=to_tensor(s.pq, device),
+                          valid=to_tensor(s.valid, device))
+    if hasattr(s, "priorities") and hasattr(s, "valid"):
+        return UniformState(priorities=to_tensor(s.priorities, device),
+                            valid=to_tensor(s.valid, device))
+    raise TypeError(f"no port of sampler state {type(s).__name__}")
+
+
+def replay_state_from_jax(rs, device="cuda") -> ReplayState:
+    """A reference ``ReplayState`` (numpy leaves) as the port's."""
+    nstep = None
+    if rs.nstep is not None:
+        nstep = NStepState(
+            ring={k: to_tensor(v, device) for k, v in rs.nstep.ring.items()},
+            count=int(rs.nstep.count), pos=int(rs.nstep.pos))
+    return ReplayState(
+        storage={k: to_tensor(v, device) for k, v in rs.storage.items()},
+        sampler_state=_sampler_state(rs.sampler_state, device),
+        pos=int(rs.pos), size=int(rs.size),
+        max_priority=to_tensor(rs.max_priority, device),
+        write_stamp=to_tensor(rs.write_stamp, device),
+        total_adds=int(rs.total_adds),
+        write_gen=to_tensor(rs.write_gen, device),
+        add_gen=int(rs.add_gen), nstep=nstep)
+
+
+def agent_state_from_jax(st, device="cuda") -> AgentState:
+    """A reference DQN ``AgentState`` (numpy leaves) as the port's:
+    params, target, Adam moments, replay buffer with sampler state, env
+    state, observations and counters."""
+    return AgentState(
+        params=params_from_jax(st.params, device),
+        target_params=params_from_jax(st.target_params, device),
+        opt_m=params_from_jax(st.opt_m, device),
+        opt_v=params_from_jax(st.opt_v, device),
+        buffer=replay_state_from_jax(st.buffer, device),
+        env_state=EnvState(x=to_tensor(st.env_state.x, device),
+                           t=to_tensor(st.env_state.t, device)),
+        obs=to_tensor(st.obs, device),
+        step=int(st.step),
+        episode_return=to_tensor(st.episode_return, device),
+        last_returns=to_tensor(st.last_returns, device),
+        n_episodes=to_tensor(st.n_episodes, device))

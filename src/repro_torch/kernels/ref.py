@@ -1,0 +1,44 @@
+"""Plain PyTorch versions of the kernels (the correctness contract).
+
+Counterpart of ``repro/kernels/ref.py``.  The CPU path of every kernel
+wrapper runs these, and ``chip_smoke.py`` holds each CUDA kernel against
+them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def nonzero_static(mask: torch.Tensor, size: int, fill: int = -1
+                   ) -> torch.Tensor:
+    """``jnp.nonzero(mask, size=size, fill_value=fill)`` for a flat mask.
+
+    A cumsum gives each set row its output slot; rows past ``size`` and
+    unset rows scatter into distinct discard slots, so no two writes
+    collide and the output shape never depends on the data (no host
+    sync).  Returns int64[size].
+    """
+    n = mask.shape[0]
+    pos = torch.cumsum(mask, 0, dtype=torch.int64) - 1
+    rows = torch.arange(n, device=mask.device)
+    target = torch.where(mask & (pos < size), pos, size + rows)
+    out = torch.full((size + n,), fill, dtype=torch.int64, device=mask.device)
+    return out.scatter_(0, target, rows)[:size]
+
+
+def multi_query_match_ref(pq: torch.Tensor, valid: torch.Tensor,
+                          lo: torch.Tensor, hi: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """OR of the m inclusive ranges ``lo_i <= pq <= hi_i``, AND ``valid``.
+
+    Returns ``(sel bool[n], counts int32[m])``; ``counts[i]`` is the number
+    of valid rows in range i.  One range at a time, so no (m, n)
+    intermediate exists.
+    """
+    sel = torch.zeros_like(valid)
+    counts = []
+    for i in range(lo.shape[0]):
+        match = (pq >= lo[i]) & (pq <= hi[i]) & valid
+        sel |= match
+        counts.append(match.sum(dtype=torch.int32))
+    return sel, torch.stack(counts).to(torch.int32)

@@ -41,6 +41,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "analysis: static-analysis gate tests "
                    "(repro.analysis fixtures, lockdep, trace checks)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA "
+                   "kernels); skips itself without one")
 
 
 @pytest.fixture(scope="session")

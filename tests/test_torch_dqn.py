@@ -1,0 +1,244 @@
+"""The port's DQN slice against the JAX reference.
+
+Both packages start from one state (the reference's ``init`` carried over
+with :func:`repro_torch.interop.agent_state_from_jax`) and take 30
+``agent_step``s on the same step keys.  Actions, sampled replay rows,
+ring position and write stamps must agree exactly; parameters, Adam
+moments and TD errors within rtol 1e-5 / atol 1e-6, because XLA and
+torch sum the matmuls in different orders.  A quantized priority may
+differ by one code only where the two packages' float priorities (from
+those TD errors, or from the running max priority for new rows) round to
+the two codes.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core.quantize as jqz
+from repro.models import qhead as jqh
+from repro.rl import dqn as jd
+from repro.rl import envs as jenvs
+from repro_torch import interop, prng
+from repro_torch.core import quantize as tqz
+from repro_torch.models import qhead as tqh
+from repro_torch.models.qhead import tree_leaves
+from repro_torch.rl import dqn as td
+from repro_torch.rl import envs as tenvs
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture(autouse=True)
+def partitionable():
+    with jax.threefry_partitionable(True):
+        yield
+
+
+def _close(a, b):
+    np.testing.assert_allclose(np.asarray(a), b.detach().numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+def _close_trees(jtree, ttree):
+    jl = jax.tree.leaves(jtree)
+    tl = tree_leaves(ttree)
+    assert len(jl) == len(tl)
+    for a, b in zip(jl, tl):
+        _close(a, b)
+
+
+def test_cartpole_vector_env_matches_reference():
+    n = 8
+    jv = jenvs.VectorEnv(jenvs.make_env("cartpole"), n)
+    tv = tenvs.VectorEnv(tenvs.make_env("cartpole"), n, device="cpu")
+    js = jv.reset(jax.random.key(0))
+    ts = tv.reset(prng.key(0))
+    np.testing.assert_array_equal(np.asarray(js.x), ts.x.numpy())  # exact
+    step = jax.jit(jv.step)
+    keys = jax.random.split(jax.random.key(1), 60)
+    tkeys = prng.split(prng.key(1), 60)
+    actions = np.random.default_rng(0).integers(0, 2, (60, n)).astype(np.int32)
+    for i in range(60):
+        js, jobs, jr, jdone, jterm = step(js, actions[i], keys[i])
+        ts, tobs, tr, tdone, tterm = tv.step(ts, torch.from_numpy(actions[i]),
+                                             tkeys[i])
+        _close(jobs, tobs)
+        _close(js.x, ts.x)
+        np.testing.assert_array_equal(np.asarray(jdone), tdone.numpy())
+        np.testing.assert_array_equal(np.asarray(jterm), tterm.numpy())
+        np.testing.assert_array_equal(np.asarray(js.t), ts.t.numpy())
+        np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
+
+
+@pytest.mark.parametrize("kind", ["mlp", "dueling"])
+def test_qheads_match_reference(kind):
+    jh = jqh.make_qhead(kind, (4,), 32, 3)
+    th = tqh.make_qhead(kind, (4,), 32, 3, device="cpu")
+    jp = jh.init(jax.random.key(2))
+    _close_trees(jp, th.init(prng.key(2)))      # He init: normal draws
+    tp = interop.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    x = np.random.default_rng(1).standard_normal((16, 4)).astype(np.float32)
+    _close(jh.apply(jp, x), th.apply(tp, torch.from_numpy(x)))
+
+
+def _jax_peek(jdq, batch):
+    """The reference agent_step's sampled rows and TD errors, recomputed
+    from its pieces (pure functions, so the state is untouched)."""
+
+    def peek(state, key):
+        k_act, k_sample = jax.random.split(key)
+        _, _, tr = jdq.act(state.params, state.env_state, state.obs,
+                           state.step, k_act)
+        buf = jdq.replay.add_batch(state.buffer, tr)
+        idx, b, w = jdq.replay.sample(buf, k_sample, batch,
+                                      beta=jdq.beta_at(state.step))
+        out = jdq.learn(state.params, state.target_params, state.opt_m,
+                        state.opt_v, state.step, b, w)
+        return idx, out[3]
+
+    return jax.jit(peek)
+
+
+def _trace_codes(jpq, tpq, explained, arc, idx, jtd, ttd, jmax, tmax, v_max):
+    """Every row whose quantized priority differs is explained: written
+    this step (from the max priority or a TD error of this step, both
+    within tolerance and each rounding to its package's code), or
+    explained earlier and not written since."""
+    idx = idx.tolist()
+    written = set(arc) | set(idx)
+    keep = {r: why for r, why in explained.items() if r not in written}
+    for r in np.flatnonzero(jpq != tpq).tolist():
+        assert abs(int(jpq[r]) - int(tpq[r])) == 1, r
+        if r in idx:
+            k = len(idx) - 1 - idx[::-1].index(r)   # last occurrence wins
+            pj = np.asarray(jax.jit(lambda t: (jnp.abs(t) + 0.01) ** 0.6)(jtd[k]))
+            pt = (ttd[k].abs() + 0.01) ** 0.6
+            np.testing.assert_allclose(float(jtd[k]), float(ttd[k]),
+                                       rtol=RTOL, atol=ATOL)
+        elif r in arc:
+            pj, pt = jmax, tmax
+            np.testing.assert_allclose(float(pj), float(pt), rtol=RTOL)
+        else:
+            assert r in keep, f"row {r} differs with no write to explain it"
+            continue
+        assert int(jqz.quantize(pj, v_max)) == int(jpq[r])
+        assert int(tqz.quantize(torch.as_tensor(pt), v_max)) == int(tpq[r])
+        keep[r] = "traced"
+    return keep
+
+
+SLICES = [  # sampler, agent, n_step, the port's fr_mode
+    ("amper-fr", "dqn", 1, "fused"),
+    ("uniform", "double-dueling", 3, "broadcast"),
+]
+
+
+@pytest.mark.parametrize("sampler,agent,n_step,fr_mode", SLICES)
+def test_thirty_agent_steps_match_reference(sampler, agent, n_step, fr_mode):
+    kw = dict(env="cartpole", sampler=sampler, agent=agent, n_step=n_step,
+              num_envs=4, replay_size=256, batch=16, hidden=32,
+              learn_start=8, target_sync=10)
+    jdq = jd.make_dqn(jd.DQNConfig(**kw))
+    tdq = td.make_dqn(td.DQNConfig(**kw, amper_fr_mode=fr_mode), device="cpu")
+    assert tdq.replay.sampler.__class__.__name__ != "AmperSampler" or \
+        tdq.replay.sampler.cfg.fr_mode == fr_mode
+    key = jax.random.key(3)
+    js = jdq.init(key)
+    ts = interop.agent_state_from_jax(jax.tree.map(np.asarray, js),
+                                      device="cpu")
+    jkeys = jax.random.split(jax.random.fold_in(key, 1), 30)
+    tkeys = prng.split(prng.fold_in(prng.key(3), 1), 30)
+    np.testing.assert_array_equal(np.asarray(jax.random.key_data(jkeys)),
+                                  tkeys.numpy())
+    step = jax.jit(jdq.agent_step)
+    peek = _jax_peek(jdq, kw["batch"])
+    explained = {}
+    learned = 0
+    for i in range(30):
+        jidx, jtd = peek(js, jkeys[i]) if i >= kw["learn_start"] else (None, None)
+        jmax_before = np.asarray(js.buffer.max_priority)
+        tmax_before = ts.buffer.max_priority.clone()
+        arc = [(ts.buffer.pos + j) % kw["replay_size"] for j in range(4)]
+        js, _ = step(js, jkeys[i])
+        ts, tm = tdq.agent_step(ts, tkeys[i])
+        jb = jax.tree.map(np.asarray, js.buffer)
+        tb = ts.buffer
+        # exact: actions, ring position, stamps, episode counters
+        np.testing.assert_array_equal(jb.storage["action"],
+                                      tb.storage["action"].numpy())
+        assert int(jb.pos) == tb.pos and int(jb.size) == tb.size
+        np.testing.assert_array_equal(jb.write_stamp, tb.write_stamp.numpy())
+        np.testing.assert_array_equal(jb.write_gen, tb.write_gen.numpy())
+        assert int(js.n_episodes) == int(ts.n_episodes)
+        # within tolerance: params, moments, env, returns
+        for jt, tt in ((js.params, ts.params), (js.target_params,
+                       ts.target_params), (js.opt_m, ts.opt_m),
+                       (js.opt_v, ts.opt_v)):
+            _close_trees(jt, tt)
+        _close(js.obs, ts.obs)
+        _close(js.last_returns, ts.last_returns)
+        for k in ("obs", "next_obs", "reward"):
+            _close(jb.storage[k], tb.storage[k])
+        if jidx is None:
+            assert tm["idx"] is None
+            continue
+        learned += 1
+        np.testing.assert_array_equal(np.asarray(jidx), tm["idx"].numpy())
+        _close(jtd, tm["td"])
+        if sampler == "amper-fr":
+            explained = _trace_codes(
+                jb.sampler_state.pq, tb.sampler_state.pq.numpy(), explained,
+                arc if n_step == 1 else [], tm["idx"], np.asarray(jtd),
+                tm["td"], jmax_before, tmax_before, tdq.cfg.v_max)
+        else:
+            _close(jb.sampler_state.priorities, tb.sampler_state.priorities)
+    assert learned == 30 - kw["learn_start"]
+
+
+def test_train_and_evaluate_run_on_cpu():
+    cfg = td.DQNConfig(sampler="amper-fr", amper_fr_mode="kernel",
+                       num_envs=2, replay_size=64, batch=8, hidden=16,
+                       learn_start=4)
+    dqn = td.make_dqn(cfg, device="cpu")
+    assert dqn.replay.sampler.cfg.fr_mode == "kernel"
+    st, metrics = dqn.train(prng.key(0), 12)
+    assert st.step == 12 and len(metrics["loss"]) == 12
+    assert all(torch.isfinite(t).all() for t in tree_leaves(st.params))
+    ret = dqn.evaluate(st, prng.key(1), n_episodes=2)
+    assert np.isfinite(ret) and ret >= 1.0
+
+
+def test_entry_points_refuse_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        td.make_dqn(td.DQNConfig())
+
+
+@pytest.mark.parametrize("entry", [
+    "vector_env", "make_qhead", "mlp_init", "to_tensor", "params_from_jax",
+    "amper_sampler", "uniform_sampler", "make_sampler"])
+def test_each_entry_point_defaults_to_cuda(entry):
+    """Left at its default device, every entry point asks for the card,
+    so a state built without ``device=`` never lands on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.core import amper as ta
+    from repro_torch.core import samplers as tsm
+
+    calls = {
+        "vector_env": lambda: tenvs.VectorEnv(tenvs.make_env("cartpole"), 2),
+        "make_qhead": lambda: tqh.make_qhead("mlp", (4,)),
+        "mlp_init": lambda: tqh.mlp_init(prng.key(0), [4, 2]),
+        "to_tensor": lambda: interop.to_tensor(np.zeros(3, np.float32)),
+        "params_from_jax": lambda: interop.params_from_jax(
+            [{"w": np.zeros((4, 2), np.float32),
+              "b": np.zeros(2, np.float32)}]),
+        "amper_sampler": lambda: ta.AmperSampler(ta.AmperConfig(capacity=8)),
+        "uniform_sampler": lambda: ta.UniformSampler(8),
+        "make_sampler": lambda: tsm.make_sampler("amper-fr", 8),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
