@@ -7,19 +7,22 @@ Run from the repository root with no arguments:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each kernel against its plain PyTorch version at the main path's shapes
-(n = 1,000,000 replay rows), trains the DQN + AMPER-fr agent on CartPole
-through the fused draw kernel and through the match kernel with the
-standard 1M-transition replay memory, and checks that those runs
-launched the kernels.  Steps per second are timed over steady learn
-steps after each run (set-up and warm-up are reported apart), with the
-host time spent in the PRNG beside them.  Each phase prints one JSON line; the line before
+(n = 1,000,000 replay rows, or one 250,000-row shard of them), trains
+the DQN + AMPER-fr agent on CartPole through the fused draw kernel,
+through the match kernel, and through the sharded draw (4 shards on the
+card: the match and rank-select kernels on every shard) with the
+standard 1M-transition replay memory, runs the m group queries of a draw
+as single TCAM searches, and checks that those runs launched the
+kernels.  Steps per second are timed over steady learn steps after each
+run (set-up and warm-up are reported apart), with the host time spent in
+the PRNG beside them.  Each phase prints one JSON line; the line before
 the last lists the kernels with their timings and bounds, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero without that line.  There is no fallback to the CPU: without a
 CUDA device the script exits with code 2.
 
-``--phases`` picks a subset (device,match,sample,fused,kernel) for
-debugging; every phase runs by default.  ``--profile`` adds a
+``--phases`` picks a subset (device,match,sample,rank,tcam,fused,kernel,
+sharded) for debugging; every phase runs by default.  ``--profile`` adds a
 torch.profiler window after each training phase (device busy and idle
 share per step, top kernels; the chrome trace goes to ``--trace-dir``,
 ``profile_out/`` by default).
@@ -40,7 +43,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROWS = 1_000_000           # DQN's standard replay memory (Mnih et al. 2015)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
 SEED = 0
-PHASES = ("device", "match", "sample", "fused", "kernel")
+SHARDS = 4                   # logical shards of the sharded phase, on one card
+PHASES = ("device", "match", "sample", "rank", "tcam", "fused", "kernel",
+          "sharded")
 
 
 def emit(obj) -> None:
@@ -235,7 +240,138 @@ def phase_sample(state: dict) -> None:
           "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms})
 
 
-def profile_window(dqn, st, out_dir: str, steps: int = 20) -> dict:
+def rank_cases(count: int, batch: int, seed: int) -> torch.Tensor:
+    """``batch`` ranks in [-5, count + 10), led by 0, count - 1, count,
+    count + 5 and two negative ranks."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(-5, count + 10, batch)
+    r[:6] = [0, count - 1, count, count + 5, -1, -3]
+    return torch.from_numpy(r.astype(np.int32)).cuda()
+
+
+def phase_rank(state: dict) -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rank_select_ref
+
+    dev = torch.device("cuda")
+    pq, valid = table(N_ROWS, 1000, dev)
+    shard_pq, shard_valid = table(N_ROWS // SHARDS, 0, dev)
+    lo, hi = ranges(dev)
+    tables = [("n1e6", pq, valid),
+              ("shard_250k", shard_pq, shard_valid),
+              ("odd_999999", pq[1:].clone(), valid[1:].clone()),
+              ("all_invalid", pq, torch.zeros_like(valid))]
+    err = 0
+    results = []
+    for i, (name, p, v) in enumerate(tables):
+        count = int(rank_select_ref(p, v, lo, hi, torch.zeros(
+            1, dtype=torch.int32, device=dev))[1])
+        for batch in (64, 300):
+            rank = rank_cases(count, batch, seed=10 * i + batch)
+            idx, cnt = ops.rank_select(p, v, lo, hi, rank)
+            idx_p, cnt_p = rank_select_ref(p, v, lo, hi, rank)
+            torch.cuda.synchronize()
+            if not torch.equal(idx, idx_p) or not torch.equal(cnt, cnt_p):
+                fail("rank", f"{name} b{batch}: kernel != plain: count "
+                     f"{int(cnt)} vs {int(cnt_p)}, idx diff "
+                     f"{int((idx != idx_p).sum())}/{batch}")
+            err = max(err, int((idx - idx_p).abs().max()),
+                      int((cnt - cnt_p).abs()))
+        results.append({"case": name, "n": p.shape[0], "members": count})
+    # timed at the main path's shape: one shard, the train batch of ranks
+    rank = rank_cases(results[1]["members"], 64, seed=3)
+    ms = device_time_ms(lambda: ops.rank_select(shard_pq, shard_valid, lo, hi,
+                                                rank))
+    plain_ms = device_time_ms(lambda: rank_select_ref(
+        shard_pq, shard_valid, lo, hi, rank), calls=10, reps=3)
+    idx, cnt = ops.rank_select(shard_pq, shard_valid, lo, hi, rank)
+    bound_ms = nbytes(shard_pq, shard_valid, lo, hi, rank, idx, cnt) \
+        / HBM_BYTES_PER_S * 1e3
+    rank_full = rank_cases(results[0]["members"], 64, seed=4)
+    ms_full = device_time_ms(lambda: ops.rank_select(pq, valid, lo, hi,
+                                                     rank_full))
+    bound_full = nbytes(pq, valid, lo, hi, rank_full, idx, cnt) \
+        / HBM_BYTES_PER_S * 1e3
+    state["kernels"]["rank_select"] = {
+        "name": "rank_select", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rank_select.cu",
+        "replaces": "src/repro/kernels/amper_sample.py:276",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+    emit({"phase": "rank", "ok": True, "cases": results,
+          "timed": {"n": shard_pq.shape[0], "batch": 64},
+          "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "kernel_ms_n1e6": ms_full, "bound_ms_n1e6": bound_full})
+
+
+def tcam_path(pq: torch.Tensor, valid: torch.Tensor, seed: int = SEED):
+    """The paper's per-group TCAM search: the m prefix queries of one
+    AMPER-fr draw, one ternary query per launch, ORed and ANDed with
+    ``valid``.  Returns the membership, the queries and their masks."""
+    from repro_torch import prng
+    from repro_torch.core import amper
+    from repro_torch.kernels import ops
+
+    cfg = amper.AmperConfig(capacity=N_ROWS, m=20, lam_fr=2.0, v_max=8.0)
+    vq, mask = amper.fr_queries(
+        amper.group_representatives(prng.key(seed), cfg), cfg)
+    vq, mask = vq.to(pq.device), mask.to(pq.device)
+    sel = torch.zeros_like(valid)
+    for i in range(cfg.m):
+        sel |= ops.tcam_match(pq, vq[i], mask[i])
+    return sel & valid, vq, mask
+
+
+def phase_tcam(state: dict) -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import multi_query_match_ref, tcam_match_ref
+
+    dev = torch.device("cuda")
+    pq, valid = table(N_ROWS, 1000, dev)
+    lo, hi = ranges(dev)
+    err = 0
+    for name, p in (("n1e6", pq), ("odd_999999", pq[1:].clone())):
+        for width in (0, 7, 15, 20):
+            q = torch.tensor(int(p[12_345]), dtype=torch.int32, device=dev)
+            mask = torch.tensor((1 << width) - 1, dtype=torch.int32,
+                                device=dev)
+            out = ops.tcam_match(p, q, mask)
+            out_p = tcam_match_ref(p, q, mask)
+            torch.cuda.synchronize()
+            if not torch.equal(out, out_p):
+                fail("tcam", f"{name} mask width {width}: kernel != plain "
+                     f"at {int((out != out_p).sum())} rows")
+            err = max(err, int((out.int() - out_p.int()).abs().max()))
+    # The path: a draw's m group queries as single TCAM searches, which
+    # must give the m-range match's membership.
+    ops.reset_launches()
+    sel, vq, mask = tcam_path(pq, valid)
+    torch.cuda.synchronize()
+    launches = ops.launches["tcam_match"]
+    if launches != 20:
+        fail("tcam", f"tcam_match launched {launches} times for 20 queries")
+    if not torch.equal(sel, multi_query_match_ref(pq, valid, lo, hi)[0]):
+        fail("tcam", "OR of the single TCAM queries != the m-range match")
+    state["launches"]["tcam_match"] = launches
+    q, m = vq[10], mask[10]
+    ms = device_time_ms(lambda: ops.tcam_match(pq, q, m))
+    plain_ms = device_time_ms(lambda: tcam_match_ref(pq, q, m), calls=10,
+                              reps=3)
+    out = ops.tcam_match(pq, q, m)
+    bound_ms = nbytes(pq, q, m, out) / HBM_BYTES_PER_S * 1e3
+    state["kernels"]["tcam_match"] = {
+        "name": "tcam_match", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tcam_match.cu",
+        "replaces": "src/repro/kernels/tcam_match.py:38",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+    emit({"phase": "tcam", "ok": True, "n": N_ROWS,
+          "path_launches": launches, "members": int(sel.sum()),
+          "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms})
+
+
+def profile_window(dqn, st, out_dir: str, phase: str,
+                   steps: int = 20) -> dict:
     """Trace ``steps`` more agent steps with torch.profiler: device busy
     time per step (sum of kernel times, one stream), the idle share, the
     top kernels and the host time of the replay draw span."""
@@ -254,8 +390,9 @@ def profile_window(dqn, st, out_dir: str, steps: int = 20) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "fused_steps_trace.json"))
-    span_names = ("replay_sample", "csp_rebuild")
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          f"{phase}_steps_trace.json"))
+    span_names = ("replay_sample", "csp_rebuild", "sharded_sample")
     events = prof.key_averages()
     # Span ranges also show up on the device timeline; they are not kernels.
     kernels = [(e.key, e.self_device_time_total, e.count) for e in events
@@ -320,19 +457,36 @@ def prng_window(dqn, st, steps: int = 50):
                 "prng_share": prng_ms / (wall / steps * 1e3)}
 
 
-def train_phase(state: dict, phase: str, fr_mode: str, steps: int,
-                kernel: str, trace_dir: str | None = None,
-                steady_steps: int = 200) -> None:
+def broadcast_twin(sampler):
+    """The same sampler with the plain ``broadcast`` match (no kernel)."""
+    from repro_torch.core import amper, sharded
+
+    cfg = sampler.cfg._replace(fr_mode="broadcast")
+    if isinstance(sampler, sharded.ShardedAmperSampler):
+        return sharded.ShardedAmperSampler(
+            cfg, sampler.mesh, axis_names=sampler.axis_names,
+            local_csp_capacity=sampler.local_csp_capacity)
+    return amper.AmperSampler(cfg, device=sampler.device)
+
+
+def train_phase(state: dict, phase: str, steps: int, kernels: dict,
+                trace_dir: str | None = None, steady_steps: int = 200,
+                mesh=None, **cfg_kw) -> None:
+    """Train DQN on CartPole with a 1M replay through ``dqn.train`` and
+    check that the run launched each kernel ``kernels[name]`` times per
+    learn step; then time steady learn steps, the host PRNG and the
+    draw, and hold the draw on the trained buffer (indices and IS
+    weights) against the same sampler's plain broadcast match."""
     from repro_torch import prng
-    from repro_torch.core import amper
+    from repro_torch.core.replay_buffer import ReplayBuffer
     from repro_torch.kernels import ops
     from repro_torch.models.qhead import tree_leaves
     from repro_torch.rl.dqn import DQNConfig, make_dqn
 
-    cfg = DQNConfig(env="cartpole", sampler="amper-fr", amper_fr_mode=fr_mode,
-                    num_envs=16, replay_size=N_ROWS, batch=64, hidden=128,
-                    v_max=8.0, learn_start=100)
-    dqn = make_dqn(cfg, device="cuda")
+    cfg = DQNConfig(env="cartpole", num_envs=16, replay_size=N_ROWS,
+                    batch=64, hidden=128, v_max=8.0, learn_start=100,
+                    **cfg_kw)
+    dqn = make_dqn(cfg, device="cuda", mesh=mesh)
     key = prng.key(SEED)
     # Set-up alone: the 1M-row replay and sampler state, params, env reset.
     torch.cuda.synchronize()
@@ -349,9 +503,12 @@ def train_phase(state: dict, phase: str, fr_mode: str, steps: int,
     launches = dict(ops.launches)
     learn_steps = sum(1 for t in range(steps)
                       if t >= cfg.learn_start and t % cfg.train_every == 0)
-    if launches[kernel] < learn_steps:
-        fail(phase, f"{kernel} launched {launches[kernel]} times in "
-             f"{learn_steps} learn steps")
+    for kernel, per_step in kernels.items():
+        if launches[kernel] != per_step * learn_steps:
+            fail(phase, f"{kernel} launched {launches[kernel]} times in "
+                 f"{learn_steps} learn steps, not {per_step} a step")
+        state["launches"][kernel] = (state["launches"].get(kernel, 0)
+                                     + launches[kernel])
     flat = tree_leaves(st.params)
     if not all(bool(torch.isfinite(t).all()) for t in flat):
         fail(phase, "non-finite params")
@@ -372,23 +529,52 @@ def train_phase(state: dict, phase: str, fr_mode: str, steps: int,
     k = prng.key(SEED + 1)
     buf = st.buffer
     draw_ms = wall_ms(lambda: dqn.replay.sample(buf, k, cfg.batch))
-    idx = dqn.replay.sampler.sample(buf.sampler_state, k, cfg.batch)
-    plain = amper.AmperSampler(
-        dqn.replay.sampler.cfg._replace(fr_mode="broadcast"), device="cuda")
-    idx_p = plain.sample(buf.sampler_state, k, cfg.batch)
-    if not torch.equal(idx, idx_p):
-        fail(phase, f"{fr_mode} draw != broadcast draw on the trained buffer")
-    state["launches"][kernel] = launches[kernel]
+    idx, _, w = dqn.replay.sample(buf, k, cfg.batch)
+    plain = ReplayBuffer(cfg.replay_size, broadcast_twin(dqn.replay.sampler),
+                         alpha=cfg.alpha, beta=cfg.beta)
+    idx_p, _, w_p = plain.sample(buf, k, cfg.batch)
+    if not torch.equal(idx, idx_p) or not torch.equal(w, w_p):
+        fail(phase, f"{phase} draw != broadcast draw on the trained buffer")
     if trace_dir is not None:
         emit({"phase": f"{phase}_profile", "ok": True,
-              **profile_window(dqn, st, trace_dir)})
-    emit({"phase": phase, "ok": True, "fr_mode": fr_mode, "steps": steps,
-          "learn_steps": learn_steps, "launches": launches,
+              **profile_window(dqn, st, trace_dir, phase)})
+    emit({"phase": phase, "ok": True, "sampler": cfg.sampler,
+          "fr_mode": cfg.amper_fr_mode,
+          "shards": getattr(dqn.replay.sampler, "n_shards", 1),
+          "steps": steps, "learn_steps": learn_steps, "launches": launches,
           "init_s": init_s, "train_s": train_s,
           "steady_steps": steady_steps, "steps_per_s": 1e3 / step_ms,
           "step_ms": step_ms, "draw_ms": draw_ms,
           "draw_share": draw_ms / step_ms, **prng_stats,
           "loss_last": float(losses[-1]), "replay_rows": int(buf.size)})
+
+
+def per_sharded_run(mesh, steps: int = 100) -> None:
+    """A short DQN run with the sharded PER baseline on the same mesh:
+    finite returns, losses and params."""
+    from repro_torch import prng
+    from repro_torch.models.qhead import tree_leaves
+    from repro_torch.rl.dqn import DQNConfig, make_dqn
+
+    cfg = DQNConfig(env="cartpole", sampler="per-sharded", num_envs=16,
+                    replay_size=N_ROWS, batch=64, hidden=128,
+                    learn_start=50)
+    dqn = make_dqn(cfg, device="cuda", mesh=mesh)
+    t0 = time.perf_counter()
+    st, metrics = dqn.train(prng.key(SEED), steps)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    returns = torch.stack(metrics["return_mean"])
+    losses = torch.stack(metrics["loss"])[cfg.learn_start:]
+    if not (bool(torch.isfinite(returns).all())
+            and bool(torch.isfinite(losses).all())
+            and all(bool(torch.isfinite(t).all())
+                    for t in tree_leaves(st.params))):
+        fail("sharded", "per-sharded run: non-finite returns, loss or params")
+    emit({"phase": "sharded_per", "ok": True, "sampler": cfg.sampler,
+          "shards": dqn.replay.sampler.n_shards, "steps": steps,
+          "train_s": train_s, "return_mean_last": float(returns[-1]),
+          "loss_last": float(losses[-1])})
 
 
 def main(argv=None) -> int:
@@ -416,15 +602,26 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     state = {"smi": nvidia_smi_line(), "kernels": {}, "launches": {}}
     for name, fn in (("device", phase_device), ("match", phase_match),
-                     ("sample", phase_sample)):
+                     ("sample", phase_sample), ("rank", phase_rank),
+                     ("tcam", phase_tcam)):
         if name in phases:
             fn(state)
+    trace_dir = args.trace_dir if args.profile else None
     if "fused" in phases:
-        train_phase(state, "fused", "fused", 500, "amper_sample",
-                    args.trace_dir if args.profile else None)
+        train_phase(state, "fused", 500, {"amper_sample": 1}, trace_dir,
+                    sampler="amper-fr", amper_fr_mode="fused")
     if "kernel" in phases:
-        train_phase(state, "kernel", "kernel", 150, "multi_query_match",
-                    args.trace_dir if args.profile else None)
+        train_phase(state, "kernel", 150, {"multi_query_match": 1}, trace_dir,
+                    sampler="amper-fr", amper_fr_mode="kernel")
+    if "sharded" in phases:
+        from repro_torch.distributed.sharding import Mesh
+
+        mesh = Mesh([torch.device("cuda", 0)] * SHARDS)
+        train_phase(state, "sharded", 400,
+                    {"multi_query_match": SHARDS, "rank_select": SHARDS},
+                    trace_dir, mesh=mesh, sampler="amper-fr-sharded",
+                    amper_fr_mode="fused")
+        per_sharded_run(mesh)
     rows = []
     for name, row in state["kernels"].items():
         rows.append({**row, "launches": state["launches"].get(name, 0)})

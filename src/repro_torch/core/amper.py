@@ -137,15 +137,18 @@ def _ranges(pq: torch.Tensor, key: torch.Tensor, cfg: AmperConfig):
     return lo.to(pq.device), hi.to(pq.device), kroll
 
 
-def build_csp_fr(pq: torch.Tensor, valid: torch.Tensor, key: torch.Tensor,
-                 cfg: AmperConfig) -> CspResult:
-    """AMPER-fr CSP construction (Algorithm 1, lines 2-3, 9-12)."""
+def fr_match(pq: torch.Tensor, valid: torch.Tensor, v_rep: torch.Tensor,
+             cfg: AmperConfig) -> torch.Tensor:
+    """The m-query AMPER-fr match of one table: bool[n] membership.
+
+    ``"broadcast"`` compares in PyTorch; ``"kernel"`` and ``"fused"`` run
+    the m-range match kernel (a prefix query with don't-care mask M is
+    the inclusive range [q & ~M, (q & ~M) | M], so all modes agree).
+    """
     if cfg.fr_mode in ("kernel", "fused"):
-        # "fused" differs only on the sampling path; an explicit CSP build
-        # shares the match kernel.
-        return build_csp_fr_kernel(pq, valid, key, cfg)
-    kv, kroll = prng.split(key)
-    v_rep = group_representatives(kv, cfg)
+        lo, hi = (t.to(pq.device) for t in fr_intervals(v_rep, cfg))
+        sel, _counts = ops.multi_query_match(pq, valid, lo, hi)
+        return sel
     if cfg.exact_radius:
         vq = qz.quantize(v_rep, cfg.v_max, cfg.frac_bits).to(pq.device)
         radius = fr_radii(v_rep, cfg).to(pq.device)
@@ -153,17 +156,17 @@ def build_csp_fr(pq: torch.Tensor, valid: torch.Tensor, key: torch.Tensor,
     else:
         vq, mask = (t.to(pq.device) for t in fr_queries(v_rep, cfg))
         match = qz.ternary_match(pq[None, :], vq[:, None], mask[:, None])
-    return _compact(match.any(0) & valid, cfg.csp_capacity, kroll)
+    return match.any(0) & valid
 
 
-def build_csp_fr_kernel(pq: torch.Tensor, valid: torch.Tensor,
-                        key: torch.Tensor, cfg: AmperConfig) -> CspResult:
-    """AMPER-fr through the m-range match kernel, bit-identical to
-    :func:`build_csp_fr` (a prefix query with don't-care mask M is the
-    inclusive range [q & ~M, (q & ~M) | M])."""
-    lo, hi, kroll = _ranges(pq, key, cfg)
-    sel, _counts = ops.multi_query_match(pq, valid, lo, hi)
-    return _compact(sel, cfg.csp_capacity, kroll)
+def build_csp_fr(pq: torch.Tensor, valid: torch.Tensor, key: torch.Tensor,
+                 cfg: AmperConfig) -> CspResult:
+    """AMPER-fr CSP construction (Algorithm 1, lines 2-3, 9-12).  The
+    ``"fused"`` mode differs only on the sampling path; an explicit CSP
+    build shares the match kernel."""
+    kv, kroll = prng.split(key)
+    selected = fr_match(pq, valid, group_representatives(kv, cfg), cfg)
+    return _compact(selected, cfg.csp_capacity, kroll)
 
 
 def pick_uniform(bits: torch.Tensor, bound) -> torch.Tensor:

@@ -2,7 +2,10 @@
 
 Counterpart of ``repro/core/replay_buffer.py`` for the flat (vector
 observation) path; the frame-deduplicated pixel store waits for a later
-slice of the port.
+slice of the port.  Any registry sampler plugs in, the sharded kinds
+included: the buffer reads the priorities only through the sampler's
+dense ``priorities`` view, and keeps the transitions themselves on the
+sampler's (lead) device.
 
 The buffer stores a dict of tensors with a leading capacity dim.  New
 transitions enter with the running maximum priority; sampled ones get

@@ -23,6 +23,9 @@ import torch
 from repro_torch.core import quantize as qz
 from repro_torch.core.amper import (AmperConfig, AmperSampler,
                                     UniformSampler, last_writer)
+from repro_torch.core.per import CumsumPER, SumTreePER
+from repro_torch.core.sharded import ShardedAmperSampler, ShardedPERSampler
+from repro_torch.distributed.sharding import default_mesh
 
 
 @runtime_checkable
@@ -93,6 +96,16 @@ def _build_uniform(capacity: int, *, device="cuda", **_unused) -> Sampler:
     return UniformSampler(capacity, device=device)
 
 
+@register_sampler("per-sumtree")
+def _build_sumtree(capacity: int, *, device="cuda", **_unused) -> Sampler:
+    return SumTreePER(capacity, device=device)
+
+
+@register_sampler("per-cumsum", "per")
+def _build_cumsum(capacity: int, *, device="cuda", **_unused) -> Sampler:
+    return CumsumPER(capacity, device=device)
+
+
 def _amper_config(capacity: int, *, m: int = 20, lam_fr: float = 2.0,
                   csp_ratio: float = 0.15, v_max: float = 1.0,
                   csp_capacity: int | None = None, min_csp: int = 64,
@@ -111,3 +124,23 @@ def _amper_config(capacity: int, *, m: int = 20, lam_fr: float = 2.0,
 def _build_amper_fr(capacity: int, *, device="cuda", **kw) -> Sampler:
     return AmperSampler(_amper_config(capacity, **kw), variant="fr",
                         device=device)
+
+
+@register_sampler("amper-fr-sharded")
+def _build_amper_fr_sharded(capacity: int, *, mesh=None,
+                            axis_names=("pod", "data"),
+                            local_csp_capacity: int | None = None,
+                            device="cuda", **kw) -> Sampler:
+    return ShardedAmperSampler(
+        _amper_config(capacity, **kw),
+        mesh if mesh is not None else default_mesh(device),
+        axis_names=axis_names, local_csp_capacity=local_csp_capacity)
+
+
+@register_sampler("per-sharded")
+def _build_per_sharded(capacity: int, *, mesh=None,
+                       axis_names=("pod", "data"), device="cuda",
+                       **_unused) -> Sampler:
+    return ShardedPERSampler(
+        capacity, mesh if mesh is not None else default_mesh(device),
+        axis_names=axis_names)

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.amper import AmperState, UniformState
+from repro_torch.core.per import CumsumState, SumTreeState
 from repro_torch.core.replay_buffer import NStepState, ReplayState
 from repro_torch.models.qhead import tree_map
 from repro_torch.rl.dqn import AgentState
@@ -30,18 +31,29 @@ def params_from_jax(params, device="cuda"):
     return tree_map(lambda x: to_tensor(x, device).to(torch.float32), params)
 
 
-def _sampler_state(s, device):
+def _sampler_state(s, device, sampler=None):
+    """A reference sampler state as the port's.  A sharded sampler
+    (``sampler.from_dense``) splits the reference's global arrays into
+    its per-shard layout; the rest of the state goes to ``device``."""
+    if sampler is not None and hasattr(sampler, "from_dense"):
+        return sampler.from_dense(*(to_tensor(x, device) for x in s))
+    if hasattr(s, "tree"):
+        return SumTreeState(tree=to_tensor(s.tree, device),
+                            n_leaves=to_tensor(s.n_leaves, device))
     if hasattr(s, "pq"):
         return AmperState(pq=to_tensor(s.pq, device),
                           valid=to_tensor(s.valid, device))
     if hasattr(s, "priorities") and hasattr(s, "valid"):
         return UniformState(priorities=to_tensor(s.priorities, device),
                             valid=to_tensor(s.valid, device))
+    if type(s).__name__ == "CumsumState":
+        return CumsumState(priorities=to_tensor(s.priorities, device))
     raise TypeError(f"no port of sampler state {type(s).__name__}")
 
 
-def replay_state_from_jax(rs, device="cuda") -> ReplayState:
-    """A reference ``ReplayState`` (numpy leaves) as the port's."""
+def replay_state_from_jax(rs, device="cuda", sampler=None) -> ReplayState:
+    """A reference ``ReplayState`` (numpy leaves) as the port's; pass the
+    port's ``sampler`` for a sharded sampler state."""
     nstep = None
     if rs.nstep is not None:
         nstep = NStepState(
@@ -49,7 +61,7 @@ def replay_state_from_jax(rs, device="cuda") -> ReplayState:
             count=int(rs.nstep.count), pos=int(rs.nstep.pos))
     return ReplayState(
         storage={k: to_tensor(v, device) for k, v in rs.storage.items()},
-        sampler_state=_sampler_state(rs.sampler_state, device),
+        sampler_state=_sampler_state(rs.sampler_state, device, sampler),
         pos=int(rs.pos), size=int(rs.size),
         max_priority=to_tensor(rs.max_priority, device),
         write_stamp=to_tensor(rs.write_stamp, device),
@@ -58,16 +70,17 @@ def replay_state_from_jax(rs, device="cuda") -> ReplayState:
         add_gen=int(rs.add_gen), nstep=nstep)
 
 
-def agent_state_from_jax(st, device="cuda") -> AgentState:
+def agent_state_from_jax(st, device="cuda", sampler=None) -> AgentState:
     """A reference DQN ``AgentState`` (numpy leaves) as the port's:
     params, target, Adam moments, replay buffer with sampler state, env
-    state, observations and counters."""
+    state, observations and counters.  Pass the port agent's sampler
+    (``dqn.replay.sampler``) when it is a sharded one."""
     return AgentState(
         params=params_from_jax(st.params, device),
         target_params=params_from_jax(st.target_params, device),
         opt_m=params_from_jax(st.opt_m, device),
         opt_v=params_from_jax(st.opt_v, device),
-        buffer=replay_state_from_jax(st.buffer, device),
+        buffer=replay_state_from_jax(st.buffer, device, sampler),
         env_state=EnvState(x=to_tensor(st.env_state.x, device),
                            t=to_tensor(st.env_state.t, device)),
         obs=to_tensor(st.obs, device),

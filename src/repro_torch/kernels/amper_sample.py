@@ -1,11 +1,15 @@
-"""The whole AMPER-fr draw as a CUDA kernel for Hopper, and its plain version.
+"""The whole AMPER-fr draw and the rank select as CUDA kernels for Hopper.
 
-Counterpart of ``repro/kernels/amper_sample.py::amper_sample`` (the
-Pallas kernel ``amper_sample_kernel``, ``amper_sample.py:103``).  The
-kernel source is ``csrc/amper_sample.cu``, whose header gives its bound
-and design, including its in-kernel threefry (bit-exact with
-:mod:`repro_torch.prng`).  Callers go through
-:func:`repro_torch.kernels.ops.amper_sample`.
+Counterpart of ``repro/kernels/amper_sample.py``: ``amper_sample`` (the
+Pallas kernel ``amper_sample_kernel``, ``amper_sample.py:103``) and
+``rank_select`` (``rank_select_kernel``, ``:276``).  The kernel sources
+are ``csrc/amper_sample.cu`` and ``csrc/rank_select.cu``, whose headers
+give their bounds and designs; they share the rank-select scheme of
+``csrc/common.cuh``, and the draw has an in-kernel threefry (bit-exact
+with :mod:`repro_torch.prng`).  Callers go through
+:func:`repro_torch.kernels.ops.amper_sample` and
+:func:`repro_torch.kernels.ops.rank_select`; the plain rank select is
+:func:`repro_torch.kernels.ref.rank_select_ref`.
 
 :func:`amper_sample_ref` is the reference semantics written out: roll
 the match by ``-shift``, compact it into a fixed-size CSP, pick from it.
@@ -15,7 +19,6 @@ against each other checks that identity instead of repeating it.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -56,16 +59,10 @@ def amper_sample_ref(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
     return idx, stats
 
 
-@functools.cache
-def _lib():
-    lib = build.load("amper_sample")
-    fn = lib.amper_sample_launch
-    fn.argtypes = [_VP, _VP, _LL, _VP, _VP, _INT, _LL, _UINT, _UINT, _INT,
-                   _INT, _VP, _VP, _VP, _VP]
-    fn.restype = _INT
-    lib.amper_sample_error.argtypes = [_INT]
-    lib.amper_sample_error.restype = ctypes.c_char_p
-    return lib
+# launch arguments of csrc/amper_sample.cu and csrc/rank_select.cu
+_SAMPLE_ARGS = (_VP, _VP, _LL, _VP, _VP, _INT, _LL, _UINT, _UINT, _INT, _INT,
+                _VP, _VP, _VP)
+_RANK_ARGS = (_VP, _VP, _LL, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP)
 
 
 def amper_sample_cuda(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
@@ -73,7 +70,6 @@ def amper_sample_cuda(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
                       batch: int, csp_capacity: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the three kernels on CUDA tensors checked by the wrapper."""
-    lib = _lib()
     n = pq.shape[0]
     dev = pq.device
     nblk = -(-n // TILE_ROWS)
@@ -81,12 +77,25 @@ def amper_sample_cuda(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
     stats = torch.empty(4, dtype=torch.int32, device=dev)
     scratch = torch.empty(4 * nblk + 2 * batch, dtype=torch.int32, device=dev)
     k0, k1 = prng.key_data(key).tolist()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.amper_sample_launch(
-        pq.data_ptr(), valid.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
-        lo.shape[0], shift, k0, k1, batch, csp_capacity, idx.data_ptr(),
-        stats.data_ptr(), scratch.data_ptr(), stream)
-    if code:
-        raise RuntimeError("amper_sample launch failed: "
-                           + lib.amper_sample_error(code).decode())
+    build.launch("amper_sample", _SAMPLE_ARGS, dev, pq.data_ptr(),
+                 valid.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
+                 lo.shape[0], shift, k0, k1, batch, csp_capacity,
+                 idx.data_ptr(), stats.data_ptr(), scratch.data_ptr())
     return idx, stats
+
+
+def rank_select_cuda(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
+                     hi: torch.Tensor, rank: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the three kernels on CUDA tensors checked by the wrapper."""
+    n = pq.shape[0]
+    dev = pq.device
+    nblk = -(-n // TILE_ROWS)
+    idx = torch.empty(rank.shape[0], dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty(4 * nblk, dtype=torch.int32, device=dev)
+    build.launch("rank_select", _RANK_ARGS, dev, pq.data_ptr(),
+                 valid.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
+                 lo.shape[0], rank.data_ptr(), rank.shape[0], idx.data_ptr(),
+                 count.data_ptr(), scratch.data_ptr())
+    return idx, count

@@ -10,20 +10,24 @@ never loaded.  All sources are compiled
 in parallel, one nvcc each, the first time any kernel is asked for.  No
 source includes PyTorch's headers, so a build takes seconds.
 
-A wrapper passes device pointers as ``c_void_p`` and launches on
-``torch.cuda.current_stream().cuda_stream``; every launch function
-returns ``cudaGetLastError()`` and the wrapper raises on a non-zero code.
-A failed build raises; nothing falls back to a plain version.
+A wrapper passes device pointers as ``c_void_p`` and calls :func:`launch`,
+which makes the tensors' device current and passes its current stream;
+every launch function returns ``cudaGetLastError()`` and :func:`launch`
+raises on a non-zero code.  A failed build raises; nothing falls back to
+a plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -85,7 +89,7 @@ def build_all() -> dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """Load the library of ``csrc/<name>.cu``, building every stale
-    source first.  Callers cache the result."""
+    source first."""
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(src)
@@ -93,3 +97,27 @@ def load(name: str) -> ctypes.CDLL:
         build_all()
     return ctypes.CDLL(str(_target(src)))
 
+
+@functools.cache
+def _entry(name: str, argtypes: tuple):
+    """The typed ``<name>_launch`` (``argtypes`` plus the stream) and
+    ``<name>_error`` functions of ``csrc/<name>.cu``'s library."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def launch(name: str, argtypes: tuple, device: torch.device, *args) -> None:
+    """``<name>_launch(*args, stream)`` from ``csrc/<name>.cu`` (built and
+    loaded at first use) with ``device`` current, on its current stream;
+    raises with ``<name>_error``'s text on a non-zero return code."""
+    fn, err = _entry(name, argtypes)
+    with torch.cuda.device(device):
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if code:
+        raise RuntimeError(f"{name} launch failed: " + err(code).decode())

@@ -16,9 +16,9 @@
 // the ragged tail is masked here.  Each thread takes 4 consecutive rows
 // with one int4 load of pq and one uchar4 load of valid (common.cuh;
 // scalar loads only for the ragged tail), tests the m ranges held in shared
-// memory and writes sel as one uchar4.  Per-range counts are summed in a
-// warp (__reduce_add_sync), then across the block's warps in shared
-// memory, then with one integer atomicAdd per range per block.  Integer
+// memory and writes sel as one uchar4 (store4).  Per-range counts are
+// summed in a warp (__reduce_add_sync), then across the block's warps in
+// shared memory, then with one integer atomicAdd per range per block.  Integer
 // addition is associative, so the counts do not depend on block order
 // (the TPU kernel relied on its sequential grid instead).
 #include <cuda_runtime.h>
@@ -30,10 +30,9 @@ namespace {
 
 using amper::kFull;
 using amper::kMaxRanges;
+using amper::kRowsPerThread;
+using amper::kThreads;
 using amper::load4;
-
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 4;
 
 __global__ void multi_query_match_kernel(
     const int32_t* __restrict__ pq, const uint8_t* __restrict__ valid,
@@ -72,13 +71,7 @@ __global__ void multi_query_match_kernel(
     if (lane == 0 && c) atomicAdd(&s_cnt[i], static_cast<int32_t>(c));
   }
 
-  if (row0 + kRowsPerThread <= n) {
-    *reinterpret_cast<uchar4*>(sel + row0) = make_uchar4(s[0], s[1], s[2], s[3]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k)
-      if (row0 + k < n) sel[row0 + k] = s[k];
-  }
+  amper::store4(sel, n, row0, s);
   __syncthreads();
   for (int i = threadIdx.x; i < m; i += blockDim.x)
     if (s_cnt[i]) atomicAdd(&counts[i], s_cnt[i]);

@@ -15,14 +15,37 @@ import torch
 
 from repro_torch.kernels import amper_sample as _as
 from repro_torch.kernels import tcam_match as _tm
-from repro_torch.kernels.ref import multi_query_match_ref
+from repro_torch.kernels.ref import (multi_query_match_ref, rank_select_ref,
+                                     tcam_match_ref)
 
-launches = {"multi_query_match": 0, "amper_sample": 0}
+launches = {"multi_query_match": 0, "amper_sample": 0, "rank_select": 0,
+            "tcam_match": 0}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def _device_kind(fn: str, tensors, pq, valid=None) -> str:
+    """Check that ``tensors`` share one device and are contiguous, and (on
+    CUDA) that pq starts on a 16-byte and valid on a 4-byte boundary;
+    returns the device type."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{fn}: tensors on several devices: {devices}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{fn}: tensors must be contiguous")
+    kind = pq.device.type
+    if kind not in ("cpu", "cuda"):
+        raise RuntimeError(f"{fn}: no kernel for device {pq.device}; "
+                           "use CPU tensors for the plain version")
+    if kind == "cuda" and (pq.data_ptr() % 16 or (
+            valid is not None and valid.data_ptr() % 4)):
+        raise ValueError(f"{fn}: pq must start on a 16-byte and valid on a "
+                         "4-byte boundary (the kernels load 4 rows at once); "
+                         "pass a fresh tensor, not an offset view")
+    return kind
 
 
 def _check_table(fn: str, pq, valid, lo, hi) -> str:
@@ -38,20 +61,7 @@ def _check_table(fn: str, pq, valid, lo, hi) -> str:
     if lo.ndim != 1 or lo.shape != hi.shape or not 1 <= lo.shape[0] <= 64:
         raise ValueError(f"{fn}: lo/hi must be int32[m] with 1 <= m <= 64, "
                          f"got {tuple(lo.shape)} / {tuple(hi.shape)}")
-    devices = {t.device for t in (pq, valid, lo, hi)}
-    if len(devices) != 1:
-        raise ValueError(f"{fn}: tensors on several devices: {devices}")
-    if not all(t.is_contiguous() for t in (pq, valid, lo, hi)):
-        raise ValueError(f"{fn}: tensors must be contiguous")
-    kind = pq.device.type
-    if kind not in ("cpu", "cuda"):
-        raise RuntimeError(f"{fn}: no kernel for device {pq.device}; "
-                           "use CPU tensors for the plain version")
-    if kind == "cuda" and (pq.data_ptr() % 16 or valid.data_ptr() % 4):
-        raise ValueError(f"{fn}: pq must start on a 16-byte and valid on a "
-                         "4-byte boundary (the kernels load 4 rows at once); "
-                         "pass a fresh tensor, not an offset view")
-    return kind
+    return _device_kind(fn, (pq, valid, lo, hi), pq, valid)
 
 
 def multi_query_match(pq: torch.Tensor, valid: torch.Tensor,
@@ -99,3 +109,52 @@ def amper_sample(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
     launches["amper_sample"] += 1
     return _as.amper_sample_cuda(pq, valid, lo, hi, shift, key, batch=batch,
                                  csp_capacity=csp_capacity)
+
+
+def rank_select(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
+                hi: torch.Tensor, rank: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat index of each ``rank``-th member (index order) of the fused
+    m-range match, in one pass: the per-shard pick of the sharded draw.
+
+    ``rank`` is an int32[b] tensor on the table's device.  Returns
+    ``(idx int32[b], count int32)``: ``count`` is the (untruncated) member
+    count, and ``idx[j]`` is 0 where ``rank[j] < 0`` or ``>= count``
+    (callers mask by ownership).
+    """
+    if rank.dtype != torch.int32 or rank.ndim != 1:
+        raise TypeError(f"rank_select: rank must be int32[b], got "
+                        f"{rank.dtype} {tuple(rank.shape)}")
+    kind = _check_table("rank_select", pq, valid, lo, hi)
+    if rank.device != pq.device or not rank.is_contiguous():
+        raise ValueError("rank_select: rank must be contiguous and on the "
+                         f"table's device {pq.device}, got {rank.device}")
+    if not 1 <= pq.shape[0] < 2 ** 31:
+        raise ValueError(f"rank_select: need 1 <= n < 2^31 rows, got "
+                         f"{pq.shape[0]}")
+    if kind == "cpu":
+        return rank_select_ref(pq, valid, lo, hi, rank)
+    launches["rank_select"] += 1
+    return _as.rank_select_cuda(pq, valid, lo, hi, rank)
+
+
+def tcam_match(pq: torch.Tensor, query, mask) -> torch.Tensor:
+    """One ternary-CAM query over a flat int32[n] table -> bool[n]:
+    ``((pq ^ query) & ~mask) == 0``.
+
+    ``query`` and ``mask`` are ints or int32 scalar tensors on the
+    table's device.
+    """
+    query, mask = (torch.as_tensor(x, dtype=torch.int32, device=pq.device)
+                   if not isinstance(x, torch.Tensor) else x
+                   for x in (query, mask))
+    if pq.dtype != torch.int32 or pq.ndim != 1:
+        raise TypeError(f"tcam_match: pq must be int32[n], got {pq.dtype} "
+                        f"{tuple(pq.shape)}")
+    if (query.dtype != torch.int32 or mask.dtype != torch.int32
+            or query.ndim or mask.ndim):
+        raise TypeError("tcam_match: query and mask must be int32 scalars")
+    if _device_kind("tcam_match", (pq, query, mask), pq) == "cpu":
+        return tcam_match_ref(pq, query, mask)
+    launches["tcam_match"] += 1
+    return _tm.tcam_match_cuda(pq, query, mask)

@@ -42,3 +42,28 @@ def multi_query_match_ref(pq: torch.Tensor, valid: torch.Tensor,
         sel |= match
         counts.append(match.sum(dtype=torch.int32))
     return sel, torch.stack(counts).to(torch.int32)
+
+
+def rank_select_ref(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor, rank: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat index of each ``rank``-th member (index order) of the m-range
+    match: ``(idx int32[b], count int32)``.
+
+    ``count`` is the number of members; ``idx[j]`` is 0 where
+    ``rank[j] < 0`` or ``rank[j] >= count``.  A cumsum of the membership
+    and a binary search keep every shape static.
+    """
+    sel, _ = multi_query_match_ref(pq, valid, lo, hi)
+    cum = torch.cumsum(sel, 0, dtype=torch.int64)
+    count = cum[-1]
+    r = rank.to(torch.int64)
+    hit = (r >= 0) & (r < count)
+    pos = torch.searchsorted(cum, r.clamp(min=0) + 1)
+    idx = torch.where(hit, pos, torch.zeros_like(pos))
+    return idx.to(torch.int32), count.to(torch.int32)
+
+
+def tcam_match_ref(pq: torch.Tensor, query, mask) -> torch.Tensor:
+    """One ternary query over the table: ``((pq ^ query) & ~mask) == 0``."""
+    return ((pq ^ query) & ~mask) == 0

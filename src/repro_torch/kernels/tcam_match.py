@@ -1,15 +1,18 @@
-"""The m-range TCAM match as a CUDA kernel for Hopper.
+"""The TCAM searches as CUDA kernels for Hopper.
 
-Counterpart of ``repro/kernels/tcam_match.py::multi_query_match`` (the
-Pallas kernel ``multi_query_kernel``, ``tcam_match.py:73``).  The kernel
-source is ``csrc/multi_query_match.cu``, whose header gives its bound and
-design; the plain version is :func:`repro_torch.kernels.ref.multi_query_match_ref`.
-Callers go through :func:`repro_torch.kernels.ops.multi_query_match`.
+Counterpart of ``repro/kernels/tcam_match.py``: ``multi_query_match``
+(the Pallas kernel ``multi_query_kernel``, ``tcam_match.py:73``) and the
+single ternary query ``tcam_match`` (``tcam_match_kernel``, ``:38``).
+The kernel sources are ``csrc/multi_query_match.cu`` and
+``csrc/tcam_match.cu``, whose headers give their bounds and designs; the
+plain versions are :func:`repro_torch.kernels.ref.multi_query_match_ref`
+and :func:`repro_torch.kernels.ref.tcam_match_ref`.  Callers go through
+:func:`repro_torch.kernels.ops.multi_query_match` and
+:func:`repro_torch.kernels.ops.tcam_match`.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -17,31 +20,29 @@ from repro_torch.kernels import build
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
-
-@functools.cache
-def _lib():
-    lib = build.load("multi_query_match")
-    fn = lib.multi_query_match_launch
-    fn.argtypes = [_VP, _VP, _LL, _VP, _VP, _INT, _VP, _VP, _VP]
-    fn.restype = _INT
-    lib.multi_query_match_error.argtypes = [_INT]
-    lib.multi_query_match_error.restype = ctypes.c_char_p
-    return lib
+# launch arguments of csrc/multi_query_match.cu and csrc/tcam_match.cu
+_MATCH_ARGS = (_VP, _VP, _LL, _VP, _VP, _INT, _VP, _VP)
+_TCAM_ARGS = (_VP, _LL, _VP, _VP, _VP)
 
 
 def multi_query_match_cuda(pq: torch.Tensor, valid: torch.Tensor,
                            lo: torch.Tensor, hi: torch.Tensor
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors already checked by the wrapper."""
-    lib = _lib()
     n = pq.shape[0]
     sel = torch.empty(n, dtype=torch.bool, device=pq.device)
     counts = torch.zeros(lo.shape[0], dtype=torch.int32, device=pq.device)
-    stream = torch.cuda.current_stream(pq.device).cuda_stream
-    code = lib.multi_query_match_launch(
-        pq.data_ptr(), valid.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
-        lo.shape[0], sel.data_ptr(), counts.data_ptr(), stream)
-    if code:
-        raise RuntimeError("multi_query_match launch failed: "
-                           + lib.multi_query_match_error(code).decode())
+    build.launch("multi_query_match", _MATCH_ARGS, pq.device, pq.data_ptr(),
+                 valid.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
+                 lo.shape[0], sel.data_ptr(), counts.data_ptr())
     return sel, counts
+
+
+def tcam_match_cuda(pq: torch.Tensor, query: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors already checked by the wrapper."""
+    out = torch.empty(pq.shape[0], dtype=torch.bool, device=pq.device)
+    build.launch("tcam_match", _TCAM_ARGS, pq.device, pq.data_ptr(),
+                 pq.shape[0], query.data_ptr(), mask.data_ptr(),
+                 out.data_ptr())
+    return out

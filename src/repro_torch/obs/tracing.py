@@ -1,9 +1,10 @@
 """Named spans on the profiler timeline.
 
-Counterpart of ``repro/obs/tracing.py::span`` for the two call sites the
-replay path has (``csp_rebuild`` and ``replay_sample``).  A span is a
-``torch.profiler.record_function`` range: free when no profiler runs,
-and a named range on the host and device timeline when one does.
+Counterpart of ``repro/obs/tracing.py::span`` for the three call sites
+the replay path has (``csp_rebuild``, ``replay_sample`` and
+``sharded_sample``).  A span is a ``torch.profiler.record_function``
+range: free when no profiler runs, and a named range on the host and
+device timeline when one does.
 """
 from __future__ import annotations
 

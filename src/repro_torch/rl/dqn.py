@@ -13,10 +13,11 @@ PRNG keys are host tensors (:mod:`repro_torch.prng`) consumed exactly as
 the reference consumes its keys, so the two packages take the same
 actions and draw the same replay indices from the same state.
 
-``DQNConfig.amper_fr_mode`` forwards to the AMPER-fr sampler's existing
+``DQNConfig.amper_fr_mode`` forwards to the AMPER-fr samplers' existing
 ``fr_mode`` ("broadcast", "kernel" or "fused"): it is how the training
 path reaches the CUDA kernels.  The default, "broadcast", is what the
-reference's DQN always uses.
+reference's DQN always uses.  The ``per-*`` kinds (``per-sharded``
+included) weight the TD loss by their importance weights.
 
 Scheduling counts loop iterations, not frames: ``learn_start``,
 ``train_every``, ``target_sync`` and ``eps_decay_steps`` are iterations,
@@ -111,7 +112,11 @@ class DQN(NamedTuple):
     example_transition: dict
 
 
-def make_dqn(cfg: DQNConfig, device="cuda") -> DQN:
+def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
+    """Build the agent on ``device``.  ``mesh`` (a
+    :class:`~repro_torch.distributed.sharding.Mesh`) goes to the sharded
+    sampler kinds, e.g. S shards of the replay on one card; its lead
+    device must be ``device``."""
     dev = resolve_device(device)
     env = envs_mod.make_env(cfg.env)
     venv = envs_mod.VectorEnv(env, cfg.num_envs, dev)
@@ -133,7 +138,13 @@ def make_dqn(cfg: DQNConfig, device="cuda") -> DQN:
     sampler = make_sampler(
         cfg.sampler, cfg.replay_size, device=dev, m=cfg.amper_m,
         lam_fr=cfg.amper_lam_fr, csp_ratio=cfg.amper_csp_ratio,
-        v_max=cfg.v_max, min_csp=cfg.batch, fr_mode=cfg.amper_fr_mode)
+        v_max=cfg.v_max, min_csp=cfg.batch, fr_mode=cfg.amper_fr_mode,
+        mesh=mesh)
+    # Compare concrete devices ("cuda" and "cuda:0" are one card).
+    if (torch.empty(0, device=sampler.device).device
+            != torch.empty(0, device=dev).device):
+        raise ValueError(f"the sampler's (lead) device {sampler.device} is "
+                         f"not the agent's device {dev}")
     is_per = cfg.sampler.startswith("per")
     rb = ReplayBuffer(cfg.replay_size, sampler, alpha=cfg.alpha,
                       beta=cfg.beta, n_step=cfg.n_step, gamma=cfg.gamma,

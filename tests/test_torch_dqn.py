@@ -135,19 +135,28 @@ SLICES = [  # sampler, agent, n_step, the port's fr_mode
 ]
 
 
-@pytest.mark.parametrize("sampler,agent,n_step,fr_mode", SLICES)
-def test_thirty_agent_steps_match_reference(sampler, agent, n_step, fr_mode):
+def _dense(x):
+    """A port state field, per-shard tuples joined into one tensor."""
+    return torch.cat(x) if isinstance(x, tuple) else x
+
+
+def thirty_agent_steps(sampler, agent, n_step, fr_mode, mesh=None):
+    """Start the reference and the port from one state and hold them
+    together over 30 ``agent_step``s (see the module docstring).  With a
+    sharded ``sampler``, the caller points the reference's default mesh
+    at the same shard count as the port's ``mesh``."""
     kw = dict(env="cartpole", sampler=sampler, agent=agent, n_step=n_step,
               num_envs=4, replay_size=256, batch=16, hidden=32,
               learn_start=8, target_sync=10)
     jdq = jd.make_dqn(jd.DQNConfig(**kw))
-    tdq = td.make_dqn(td.DQNConfig(**kw, amper_fr_mode=fr_mode), device="cpu")
-    assert tdq.replay.sampler.__class__.__name__ != "AmperSampler" or \
+    tdq = td.make_dqn(td.DQNConfig(**kw, amper_fr_mode=fr_mode), device="cpu",
+                      mesh=mesh)
+    assert getattr(tdq.replay.sampler, "cfg", None) is None or \
         tdq.replay.sampler.cfg.fr_mode == fr_mode
     key = jax.random.key(3)
     js = jdq.init(key)
     ts = interop.agent_state_from_jax(jax.tree.map(np.asarray, js),
-                                      device="cpu")
+                                      device="cpu", sampler=tdq.replay.sampler)
     jkeys = jax.random.split(jax.random.fold_in(key, 1), 30)
     tkeys = prng.split(prng.fold_in(prng.key(3), 1), 30)
     np.testing.assert_array_equal(np.asarray(jax.random.key_data(jkeys)),
@@ -187,14 +196,21 @@ def test_thirty_agent_steps_match_reference(sampler, agent, n_step, fr_mode):
         learned += 1
         np.testing.assert_array_equal(np.asarray(jidx), tm["idx"].numpy())
         _close(jtd, tm["td"])
-        if sampler == "amper-fr":
+        if sampler.startswith("amper-fr"):
             explained = _trace_codes(
-                jb.sampler_state.pq, tb.sampler_state.pq.numpy(), explained,
-                arc if n_step == 1 else [], tm["idx"], np.asarray(jtd),
-                tm["td"], jmax_before, tmax_before, tdq.cfg.v_max)
+                jb.sampler_state.pq, _dense(tb.sampler_state.pq).numpy(),
+                explained, arc if n_step == 1 else [], tm["idx"],
+                np.asarray(jtd), tm["td"], jmax_before, tmax_before,
+                tdq.cfg.v_max)
         else:
-            _close(jb.sampler_state.priorities, tb.sampler_state.priorities)
+            _close(jdq.replay.sampler.priorities(js.buffer.sampler_state),
+                   tdq.replay.sampler.priorities(tb.sampler_state))
     assert learned == 30 - kw["learn_start"]
+
+
+@pytest.mark.parametrize("sampler,agent,n_step,fr_mode", SLICES)
+def test_thirty_agent_steps_match_reference(sampler, agent, n_step, fr_mode):
+    thirty_agent_steps(sampler, agent, n_step, fr_mode)
 
 
 def test_train_and_evaluate_run_on_cpu():
