@@ -12,20 +12,24 @@ the DQN + AMPER-fr agent on CartPole through the fused draw kernel,
 through the match kernel, and through the sharded draw (4 shards on the
 card: the match and rank-select kernels on every shard) with the
 standard 1M-transition replay memory, runs the m group queries of a draw
-as single TCAM searches, and checks that those runs launched the
-kernels.  Steps per second are timed over steady learn steps after each
-run (set-up and warm-up are reported apart), with the host time spent in
-the PRNG beside them.  Each phase prints one JSON line; the line before
+as single TCAM searches, holds the two attention kernels against their
+plain versions at the serving path's shapes and the reference's sweep,
+serves stablelm-1.6b at full width (batch 4, 1024-token prompts, 64
+greedy tokens) through the engine, and checks that those runs launched
+the kernels and that decode agrees with prefill.  Steps per second are
+timed over steady learn steps after each run (set-up and warm-up are
+reported apart), with the host time spent in the PRNG beside them.  Each phase prints one JSON line; the line before
 the last lists the kernels with their timings and bounds, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero without that line.  There is no fallback to the CPU: without a
 CUDA device the script exits with code 2.
 
-``--phases`` picks a subset (device,match,sample,rank,tcam,fused,kernel,
-sharded) for debugging; every phase runs by default.  ``--profile`` adds a
-torch.profiler window after each training phase (device busy and idle
-share per step, top kernels; the chrome trace goes to ``--trace-dir``,
-``profile_out/`` by default).
+``--phases`` picks a subset (device,match,sample,rank,tcam,flash,decode,
+fused,kernel,sharded,serve) for debugging; every phase runs by default.
+``--profile`` adds a torch.profiler window after each training phase and
+over decode steps of the serve phase (device busy and idle share per
+step, launches per step, top kernels; the chrome trace goes to
+``--trace-dir``, ``profile_out/`` by default).
 """
 from __future__ import annotations
 
@@ -42,10 +46,23 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROWS = 1_000_000           # DQN's standard replay memory (Mnih et al. 2015)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
+BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 SHARDS = 4                   # logical shards of the sharded phase, on one card
-PHASES = ("device", "match", "sample", "rank", "tcam", "fused", "kernel",
-          "sharded")
+PHASES = ("device", "match", "sample", "rank", "tcam", "flash", "decode",
+          "fused", "kernel", "sharded", "serve")
+ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
+# The reference's kernel sweep (tests/test_kernels.py) and GQA group 4 at
+# D 128, beside the serving path's own shapes: (b, hq, hkv, s, d, causal,
+# window) and (b, hkv, group, s, d, cur_len).
+FLASH_SWEEP = [(2, 4, 2, 256, 64, True, None), (1, 8, 1, 256, 128, True, None),
+               (2, 4, 4, 256, 128, True, 64), (1, 2, 2, 256, 256, False, None),
+               (1, 4, 2, 300, 64, True, None), (2, 8, 2, 512, 128, True, None)]
+DECODE_SWEEP = [(2, 2, 4, 1024, 64, 700), (1, 1, 8, 512, 128, 512),
+                (2, 4, 1, 300, 96, 37)]
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # as the JAX tests
+DECODE_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 
 
 def emit(obj) -> None:
@@ -370,29 +387,152 @@ def phase_tcam(state: dict) -> None:
           "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms})
 
 
-def profile_window(dqn, st, out_dir: str, phase: str,
-                   steps: int = 20) -> dict:
-    """Trace ``steps`` more agent steps with torch.profiler: device busy
-    time per step (sum of kernel times, one stream), the idle share, the
-    top kernels and the host time of the replay draw span."""
+def attention_inputs(shapes, dtype, seed: int):
+    """Standard-normal tensors of the given shapes on the card, from a
+    seeded generator there."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(sh, generator=gen, device="cuda").to(dtype)
+            for sh in shapes]
+
+
+def attention_bound(nbytes_moved: int, flops: float) -> tuple[float, str]:
+    """The least time (ms) for the bytes at the memory rate and the
+    flops at the bf16 tensor-core rate, and which of the two bounds it."""
+    by_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def check_close(phase: str, case: str, got, want, tol: float) -> float:
+    """max |got - want|, failing the phase outside atol = rtol = tol."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        fail(phase, f"{case}: non-finite kernel output")
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
+        fail(phase, f"{case}: kernel != plain, max |err| {err} > tol {tol}")
+    return err
+
+
+def phase_flash(state: dict) -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+
+    B, H, S, D = SERVE_BATCH, 32, SERVE_PROMPT, 64
+    main = (B, H, H, S, D, True, None)
+    err = 0.0
+    results = []
+    for i, (b, hq, hkv, s, d, causal, window) in enumerate(
+            [main] + FLASH_SWEEP):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attention_inputs(
+                [(b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)], dtype, i)
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            case = (f"b{b} hq{hq} hkv{hkv} s{s} d{d} causal={causal} "
+                    f"window={window} {str(dtype)[6:]}")
+            e = check_close("flash", case, got, want, ATTN_TOL[dtype])
+            err = max(err, e)
+            results.append({"case": case, "max_abs_err": e})
+    # timed at the serving path's prefill shape
+    q, k, v = attention_inputs([(B, H, S, D)] * 3, torch.bfloat16, 0)
+    ms = device_time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    plain_ms = device_time_ms(lambda: attention_ref(q, k, v, causal=True),
+                              calls=5, reps=3)
+    library_ms = device_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    out = ops.flash_attention(q, k, v, causal=True)
+    flops = 2 * 2 * S * S * D * B * H / 2  # q k^T and p v, causal half
+    bound_ms, bound_by = attention_bound(nbytes(q, k, v, out), flops)
+    state["kernels"]["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    emit({"phase": "flash", "ok": True, "cases": results,
+          "timed": {"b": B, "h": H, "s": S, "d": D, "dtype": "bfloat16",
+                    "causal": True},
+          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "bytes": nbytes(q, k, v, out), "flops": flops,
+          "kernel_tflops": flops / ms / 1e9})
+
+
+def phase_decode(state: dict) -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    B, H, D = SERVE_BATCH, 32, 64
+    s_max = SERVE_PROMPT + SERVE_GEN + 1
+    main = [(B, H, 1, s_max, D, s_max - 1), (B, H, 1, s_max, D, 37)]
+    err = 0.0
+    results = []
+    for i, (b, hkv, g, s, d, cur) in enumerate(main + DECODE_SWEEP):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attention_inputs(
+                [(b, hkv, g, d), (b, hkv, s, d), (b, hkv, s, d)], dtype,
+                100 + i)
+            cur_len = torch.tensor(cur, dtype=torch.int32, device="cuda")
+            got = ops.decode_attention(q, k, v, cur_len)
+            want = decode_attention_ref(q, k, v, cur_len)
+            torch.cuda.synchronize()
+            case = f"b{b} hkv{hkv} group{g} s{s} d{d} cur{cur} {str(dtype)[6:]}"
+            e = check_close("decode", case, got, want, DECODE_TOL[dtype])
+            err = max(err, e)
+            results.append({"case": case, "max_abs_err": e})
+    # timed at the last decode step of the serving path's generate
+    cur = s_max - 1
+    q, k, v = attention_inputs([(B, H, 1, D), (B, H, s_max, D),
+                                (B, H, s_max, D)], torch.bfloat16, 7)
+    cur_len = torch.tensor(cur, dtype=torch.int32, device="cuda")
+    ms = device_time_ms(lambda: ops.decode_attention(q, k, v, cur_len))
+    plain_ms = device_time_ms(lambda: decode_attention_ref(q, k, v, cur_len),
+                              calls=10, reps=3)
+    k_live, v_live = k[:, :, :cur], v[:, :, :cur]
+    library_ms = device_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k_live, v_live, is_causal=False, enable_gqa=True))
+    out = ops.decode_attention(q, k, v, cur_len)
+    # the live rows of the cache, q, cur_len and the output, each once
+    moved = nbytes(q, out, cur_len) + 2 * k_live.numel() * k.element_size()
+    bound_ms, bound_by = attention_bound(moved, 2 * 2 * cur * D * B * H)
+    state["kernels"]["decode_attention"] = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:28",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    emit({"phase": "decode", "ok": True, "cases": results,
+          "timed": {"b": B, "hkv": H, "group": 1, "s": s_max, "d": D,
+                    "cur_len": cur, "dtype": "bfloat16"},
+          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+          "kernel_gb_per_s": moved / ms / 1e6})
+
+
+def profile_steps(step, steps: int, out_dir: str, name: str,
+                  span_names: tuple) -> dict:
+    """Trace ``steps`` calls of ``step()`` with torch.profiler: device busy
+    time per step (sum of kernel times, one stream), the idle share,
+    kernel launches per step, the top kernels and the host time of the
+    named spans.  The chrome trace goes to ``out_dir``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import prng
-
-    keys = prng.split(prng.key(SEED + 2), steps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for k in keys:
-            st, _ = dqn.agent_step(st, k)
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir,
-                                          f"{phase}_steps_trace.json"))
-    span_names = ("replay_sample", "csp_rebuild", "sharded_sample")
+    prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
     events = prof.key_averages()
     # Span ranges also show up on the device timeline; they are not kernels.
     kernels = [(e.key, e.self_device_time_total, e.count) for e in events
@@ -410,6 +550,21 @@ def profile_window(dqn, st, out_dir: str, phase: str,
             "top_kernels": [{"name": n[:80], "ms_per_step": t / steps / 1e3,
                              "calls_per_step": c / steps}
                             for n, t, c in top]}
+
+
+def profile_window(dqn, st, out_dir: str, phase: str,
+                   steps: int = 20) -> dict:
+    """Trace ``steps`` more agent steps (see ``profile_steps``)."""
+    from repro_torch import prng
+
+    keys = iter(prng.split(prng.key(SEED + 2), steps))
+    box = [st]
+
+    def step():
+        box[0], _ = dqn.agent_step(box[0], next(keys))
+
+    return profile_steps(step, steps, out_dir, f"{phase}_steps",
+                         ("replay_sample", "csp_rebuild", "sharded_sample"))
 
 
 def prng_window(dqn, st, steps: int = 50):
@@ -577,12 +732,149 @@ def per_sharded_run(mesh, steps: int = 100) -> None:
           "loss_last": float(losses[-1])})
 
 
+# Decode vs prefill in float32, relative to max |logit|.  Both paths are
+# float32 throughout (TF32 off) and differ only in the order of their sums
+# (GEMM vs GEMV, the flash vs the decode kernel).  Sound runs on the H100
+# read 8.4e-7; 1e-5 is about 12x that, and tight enough that one key of a
+# few hundred masked wrongly, or one stale cache row far from the live end,
+# fails the check, while a wrong position or mask moves logits by
+# O(max |logit|).
+SERVE_F32_TOL = 1e-5
+
+
+def decode_vs_prefill(engine, prompts, steps: int) -> dict:
+    """Greedy-decode ``steps`` tokens after a prefill of ``prompts``, and
+    hold the logits of each decode step against the last-position logits
+    of a prefill of the same sequence (``tests/test_serving.py``'s
+    check).  Returns the largest difference relative to max |logit|."""
+    B, P = prompts.shape
+    max_len = P + steps + 1
+    logits, cache = engine.prefill({"tokens": prompts}, max_len)
+    seq = prompts
+    worst = 0.0
+    for _ in range(steps):
+        tok = torch.argmax(logits, dim=-1).reshape(B, 1).to(torch.int32)
+        seq = torch.cat([seq, tok], dim=1)
+        step_logits, cache = engine.decode(tok, cache)
+        logits = step_logits[:, -1]
+        want, _ = engine.prefill({"tokens": seq}, max_len)
+        scale = float(want.abs().max())
+        worst = max(worst, float((logits - want).abs().max()) / scale)
+    return {"prompt": P, "steps": steps, "max_rel_err": worst,
+            "max_abs_logit": scale, "tol": SERVE_F32_TOL}
+
+
+def phase_serve(state: dict, trace_dir: str | None) -> None:
+    """stablelm-1.6b at full width through ``Model`` + ``Engine``: one
+    greedy generate (the main path, launch counts checked exactly), then
+    prefill and decode timed alone, then decode held against prefill in
+    float32."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_api import Model
+    from repro_torch.models.qhead import tree_leaves
+    from repro_torch.serving import Engine
+
+    cfg = get_config(ARCH)
+    model = Model.from_config(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompts = prng.randint(prng.split(prng.key(SEED + 1), 3)[0],
+                           (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size,
+                           device="cuda")
+    batch = {"tokens": prompts}
+    engine = Engine(model, params)
+    max_len = SERVE_PROMPT + SERVE_GEN + 1
+
+    # The main path, through the engine's entry point.
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.generate(batch, SERVE_GEN)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (SERVE_GEN - 1)}
+    for kernel, n in want.items():
+        if launches[kernel] != n:
+            fail("serve", f"{kernel} launched {launches[kernel]} times in "
+                 f"one generate, not {n}")
+        state["launches"][kernel] = launches[kernel]
+    if tuple(res.tokens.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
+        fail("serve", f"tokens of shape {tuple(res.tokens.shape)} or out "
+             "of the vocabulary")
+    if not bool(torch.isfinite(res.logits_last).all()):
+        fail("serve", "non-finite logits")
+
+    # Prefill and decode timed alone (after the generate warmed them up).
+    prefill_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(batch, max_len)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(logits).all()):
+        fail("serve", "non-finite prefill logits")
+    tok = Engine._choose(logits, 0.0, None, 0)
+    box = [tok, cache]
+
+    def step():
+        lg, box[1] = engine.decode(box[0], box[1])
+        box[0] = Engine._choose(lg[:, -1], 0.0, None, 0)
+
+    steps = SERVE_GEN - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / steps
+    profile = None
+    if trace_dir is not None:
+        logits, cache = engine.prefill(batch, max_len)
+        box[:] = [Engine._choose(logits, 0.0, None, 0), cache]
+        profile = profile_steps(step, 8, trace_dir, "serve_decode",
+                                ("serve_decode", "serve_prefill"))
+        profile["decode_attention_launches_per_token"] = cfg.n_layers
+
+    # Decode against prefill, in float32 at full width on a shorter prompt.
+    engine32 = Engine(Model.from_config(dataclasses.replace(
+        cfg, dtype="float32")), params)
+    check = decode_vs_prefill(engine32, prompts[:, :256], 8)
+    if not check["max_rel_err"] <= SERVE_F32_TOL:
+        fail("serve", f"float32 decode != prefill: {check}")
+    emit({"phase": "serve", "ok": True, "arch": ARCH, "params": n_params,
+          "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+          "max_len": max_len, "init_s": init_s, "generate_s": generate_s,
+          "launches": launches,
+          "prefill_ms": float(np.median(prefill_s)) * 1e3,
+          "prefill_ms_all": [x * 1e3 for x in prefill_s],
+          "decode_ms_per_token": decode_s * 1e3,
+          "tokens_per_s": SERVE_BATCH / decode_s,
+          "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
+          / float(np.median(prefill_s)),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "decode_vs_prefill_f32": check, "profile": profile})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
                     help="after each training phase, trace 20 more steps "
-                         "with torch.profiler")
+                         "with torch.profiler, and 8 decode steps after "
+                         "the serve phase")
     ap.add_argument("--trace-dir", default=os.path.join(ROOT, "profile_out"),
                     help="where --profile writes its chrome trace")
     args = ap.parse_args(argv)
@@ -603,7 +895,8 @@ def main(argv=None) -> int:
     state = {"smi": nvidia_smi_line(), "kernels": {}, "launches": {}}
     for name, fn in (("device", phase_device), ("match", phase_match),
                      ("sample", phase_sample), ("rank", phase_rank),
-                     ("tcam", phase_tcam)):
+                     ("tcam", phase_tcam), ("flash", phase_flash),
+                     ("decode", phase_decode)):
         if name in phases:
             fn(state)
     trace_dir = args.trace_dir if args.profile else None
@@ -622,6 +915,8 @@ def main(argv=None) -> int:
                     trace_dir, mesh=mesh, sampler="amper-fr-sharded",
                     amper_fr_mode="fused")
         per_sharded_run(mesh)
+    if "serve" in phases:
+        phase_serve(state, trace_dir)
     rows = []
     for name, row in state["kernels"].items():
         rows.append({**row, "launches": state["launches"].get(name, 0)})

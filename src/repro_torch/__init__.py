@@ -2,8 +2,9 @@
 
 Mirrors ``repro``'s module names: ``repro_torch.core.amper`` is held
 against ``repro.core.amper`` and so on.  The port imports torch only;
-the kernels of the replay draw are hand-written CUDA for Hopper
-(``kernels/csrc``), built with nvcc at first use.
+the kernels of the replay draw and of LM serving's attention are
+hand-written CUDA for Hopper (``kernels/csrc``), built with nvcc at
+first use.
 
 Entry points take a ``device`` that defaults to ``"cuda"`` and raise if
 CUDA is absent; pass ``device="cpu"`` to run on the CPU, where every

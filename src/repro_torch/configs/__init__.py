@@ -1,0 +1,48 @@
+"""Config registry: ``--arch <id>`` -> ArchConfig.
+
+Counterpart of ``repro/configs/__init__.py``.  Every arch id of the
+reference is known; only those whose model path the port has (the dense
+attention block: ``stablelm-1.6b``) resolve, and the others raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ArchConfig
+
+# arch id -> module name, for the ported ones
+_ARCH_MODULES = {
+    "stablelm-1.6b": "stablelm_1_6b",
+}
+
+# arch id -> the ROADMAP item (queue A) that ports its path
+_NOT_PORTED = {
+    "granite-34b": "A17.1 (the other dense configs)",
+    "phi3-medium-14b": "A17.1 (the other dense configs)",
+    "h2o-danube-3-4b": "A17.2 (sliding-window and prefix-LM masks at decode)",
+    "deepseek-v2-lite-16b": "A17.3 (MLA)",
+    "deepseek-moe-16b": "A17.4 (MoE)",
+    "rwkv6-7b": "A17.5 (SSM / rwkv)",
+    "hymba-1.5b": "A17.6 (hybrid)",
+    "whisper-tiny": "A17.7 (encoder-decoder)",
+    "paligemma-3b": "A17.8 (VLM prefix)",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES) + tuple(_NOT_PORTED)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet: ROADMAP {_NOT_PORTED[arch_id]}")
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
+    return mod.config()
+
+
+def get_reduced_config(arch_id: str, **overrides) -> ArchConfig:
+    """Tiny same-family variant for CPU smoke tests."""
+    return get_config(arch_id).reduced(**overrides)

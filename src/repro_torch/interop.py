@@ -88,3 +88,27 @@ def agent_state_from_jax(st, device="cuda", sampler=None) -> AgentState:
         episode_return=to_tensor(st.episode_return, device),
         last_returns=to_tensor(st.last_returns, device),
         n_episodes=to_tensor(st.n_episodes, device))
+
+
+def _lm_leaf(x, device) -> torch.Tensor:
+    """A numpy leaf of the reference's LM (float32, int32 or bfloat16,
+    whose numpy type torch cannot read) as a tensor of the same dtype."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return to_tensor(x.astype(np.float32), device).to(torch.bfloat16)
+    return to_tensor(x, device)
+
+
+def lm_params_from_jax(params, device="cuda") -> dict:
+    """The reference LM's param tree (nested dicts of numpy leaves, layers
+    stacked on the leading dim, weights ``(in, out)``) as the port's:
+    the same tree and layout, nothing transposed."""
+    return tree_map(lambda x: _lm_leaf(x, device), params)
+
+
+def lm_cache_from_jax(cache, device="cuda") -> dict:
+    """The reference LM's KV cache (``{"blocks": {"k", "v"}, "len"}``,
+    numpy leaves) as the port's, ``len`` an int32 scalar on ``device``."""
+    return {"blocks": {k: _lm_leaf(v, device)
+                       for k, v in cache["blocks"].items()},
+            "len": _lm_leaf(np.asarray(cache["len"], np.int32), device)}

@@ -1,0 +1,35 @@
+"""Blockwise (flash) attention forward as a CUDA kernel for Hopper.
+
+Counterpart of ``repro/kernels/flash_attention.py`` (the Pallas kernel
+``_flash_fwd_kernel``, ``flash_attention.py:30``, called through
+``flash_attention_fwd`` at ``:72``).  The kernel source is
+``csrc/flash_attention.cu``, whose header gives its bound and design; the
+plain version is :func:`repro_torch.kernels.ref.attention_ref`.  Callers
+go through :func:`repro_torch.kernels.ops.flash_attention`, which checks
+the arguments.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# launch arguments of csrc/flash_attention.cu
+_ARGS = (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+         _FLOAT, _INT)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: int | None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors already checked by the wrapper."""
+    b, hq, s, d = q.shape
+    out = torch.empty_like(q)
+    build.launch("flash_attention", _ARGS, q.device, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+                 k.shape[1], s, d, int(causal), window or 0, 1.0 / d ** 0.5,
+                 int(q.dtype == torch.bfloat16))
+    return out

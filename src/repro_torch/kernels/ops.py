@@ -14,12 +14,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import amper_sample as _as
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import tcam_match as _tm
-from repro_torch.kernels.ref import (multi_query_match_ref, rank_select_ref,
+from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
+                                     multi_query_match_ref, rank_select_ref,
                                      tcam_match_ref)
 
 launches = {"multi_query_match": 0, "amper_sample": 0, "rank_select": 0,
-            "tcam_match": 0}
+            "tcam_match": 0, "flash_attention": 0, "decode_attention": 0}
+
+MAX_DECODE_OUTS = 4096  # group * D one decode block holds (the kernel's)
 
 
 def reset_launches() -> None:
@@ -27,24 +32,25 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _device_kind(fn: str, tensors, pq, valid=None) -> str:
+def _device_kind(fn: str, tensors, aligned: dict | None = None) -> str:
     """Check that ``tensors`` share one device and are contiguous, and (on
-    CUDA) that pq starts on a 16-byte and valid on a 4-byte boundary;
-    returns the device type."""
+    CUDA) that each tensor of ``aligned`` (``{name: (tensor, bytes)}``)
+    starts on its boundary; returns the device type."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{fn}: tensors on several devices: {devices}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{fn}: tensors must be contiguous")
-    kind = pq.device.type
+    device = tensors[0].device
+    kind = device.type
     if kind not in ("cpu", "cuda"):
-        raise RuntimeError(f"{fn}: no kernel for device {pq.device}; "
+        raise RuntimeError(f"{fn}: no kernel for device {device}; "
                            "use CPU tensors for the plain version")
-    if kind == "cuda" and (pq.data_ptr() % 16 or (
-            valid is not None and valid.data_ptr() % 4)):
-        raise ValueError(f"{fn}: pq must start on a 16-byte and valid on a "
-                         "4-byte boundary (the kernels load 4 rows at once); "
-                         "pass a fresh tensor, not an offset view")
+    for name, (t, align) in (aligned or {}).items():
+        if kind == "cuda" and t.data_ptr() % align:
+            raise ValueError(f"{fn}: {name} must start on a {align}-byte "
+                             "boundary (the kernel loads whole vectors); "
+                             "pass a fresh tensor, not an offset view")
     return kind
 
 
@@ -61,7 +67,8 @@ def _check_table(fn: str, pq, valid, lo, hi) -> str:
     if lo.ndim != 1 or lo.shape != hi.shape or not 1 <= lo.shape[0] <= 64:
         raise ValueError(f"{fn}: lo/hi must be int32[m] with 1 <= m <= 64, "
                          f"got {tuple(lo.shape)} / {tuple(hi.shape)}")
-    return _device_kind(fn, (pq, valid, lo, hi), pq, valid)
+    return _device_kind(fn, (pq, valid, lo, hi),
+                        {"pq": (pq, 16), "valid": (valid, 4)})
 
 
 def multi_query_match(pq: torch.Tensor, valid: torch.Tensor,
@@ -154,7 +161,88 @@ def tcam_match(pq: torch.Tensor, query, mask) -> torch.Tensor:
     if (query.dtype != torch.int32 or mask.dtype != torch.int32
             or query.ndim or mask.ndim):
         raise TypeError("tcam_match: query and mask must be int32 scalars")
-    if _device_kind("tcam_match", (pq, query, mask), pq) == "cpu":
+    if _device_kind("tcam_match", (pq, query, mask),
+                    {"pq": (pq, 16)}) == "cpu":
         return tcam_match_ref(pq, query, mask)
     launches["tcam_match"] += 1
     return _tm.tcam_match_cuda(pq, query, mask)
+
+
+def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> str:
+    """Validate q, k, v of an attention kernel (one float32 or bfloat16
+    dtype, 4-D, one batch and head dim, a head dim that is a multiple of
+    8 up to 256, one device, contiguous, on CUDA 16-byte aligned);
+    returns the device type."""
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+            q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"{fn}: q, k, v must share one dtype, float32 or "
+                        f"bfloat16, got {q.dtype} / {k.dtype} / {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"{fn}: need 4-D q and k, v of one shape, got "
+                         f"{tuple(q.shape)} / {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    d = q.shape[3]
+    if k.shape[0] != q.shape[0] or k.shape[3] != d:
+        raise ValueError(f"{fn}: q and k differ in batch or head dim: "
+                         f"{tuple(q.shape)} / {tuple(k.shape)}")
+    if d % 8 or not 8 <= d <= 256:
+        raise ValueError(f"{fn}: head dim must be a multiple of 8 in "
+                         f"[8, 256], got {d}")
+    return _device_kind(fn, (q, k, v),
+                        {"q": (q, 16), "k": (k, 16), "v": (v, 16)})
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None
+                    ) -> torch.Tensor:
+    """Blockwise attention forward: q [B, Hq, S, D], k and v
+    [B, Hkv, S, D] with ``Hq % Hkv == 0`` (q head h reads kv head
+    ``h // (Hq // Hkv)``), a causal mask and an optional sliding
+    ``window`` (``qpos - kpos < window``).  Any S; float32 accumulation;
+    output [B, Hq, S, D] in q's dtype."""
+    kind = _check_attention("flash_attention", q, k, v)
+    if k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention: q and k differ in length: "
+                         f"{q.shape[2]} / {k.shape[2]}")
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"flash_attention: Hq = {q.shape[1]} is not a "
+                         f"multiple of Hkv = {k.shape[1]}")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got "
+                         f"{window}")
+    window = None if window is None else int(window)
+    if kind == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    launches["flash_attention"] += 1
+    return _fa.flash_attention_cuda(q, k, v, causal, window)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cur_len) -> torch.Tensor:
+    """One query position against a KV cache: q [B, Hkv, group, D] (the
+    group query heads of each kv head, which share its cache), k and v
+    [B, Hkv, S, D]; keys at ``cur_len`` and past it are masked.
+    ``cur_len`` is an int32 scalar tensor on the cache's device, which
+    the kernel reads there (no host sync).  Returns [B, Hkv, group, D]
+    in q's dtype."""
+    kind = _check_attention("decode_attention", q, k, v)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"decode_attention: q and k differ in kv heads: "
+                         f"{tuple(q.shape)} / {tuple(k.shape)}")
+    if q.shape[2] * q.shape[3] > MAX_DECODE_OUTS:
+        raise ValueError(f"decode_attention: group * D must be <= "
+                         f"{MAX_DECODE_OUTS}, got {q.shape[2]} * "
+                         f"{q.shape[3]}")
+    if (not isinstance(cur_len, torch.Tensor)
+            or cur_len.dtype != torch.int32 or cur_len.ndim
+            or cur_len.device != q.device):
+        got = (f"{cur_len.dtype} {tuple(cur_len.shape)} on {cur_len.device}"
+               if isinstance(cur_len, torch.Tensor)
+               else type(cur_len).__name__)
+        raise TypeError(f"decode_attention: cur_len must be an int32 scalar "
+                        f"tensor on {q.device}, got {got}")
+    if kind == "cpu":
+        return decode_attention_ref(q, k, v, cur_len)
+    launches["decode_attention"] += 1
+    return _da.decode_attention_cuda(q, k, v, cur_len)

@@ -67,3 +67,43 @@ def rank_select_ref(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
 def tcam_match_ref(pq: torch.Tensor, query, mask) -> torch.Tensor:
     """One ternary query over the table: ``((pq ^ query) & ~mask) == 0``."""
     return ((pq ^ query) & ~mask) == 0
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None
+                  ) -> torch.Tensor:
+    """Attention with the softmax written out, in float32; the output is
+    in q's dtype.  q [B, Hq, S, D], k and v [B, Hkv, S, D]; each kv head
+    serves ``Hq // Hkv`` consecutive q heads.  Masks: causal
+    ``qpos >= kpos`` and a sliding ``window`` ``qpos - kpos < window``."""
+    d = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(group, dim=1).to(torch.float32)
+    v = v.repeat_interleave(group, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k) / (d ** 0.5)
+    pos = torch.arange(q.shape[2], device=q.device)
+    mask = torch.ones(q.shape[2], q.shape[2], dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cur_len) -> torch.Tensor:
+    """One query position against a KV cache, in float32; the output is
+    in q's dtype.  q [B, Hkv, group, D] (the group query heads of each kv
+    head), k and v [B, Hkv, S, D]; keys at ``cur_len`` (an int or an
+    int32 scalar tensor on q's device) and past it are masked."""
+    d = q.shape[-1]
+    s = torch.einsum("bkgd,bksd->bkgs", q.to(torch.float32),
+                     k.to(torch.float32)) / (d ** 0.5)
+    live = torch.arange(k.shape[2], device=q.device) < cur_len
+    s = torch.where(live, s, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgs,bksd->bkgd", p,
+                        v.to(torch.float32)).to(q.dtype)

@@ -1,8 +1,9 @@
 """Named spans on the profiler timeline.
 
-Counterpart of ``repro/obs/tracing.py::span`` for the three call sites
-the replay path has (``csp_rebuild``, ``replay_sample`` and
-``sharded_sample``).  A span is a ``torch.profiler.record_function``
+Counterpart of ``repro/obs/tracing.py::span`` for the call sites the
+port has: the replay path's ``csp_rebuild``, ``replay_sample`` and
+``sharded_sample``, and the serving engine's ``serve_prefill`` and
+``serve_decode``.  A span is a ``torch.profiler.record_function``
 range: free when no profiler runs, and a named range on the host and
 device timeline when one does.
 """

@@ -235,14 +235,18 @@ def test_entry_points_refuse_missing_cuda():
 
 @pytest.mark.parametrize("entry", [
     "vector_env", "make_qhead", "mlp_init", "to_tensor", "params_from_jax",
-    "amper_sampler", "uniform_sampler", "make_sampler"])
+    "amper_sampler", "uniform_sampler", "make_sampler", "lm_params_from_jax",
+    "lm_cache_from_jax", "lm_init_cache", "lm_init_params", "serve_cli"])
 def test_each_entry_point_defaults_to_cuda(entry):
     """Left at its default device, every entry point asks for the card,
     so a state built without ``device=`` never lands on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_reduced_config
     from repro_torch.core import amper as ta
     from repro_torch.core import samplers as tsm
+    from repro_torch.launch import serve
+    from repro_torch.models.model_api import Model
 
     calls = {
         "vector_env": lambda: tenvs.VectorEnv(tenvs.make_env("cartpole"), 2),
@@ -255,6 +259,17 @@ def test_each_entry_point_defaults_to_cuda(entry):
         "amper_sampler": lambda: ta.AmperSampler(ta.AmperConfig(capacity=8)),
         "uniform_sampler": lambda: ta.UniformSampler(8),
         "make_sampler": lambda: tsm.make_sampler("amper-fr", 8),
+        "lm_params_from_jax": lambda: interop.lm_params_from_jax(
+            {"embed": np.zeros((4, 2), np.float32)}),
+        "lm_cache_from_jax": lambda: interop.lm_cache_from_jax(
+            {"blocks": {"k": np.zeros((1, 1, 1, 2, 8), np.float32)},
+             "len": np.int32(0)}),
+        "lm_init_cache": lambda: Model.from_config(
+            get_reduced_config("stablelm-1.6b")).init_cache(1, 8),
+        "lm_init_params": lambda: Model.from_config(
+            get_reduced_config("stablelm-1.6b")).init_params(
+                torch.Generator().manual_seed(0)),
+        "serve_cli": lambda: serve.main(["--reduced"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
