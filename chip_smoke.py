@@ -13,7 +13,9 @@ through the match kernel, and through the sharded draw (4 shards on the
 card: the match and rank-select kernels on every shard) with the
 standard 1M-transition replay memory, runs the m group queries of a draw
 as single TCAM searches, holds the two attention kernels against their
-plain versions at the serving path's shapes and the reference's sweep,
+plain versions at the serving path's shapes and the reference's sweep
+(the decode kernel timed with the cache out of L2, as a decode step
+finds it, and in L2 beside it),
 serves stablelm-1.6b at full width (batch 4, 1024-token prompts, 64
 greedy tokens) through the engine, and checks that those runs launched
 the kernels and that decode agrees with prefill.  Steps per second are
@@ -36,6 +38,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -55,12 +58,23 @@ ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
 # The reference's kernel sweep (tests/test_kernels.py) and GQA group 4 at
 # D 128, beside the serving path's own shapes: (b, hq, hkv, s, d, causal,
-# window) and (b, hkv, group, s, d, cur_len).
+# window) and (b, hkv, group, s, d, cur_len).  Flash adds the zoo's head
+# dims 120 (h2o-danube-3-4b, GQA 32/8) and 192, one long prefill, and a
+# window that hides whole kv tiles from some rows of a q tile;
+# decode adds granite-34b's MQA (48 q heads on one kv head, D 128), a
+# cur_len on a split boundary (the serving shape's 224-key chunks) and
+# cur_len 0 (no live key: uniform weights).
 FLASH_SWEEP = [(2, 4, 2, 256, 64, True, None), (1, 8, 1, 256, 128, True, None),
                (2, 4, 4, 256, 128, True, 64), (1, 2, 2, 256, 256, False, None),
-               (1, 4, 2, 300, 64, True, None), (2, 8, 2, 512, 128, True, None)]
+               (1, 4, 2, 300, 64, True, None), (2, 8, 2, 512, 128, True, None),
+               (1, 32, 8, 512, 120, True, None),
+               (1, 16, 16, 256, 192, True, None),
+               (1, 32, 32, 4096, 64, True, None),
+               (2, 4, 4, 700, 64, True, 100)]
 DECODE_SWEEP = [(2, 2, 4, 1024, 64, 700), (1, 1, 8, 512, 128, 512),
-                (2, 4, 1, 300, 96, 37)]
+                (2, 4, 1, 300, 96, 37), (1, 1, 48, 4096, 128, 4000),
+                (4, 32, 1, 1089, 64, 224), (4, 32, 1, 1089, 64, 0)]
+COLD_SETS = 5  # distinct caches a cold-L2 timing rotates over (> 50 MB L2)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # as the JAX tests
 DECODE_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 
@@ -144,6 +158,25 @@ def ranges(device, seed: int = SEED):
     return lo.to(device), hi.to(device)
 
 
+def flash_hgmma():
+    """True when the flash library's SASS holds HGMMA (wgmma)
+    instructions, by ``cuobjdump -sass`` (the phase fails when it holds
+    none); None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    lib = build._target(build.CSRC / "flash_attention.cu")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        fail("device", f"cuobjdump failed: {out.stderr.strip()[:300]}")
+    if "HGMMA" not in out.stdout:
+        fail("device", "no HGMMA in the flash library's SASS")
+    return True
+
+
 def phase_device(state: dict) -> None:
     from repro_torch.kernels import build
 
@@ -153,7 +186,13 @@ def phase_device(state: dict) -> None:
     ptxas = {name: [ln.strip() for ln in text.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, text in reports.items()}
-    emit({"phase": "device", "ok": True,
+    if any("setmaxnreg ignored" in text for text in reports.values()):
+        fail("device", "ptxas ignored setmaxnreg in the flash kernel")
+    for name in ("flash_attention", "decode_attention"):
+        spills = re.findall(r"(\d+) bytes spill stores", reports.get(name, ""))
+        if any(int(n) for n in spills):
+            fail("device", f"ptxas spills registers in {name}")
+    emit({"phase": "device", "ok": True, "flash_sass_hgmma": flash_hgmma(),
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "nvidia_smi": state["smi"], "torch": torch.__version__,
@@ -415,6 +454,19 @@ def check_close(phase: str, case: str, got, want, tol: float) -> float:
     return err
 
 
+def cold_time_ms(fn, sets) -> float:
+    """``device_time_ms`` of ``fn(*inputs)`` with the calls rotating over
+    ``sets`` of distinct inputs, so that each call finds its inputs out of
+    L2 (as a layer does that follows 23 others)."""
+    turn = [0]
+
+    def call():
+        turn[0] = (turn[0] + 1) % len(sets)
+        fn(*sets[turn[0]])
+
+    return device_time_ms(call)
+
+
 def phase_flash(state: dict) -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import attention_ref
@@ -435,7 +487,10 @@ def phase_flash(state: dict) -> None:
                     f"window={window} {str(dtype)[6:]}")
             e = check_close("flash", case, got, want, ATTN_TOL[dtype])
             err = max(err, e)
-            results.append({"case": case, "max_abs_err": e})
+            # flash_attention_launch runs bf16 on the tensor cores
+            kernel = "wgmma" if dtype == torch.bfloat16 else "simt"
+            results.append({"case": case, "kernel": kernel,
+                            "max_abs_err": e})
     # timed at the serving path's prefill shape
     q, k, v = attention_inputs([(B, H, S, D)] * 3, torch.bfloat16, 0)
     ms = device_time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
@@ -463,6 +518,7 @@ def phase_flash(state: dict) -> None:
 
 
 def phase_decode(state: dict) -> None:
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import decode_attention_ref
 
@@ -483,19 +539,33 @@ def phase_decode(state: dict) -> None:
             case = f"b{b} hkv{hkv} group{g} s{s} d{d} cur{cur} {str(dtype)[6:]}"
             e = check_close("decode", case, got, want, DECODE_TOL[dtype])
             err = max(err, e)
-            results.append({"case": case, "max_abs_err": e})
-    # timed at the last decode step of the serving path's generate
+            cut = da.plan(b, hkv, g, s, dtype, da.sm_count(q.device))
+            results.append({"case": case, "splits": cut.n_split,
+                            "chunk": cut.chunk, "group_tiles": cut.n_gt,
+                            "blocks": cut.blocks(b, hkv), "max_abs_err": e})
+    # Timed at the last decode step of the serving path's generate, with
+    # the cache out of L2 (rotating over COLD_SETS caches, 178 MB) as a
+    # decode step finds it, and hot (one cache, 36 MB, stays in L2).
     cur = s_max - 1
-    q, k, v = attention_inputs([(B, H, 1, D), (B, H, s_max, D),
-                                (B, H, s_max, D)], torch.bfloat16, 7)
+    sets = [attention_inputs([(B, H, 1, D), (B, H, s_max, D),
+                              (B, H, s_max, D)], torch.bfloat16, 7 + i)
+            for i in range(COLD_SETS)]
+    q, k, v = sets[0]
     cur_len = torch.tensor(cur, dtype=torch.int32, device="cuda")
-    ms = device_time_ms(lambda: ops.decode_attention(q, k, v, cur_len))
+
+    def sdpa(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k[:, :, :cur], v[:, :, :cur], is_causal=False,
+            enable_gqa=True)
+
+    ms = cold_time_ms(lambda q, k, v: ops.decode_attention(q, k, v, cur_len),
+                      sets)
+    library_ms = cold_time_ms(sdpa, sets)
+    ms_hot = device_time_ms(lambda: ops.decode_attention(q, k, v, cur_len))
+    library_ms_hot = device_time_ms(lambda: sdpa(q, k, v))
     plain_ms = device_time_ms(lambda: decode_attention_ref(q, k, v, cur_len),
                               calls=10, reps=3)
-    k_live, v_live = k[:, :, :cur], v[:, :, :cur]
-    library_ms = device_time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k_live, v_live, is_causal=False, enable_gqa=True))
+    k_live = k[:, :, :cur]
     out = ops.decode_attention(q, k, v, cur_len)
     # the live rows of the cache, q, cur_len and the output, each once
     moved = nbytes(q, out, cur_len) + 2 * k_live.numel() * k.element_size()
@@ -508,8 +578,9 @@ def phase_decode(state: dict) -> None:
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
     emit({"phase": "decode", "ok": True, "cases": results,
           "timed": {"b": B, "hkv": H, "group": 1, "s": s_max, "d": D,
-                    "cur_len": cur, "dtype": "bfloat16"},
+                    "cur_len": cur, "dtype": "bfloat16", "l2": "cold"},
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "kernel_ms_hot_l2": ms_hot, "library_ms_hot_l2": library_ms_hot,
           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
           "kernel_gb_per_s": moved / ms / 1e6})
 

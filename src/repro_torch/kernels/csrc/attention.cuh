@@ -1,13 +1,10 @@
 // Tile loads, conversions and warp reductions shared by the attention
 // kernels (flash_attention.cu, decode_attention.cu).
 //
-// Both kernels stage their tiles in shared memory as float32, whatever
-// the input type (float32 or bfloat16), so the arithmetic after the load
-// is the same for both types and accumulates in float32, as the TPU
-// kernels do.  Rows are read as 16-byte chunks (4 floats or 8 bf16
-// values); the wrappers pass contiguous tensors whose rows are a multiple
-// of 8 values and whose base is 16-byte aligned, so a chunk never
-// straddles two rows.
+// The float32 flash kernel stages its tiles in shared memory through
+// load_tiles.  Rows are read as 16-byte chunks (4 floats); the wrappers
+// pass contiguous tensors whose rows are a multiple of 8 values and whose
+// base is 16-byte aligned, so a chunk never straddles two rows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,31 +14,18 @@
 
 namespace attn {
 
-constexpr int kThreads = 256;        // threads of every attention block
+constexpr int kThreads = 256;        // threads of a float32 flash block
 constexpr int kWarps = kThreads / 32;
 constexpr float kMasked = -1e30f;    // score of a key the mask hides
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct Chunk;  // values in one 16-byte load
 template <> struct Chunk<float> { static constexpr int n = 4; };
-template <> struct Chunk<__nv_bfloat16> { static constexpr int n = 8; };
 
 __device__ __forceinline__ void load16(const float* __restrict__ p,
                                        float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* __restrict__ p,
-                                       float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }

@@ -10,35 +10,44 @@
 // [B, Hkv, S, D], and cur_len an int32 in device memory, read by the
 // kernel as the TPU kernel reads its (1,) operand, so a decode step never
 // waits on the host for it.  float32 or bfloat16 in, float32 arithmetic,
-// output in q's type.
+// output in q's type.  Any group and any head dim the wrappers take.
 //
 // Bound: bytes.  A step must read the cur_len live rows of k and v once:
 // at the serving path's shape (B 4, Hkv 32, group 1, D 64, bf16) that is
-// 33.5 MB at cur_len 1024, 10 us at 3.35 TB/s; the products are 2 flops
-// a byte, far below the card's rate.
+// 35.7 MB at cur_len 1088, 11 us at 3.35 TB/s; the products are 2 flops a
+// byte for group 1, far below the card's rate, so there are no tensor
+// cores here: the work is keeping enough 16-byte loads in flight on every
+// SM.
 //
-// Design: one block per (b, kv head), as the TPU grid's (b, h) axes, with
-// the cache sweep as a loop inside the block (nothing carries between
-// blocks).  Each kv tile (128 keys, or 64 for D > 128) is loaded once,
-// coalesced, into shared memory as float32 (k with a row stride of D + 1
-// so lanes reading different keys hit different banks), and serves every
-// query head of the group from there: the TPU design's point, which
-// matters for MQA (group 8) and GQA (group 4).  Per tile:
-//   * scores: thread t takes (g, key) pairs t, t + 256, ...; keys at or
-//     past cur_len score -1e30 (as the TPU kernel), keys past S -inf;
-//   * softmax: warp w updates rows g = w, w + 8, ... (running max and
-//     denominator in shared memory) and turns the scores into weights;
-//   * p v: the group's G x D outputs are spread over the block; when
-//     they are fewer than 256, the block splits into 256 / (G D) groups
-//     of threads that take every other key, so all threads work, and
-//     their partial sums (rescaled by the same factors) are added at the
-//     end.
-// Tiles that hold no key below cur_len are skipped (the same function:
-// their weights are 0), unless no key is live at all (cur_len <= 0),
-// where every key is masked and the weights are uniform, as in the plain
-// version.  At B Hkv = 128 blocks the card's 132 SMs hold one block each;
-// MQA at small batch fills few SMs, which a split of the cache across
-// blocks (split-KV) would fix in a later kernel.
+// Design: split-KV in one launch.  The grid is (kv split, kv head x group
+// tile, batch); the wrapper picks the split count from S and the shapes
+// (never from cur_len, which stays on the card) so that the card gets
+// about four blocks of 128 threads an SM (serving shape: 5 splits of 224
+// keys, 640 blocks).  A group tile holds up to 8 query heads (4 in
+// float32); a larger group (MQA: 48 heads on one kv head) is spread over
+// several tiles, each reading the cache chunk again (mostly from L2).  In
+// a block:
+//   * each warp takes its own keys, with lanes across D in 16-byte loads
+//     (D 64 bf16: 8 lanes a key, 4 keys a warp-load), two warp-loads a
+//     step, and the next step's loads in flight during this step's math
+//     (registers, double buffered; the first step's are issued before
+//     cur_len is read); no block barrier in the sweep;
+//   * each key slot of a warp keeps its own running (max, sum,
+//     accumulator) per query head in registers, in log2 units (q is
+//     scaled by log2(e) / sqrt(D) on its load);
+//   * slots merge by shuffles and warps through shared memory, once, at
+//     the end; the block writes its float32 partial (max, sum,
+//     accumulator[group][D]) to scratch;
+//   * the last block of each (b, kv head, group tile) to finish (a
+//     __threadfence and an atomicAdd on a per-tile counter, which it
+//     resets to 0) merges the splits and writes the output, divided by
+//     max(sum, 1e-30).  With one split the block writes the output itself.
+// Keys at or past cur_len are left out (the TPU kernel scores them
+// -1e30, which weighs 0 beside any live key): a split past cur_len writes
+// an empty partial (max -inf, sum 0).  If no key is live (cur_len <= 0)
+// every key of S scores -1e30 and the weights are uniform, as in the
+// plain version.  The scratch and the counters are the wrapper's (allocated
+// once per device and size); the kernel allocates nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,170 +58,359 @@
 namespace {
 
 using attn::kMasked;
-using attn::kThreads;
-using attn::kWarps;
 
-constexpr int kMaxOuts = 16 * kThreads;  // group * D a block can hold
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxSplits = 64;  // splits of a call (the wrapper's cap)
+constexpr int kMaxD = 256;
+constexpr float kLog2e = 1.4426950408889634f;
 
-size_t smem_floats(int group, int d, int bkv) {
-  return static_cast<size_t>(group) * d + static_cast<size_t>(bkv) * (d + 1) +
-         static_cast<size_t>(bkv) * d + static_cast<size_t>(group) * bkv +
-         3 * static_cast<size_t>(group);
+template <typename T> struct Vec;  // values in a 16-byte load, chunks a lane
+template <> struct Vec<float> { static constexpr int n = 4, chunks = 2; };
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int n = 8, chunks = 1;
+};
+
+__device__ __forceinline__ void to_float(const uint4& r, float* out, float*) {
+  out[0] = __uint_as_float(r.x);
+  out[1] = __uint_as_float(r.y);
+  out[2] = __uint_as_float(r.z);
+  out[3] = __uint_as_float(r.w);
 }
 
-template <typename T, int PER>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const int32_t* __restrict__ cur_len,
-                        T* __restrict__ o, int group, int s_len, int d,
-                        int bkv, float scale) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* qs = smem;                   // [group][d], scaled
-  float* ks = qs + group * d;         // [bkv][ld]
-  float* vs = ks + bkv * ld;          // [bkv][d]
-  float* ps = vs + bkv * d;           // [group][bkv]: scores, then weights
-  float* m_run = ps + group * bkv;    // [group] running max
-  float* l_run = m_run + group;       // [group] running denominator
-  float* alpha = l_run + group;       // [group] this tile's rescale
+__device__ __forceinline__ void to_float(const uint4& r, float* out,
+                                         __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
 
-  const int h = blockIdx.x, b = blockIdx.y, hkv = gridDim.x;
+// exp2(m - big), 0 for an empty state (m = -inf)
+__device__ __forceinline__ float weight(float m, float big) {
+  return m == -INFINITY ? 0.f : exp2f(m - big);
+}
+
+// The k and v chunks of this lane for the U keys key0 + u kpw (zeros at
+// or past end, or past D).
+template <typename T, int CM, int U>
+__device__ __forceinline__ void load_keys(uint4 (&kr)[U][CM],
+                                          uint4 (&vr)[U][CM],
+                                          const T* __restrict__ kp,
+                                          const T* __restrict__ vp, int key0,
+                                          int kpw, int end, int d,
+                                          const int (&col)[CM]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int key = key0 + u * kpw;
+#pragma unroll
+    for (int c = 0; c < CM; ++c) {
+      if (key < end && col[c] >= 0) {
+        const long long off = static_cast<long long>(key) * d + col[c];
+        kr[u][c] = __ldg(reinterpret_cast<const uint4*>(kp + off));
+        vr[u][c] = __ldg(reinterpret_cast<const uint4*>(vp + off));
+      } else {
+        kr[u][c] = make_uint4(0, 0, 0, 0);
+        vr[u][c] = make_uint4(0, 0, 0, 0);
+      }
+    }
+  }
+}
+
+// GT: query heads of a group tile.  `lanes` lanes share a key (a power of
+// two covering D / V chunks, at most 32, each lane holding up to CM).
+template <typename T, int GT>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       const int32_t* __restrict__ cur_len,
+                       T* __restrict__ o, float* __restrict__ part,
+                       int* __restrict__ counters, int group, int s_len,
+                       int d, int chunk, int lanes, float scale_log2) {
+  constexpr int V = Vec<T>::n, CM = Vec<T>::chunks;
+  constexpr int U = 2;  // keys a slot takes a step
+  __shared__ float sm_acc[kWarps][GT][kMaxD];
+  __shared__ float sm_m[kWarps][GT], sm_l[kWarps][GT];
+  __shared__ float sm_wt[kWarps][GT], sm_big[GT], sm_sum[GT];
+  __shared__ int sm_last;
+
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int n_gt = (group + GT - 1) / GT;
+  const int h = blockIdx.y / n_gt, gtile = blockIdx.y % n_gt;
+  const int hkv = gridDim.y / n_gt, b = blockIdx.z;
   const long long bh = static_cast<long long>(b) * hkv + h;
+  const int g0 = gtile * GT, gact = min(GT, group - g0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kpw = 32 / lanes, slot = lane / lanes;
+  int col[CM];
+#pragma unroll
+  for (int c = 0; c < CM; ++c) {
+    const int j = c * lanes + lane % lanes;
+    col[c] = j < d / V ? j * V : -1;
+  }
+
+  const int c0 = split * chunk;
   const T* kp = k + bh * s_len * d;
   const T* vp = v + bh * s_len * d;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
+  // The first step's loads go out before cur_len is known: keys of the
+  // chunk below S are in bounds, and those at or past cur_len are
+  // dropped by the step's masks.
+  const int step_keys = kWarps * U * kpw;
+  const int first = c0 + warp * U * kpw + slot;
+  uint4 kc[U][CM], vc[U][CM], kn[U][CM], vn[U][CM];
+  load_keys<T, CM, U>(kc, vc, kp, vp, first, kpw, min(c0 + chunk, s_len), d,
+                      col);
   const int cur = *cur_len;
-  const int live = min(cur, s_len);
-  const int n_tiles = ((live > 0 ? live : s_len) + bkv - 1) / bkv;
+  const bool none_live = cur <= 0;  // every key masked: uniform weights
+  const int live = none_live ? s_len : min(cur, s_len);
+  const int end = min(c0 + chunk, live);
 
-  attn::load_tiles<T>(q + bh * group * d, nullptr, 0, group, group, d, scale,
-                      qs, d, nullptr, 0);
-  for (int g = tid; g < group; g += kThreads) {
-    m_run[g] = kMasked;
-    l_run[g] = 0.f;
-  }
-
-  // Outputs owned by this thread: idx = base + span * p, p < PER.
-  const int outs = group * d;
-  const int span = outs < kThreads ? outs : kThreads;
-  const int n_split = kThreads / span;     // groups splitting the keys
-  const int split = tid / span, base = tid % span;
-  const bool active = split < n_split;
-  int og[PER], od[PER];
-  float acc[PER];
+  float qf[GT][CM][V];
 #pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    const int idx = base + span * p;
-    og[p] = idx < outs ? idx / d : -1;
-    od[p] = idx < outs ? idx % d : 0;
-    acc[p] = 0.f;
+  for (int g = 0; g < GT; ++g)
+#pragma unroll
+    for (int c = 0; c < CM; ++c) {
+      if (g < gact && col[c] >= 0) {
+        const uint4 r = *reinterpret_cast<const uint4*>(
+            q + (bh * group + g0 + g) * d + col[c]);
+        to_float(r, qf[g][c], static_cast<T*>(nullptr));
+#pragma unroll
+        for (int i = 0; i < V; ++i) qf[g][c][i] *= scale_log2;
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) qf[g][c][i] = 0.f;
+      }
+    }
+
+  float m[GT], l[GT], acc[GT][CM][V];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CM; ++c)
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[g][c][i] = 0.f;
   }
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * bkv;
-    __syncthreads();  // the last tile's readers are done
-    attn::load_tiles<T>(kp, vp, k0, bkv, s_len, d, 1.f, ks, ld, vs, d);
-    __syncthreads();
-
-    for (int e = tid; e < group * bkv; e += kThreads) {
-      const int g = e / bkv, j = e - g * bkv;
-      const float* qr = qs + g * d;
-      const float* kr = ks + j * ld;
-      float s = 0.f;
-#pragma unroll 8
-      for (int x = 0; x < d; ++x) s = fmaf(qr[x], kr[x], s);
-      const int kpos = k0 + j;
-      ps[e] = kpos >= s_len ? -INFINITY : (kpos < cur ? s : kMasked);
-    }
-    __syncthreads();
-
-    for (int g = warp; g < group; g += kWarps) {
-      float* row = ps + g * bkv;
-      float mt = -INFINITY;
-      for (int j = lane; j < bkv; j += 32) mt = fmaxf(mt, row[j]);
-      const float m_old = m_run[g];
-      const float m_new = fmaxf(m_old, attn::warp_max(mt));
-      float sum = 0.f;
-      for (int j = lane; j < bkv; j += 32) {
-        const float p = expf(row[j] - m_new);
-        row[j] = p;
-        sum += p;
+  // The sweep: at step t, warp w takes keys first + t step_keys + u kpw
+  // (u < U) in its slot, the next step's loads in flight meanwhile.
+  const int n_steps = end > c0 ? (end - c0 + step_keys - 1) / step_keys : 0;
+  for (int t = 0; t < n_steps; ++t) {
+    const int key0 = first + t * step_keys;
+    if (t + 1 < n_steps)
+      load_keys<T, CM, U>(kn, vn, kp, vp, key0 + step_keys, kpw, end, d,
+                          col);
+    float kf[U][CM][V], vf[U][CM][V];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ok[u] = key0 + u * kpw < end;
+#pragma unroll
+      for (int c = 0; c < CM; ++c) {
+        to_float(kc[u][c], kf[u][c], static_cast<T*>(nullptr));
+        to_float(vc[u][c], vf[u][c], static_cast<T*>(nullptr));
       }
-      sum = attn::warp_sum(sum);
+    }
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      if (g >= gact) break;
+      float x[U];
+      float big = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float dot = 0.f;
+#pragma unroll
+        for (int c = 0; c < CM; ++c)
+#pragma unroll
+          for (int i = 0; i < V; ++i) dot = fmaf(qf[g][c][i], kf[u][c][i], dot);
+        for (int off = 1; off < lanes; off <<= 1)
+          dot += __shfl_xor_sync(attn::kFull, dot, off);
+        x[u] = none_live ? kMasked : dot;
+        if (ok[u]) big = fmaxf(big, x[u]);
+      }
+      if (big == -INFINITY) continue;  // no key of this slot yet
+      const float a = weight(m[g], big);
+      m[g] = big;
+      l[g] *= a;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        x[u] = ok[u] ? exp2f(x[u] - big) : 0.f;
+        l[g] += x[u];
+      }
+#pragma unroll
+      for (int c = 0; c < CM; ++c)
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          float y = acc[g][c][i] * a;
+#pragma unroll
+          for (int u = 0; u < U; ++u) y = fmaf(x[u], vf[u][c][i], y);
+          acc[g][c][i] = y;
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int c = 0; c < CM; ++c) {
+        kc[u][c] = kn[u][c];
+        vc[u][c] = vn[u][c];
+      }
+  }
+
+  // Merge the key slots of the warp (lanes `lanes` apart), then the warps.
+  for (int off = lanes; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      const float mo = __shfl_xor_sync(attn::kFull, m[g], off);
+      const float lo = __shfl_xor_sync(attn::kFull, l[g], off);
+      const float big = fmaxf(m[g], mo);
+      const float a = weight(m[g], big), bo = weight(mo, big);
+      m[g] = big;
+      l[g] = l[g] * a + lo * bo;
+#pragma unroll
+      for (int c = 0; c < CM; ++c)
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float ao = __shfl_xor_sync(attn::kFull, acc[g][c][i], off);
+          acc[g][c][i] = acc[g][c][i] * a + ao * bo;
+        }
+    }
+  }
+  if (slot == 0) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
       if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        alpha[g] = a;
-        l_run[g] = a * l_run[g] + sum;
-        m_run[g] = m_new;
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
       }
-    }
-    __syncthreads();
-
-    if (active) {
 #pragma unroll
-      for (int p = 0; p < PER; ++p)
-        if (og[p] >= 0) acc[p] *= alpha[og[p]];
-      for (int j = split; j < bkv; j += n_split) {
+      for (int c = 0; c < CM; ++c)
+        if (col[c] >= 0)
 #pragma unroll
-        for (int p = 0; p < PER; ++p)
-          if (og[p] >= 0)
-            acc[p] = fmaf(ps[og[p] * bkv + j], vs[j * d + od[p]], acc[p]);
-      }
+          for (int i = 0; i < V; ++i)
+            sm_acc[warp][g][col[c] + i] = acc[g][c][i];
     }
   }
-
-  T* out = o + bh * group * d;
-  if (n_split > 1) {
-    __syncthreads();  // ks is free: it takes the partial sums
-    float* part = ks;  // [n_split][outs]
-    if (active) part[split * outs + base] = acc[0];
-    __syncthreads();
-    if (tid < outs) {
-      float sum = 0.f;
-      for (int s = 0; s < n_split; ++s) sum += part[s * outs + tid];
-      attn::store(out + tid, sum / fmaxf(l_run[tid / d], 1e-30f));
+  __syncthreads();
+  if (threadIdx.x < GT) {
+    const int g = threadIdx.x;
+    float big = -INFINITY;
+    for (int w = 0; w < kWarps; ++w) big = fmaxf(big, sm_m[w][g]);
+    float sum = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      sm_wt[w][g] = weight(sm_m[w][g], big);
+      sum += sm_l[w][g] * sm_wt[w][g];
     }
-  } else {
-#pragma unroll
-    for (int p = 0; p < PER; ++p)
-      if (og[p] >= 0)
-        attn::store(out + og[p] * d + od[p],
-                    acc[p] / fmaxf(l_run[og[p]], 1e-30f));
+    sm_big[g] = big;
+    sm_sum[g] = sum;
+  }
+  __syncthreads();
+
+  T* out = o + (bh * group + g0) * d;
+  if (n_split == 1) {
+    for (int idx = threadIdx.x; idx < gact * d; idx += kThreads) {
+      const int g = idx / d, e = idx - g * d;
+      float a = 0.f;
+      for (int w = 0; w < kWarps; ++w) a += sm_acc[w][g][e] * sm_wt[w][g];
+      attn::store(out + idx, a / fmaxf(sm_sum[g], 1e-30f));
+    }
+    return;
+  }
+
+  // This split's partial: [max, sum, acc[D]] per query head.
+  const int rec = d + 2;
+  float* mine = part + (bh * group + g0) * n_split * rec;
+  for (int idx = threadIdx.x; idx < gact * d; idx += kThreads) {
+    const int g = idx / d, e = idx - g * d;
+    float a = 0.f;
+    for (int w = 0; w < kWarps; ++w) a += sm_acc[w][g][e] * sm_wt[w][g];
+    mine[(g * n_split + split) * rec + 2 + e] = a;
+  }
+  if (threadIdx.x < gact) {
+    mine[(threadIdx.x * n_split + split) * rec] = sm_big[threadIdx.x];
+    mine[(threadIdx.x * n_split + split) * rec + 1] = sm_sum[threadIdx.x];
+  }
+  // Publish the partial: the block's writes, then one device-scope fence
+  // and the count (release); the last block fences again before it reads
+  // (acquire).
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* cnt = counters + bh * n_gt + gtile;
+    __threadfence();
+    sm_last = atomicAdd(cnt, 1) == n_split - 1;
+    if (sm_last) *cnt = 0;  // ready for the next launch
+  }
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+
+  // The last block merges the splits, each output in one pass over them
+  // (the loads of several splits in flight at once).
+  for (int idx = threadIdx.x; idx < gact * d; idx += kThreads) {
+    const int g = idx / d, e = idx - g * d;
+    const float* pg = mine + g * n_split * rec;
+    float big = -INFINITY, den = 0.f, num = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < n_split; ++sp) {
+      const float ms = __ldcg(pg + sp * rec);
+      const float ls = __ldcg(pg + sp * rec + 1);
+      const float as = __ldcg(pg + sp * rec + 2 + e);
+      if (ms == -INFINITY) continue;  // a split past cur_len
+      const float nb = fmaxf(big, ms);
+      const float a = weight(big, nb), w = exp2f(ms - nb);
+      den = den * a + ls * w;
+      num = num * a + as * w;
+      big = nb;
+    }
+    attn::store(out + idx, num / fmaxf(den, 1e-30f));
   }
 }
 
-template <typename T, int PER>
-int launch_per(const void* q, const void* k, const void* v,
-               const void* cur_len, void* o, int batch, int hkv, int group,
-               int s_len, int d, int bkv, size_t smem, float scale,
-               cudaStream_t stream) {
-  auto kernel = decode_attention_kernel<T, PER>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(hkv, batch), kThreads, smem, stream>>>(
+template <typename T, int GT>
+int launch_gt(const void* q, const void* k, const void* v,
+              const void* cur_len, void* o, void* part, void* counters,
+              int batch, int hkv, int group, int s_len, int d, int n_split,
+              int chunk, float scale, cudaStream_t stream) {
+  const int n_chunks = d / Vec<T>::n;
+  int lanes = 1;
+  while (lanes < n_chunks && lanes < 32) lanes <<= 1;
+  const int n_gt = (group + GT - 1) / GT;
+  if (static_cast<long long>(hkv) * n_gt > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(n_split, hkv * n_gt, batch);
+  decode_attention_split<T, GT><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(cur_len),
-      static_cast<T*>(o), group, s_len, d, bkv, scale);
+      static_cast<T*>(o), static_cast<float*>(part),
+      static_cast<int*>(counters), group, s_len, d, chunk, lanes,
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_type(const void* q, const void* k, const void* v,
-                const void* cur_len, void* o, int batch, int hkv, int group,
-                int s_len, int d, int bkv, size_t smem, float scale,
-                cudaStream_t stream) {
-  const int per = (group * d + kThreads - 1) / kThreads;
-#define DECODE_PER(P)                                                    \
-  if (per <= P)                                                          \
-    return launch_per<T, P>(q, k, v, cur_len, o, batch, hkv, group,      \
-                            s_len, d, bkv, smem, scale, stream);
-  DECODE_PER(1) DECODE_PER(2) DECODE_PER(4) DECODE_PER(8) DECODE_PER(16)
-#undef DECODE_PER
+                const void* cur_len, void* o, void* part, void* counters,
+                int batch, int hkv, int group, int s_len, int d, int n_split,
+                int chunk, int gt, float scale, cudaStream_t stream) {
+#define DECODE_GT(G)                                                       \
+  case G:                                                                  \
+    return launch_gt<T, G>(q, k, v, cur_len, o, part, counters, batch, hkv, \
+                           group, s_len, d, n_split, chunk, scale, stream);
+  switch (gt) {
+    DECODE_GT(1) DECODE_GT(2) DECODE_GT(4)
+    default:
+      break;
+  }
+  // 8 float32 heads' q and accumulators would not fit the registers
+  if constexpr (sizeof(T) == 2) {
+    if (gt == 8)
+      return launch_gt<T, 8>(q, k, v, cur_len, o, part, counters, batch, hkv,
+                             group, s_len, d, n_split, chunk, scale, stream);
+  }
   return cudaErrorInvalidValue;
+#undef DECODE_GT
 }
 
 }  // namespace
@@ -220,25 +418,32 @@ int launch_type(const void* q, const void* k, const void* v,
 // q [batch, hkv, group, d], k and v [batch, hkv, s_len, d], o like q: all
 // contiguous, 16-byte aligned, of one type (bf16 != 0: bfloat16, else
 // float32); cur_len points at one int32 on the device.  d is a multiple
-// of 8 in [8, 256] and group * d <= 4096.  scale is 1/sqrt(d) in float32.
+// of 8 in [8, 256]; gt (query heads of a group tile) is 1, 2, 4 or (bf16
+// only) 8.  The
+// keys are cut into n_split chunks of `chunk` (1 <= n_split <= 64, the
+// last chunk ending at or past s_len).  With n_split > 1, part holds
+// batch * hkv * group * n_split * (d + 2) floats and counters
+// batch * hkv * ceil(group / gt) ints that are 0 (the kernel leaves them
+// 0).  scale is 1/sqrt(d) in float32.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* cur_len,
-                                       void* o, int batch, int hkv,
-                                       int group, int s_len, int d,
-                                       float scale, int bf16, void* stream) {
-  if (batch < 1 || hkv < 1 || group < 1 || s_len < 1 || d < 8 || d > 256 ||
-      d % 8 || group * d > kMaxOuts || batch > 65535)
+                                       void* o, void* part, void* counters,
+                                       int batch, int hkv, int group,
+                                       int s_len, int d, int n_split,
+                                       int chunk, int gt, float scale,
+                                       int bf16, void* stream) {
+  if (batch < 1 || hkv < 1 || group < 1 || s_len < 1 || d < 8 || d > kMaxD ||
+      d % 8 || batch > 65535 || n_split < 1 || n_split > kMaxSplits ||
+      chunk < 1 || static_cast<long long>(n_split) * chunk < s_len ||
+      (n_split > 1 && (part == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
-  // 128-key tiles while they fit in 200 KB of shared memory, else 64
-  int bkv = d <= 128 ? 128 : 64;
-  if (smem_floats(group, d, bkv) * sizeof(float) > 200 * 1024) bkv = 64;
-  const size_t smem = smem_floats(group, d, bkv) * sizeof(float);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_type<__nv_bfloat16>(q, k, v, cur_len, o, batch, hkv, group,
-                                      s_len, d, bkv, smem, scale, st);
-  return launch_type<float>(q, k, v, cur_len, o, batch, hkv, group, s_len, d,
-                            bkv, smem, scale, st);
+    return launch_type<__nv_bfloat16>(q, k, v, cur_len, o, part, counters,
+                                      batch, hkv, group, s_len, d, n_split,
+                                      chunk, gt, scale, st);
+  return launch_type<float>(q, k, v, cur_len, o, part, counters, batch, hkv,
+                            group, s_len, d, n_split, chunk, gt, scale, st);
 }
 
 extern "C" const char* decode_attention_error(int code) {

@@ -7,11 +7,16 @@ Counterpart of ``repro/kernels/decode_attention.py`` (the Pallas kernel
 ``csrc/decode_attention.cu``, whose header gives its bound and design;
 the plain version is :func:`repro_torch.kernels.ref.decode_attention_ref`.
 Callers go through :func:`repro_torch.kernels.ops.decode_attention`,
-which checks the arguments.
+which checks the arguments.  The kernel is split-KV in one launch:
+:func:`plan` cuts the keys into chunks on the host, each block writes a
+partial softmax state to a scratch buffer cached here per device, and
+the last block of each kv head merges them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -20,8 +25,62 @@ from repro_torch.kernels import build
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # launch arguments of csrc/decode_attention.cu
-_ARGS = (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _FLOAT,
-         _INT)
+_ARGS = (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+         _INT, _INT, _INT, _FLOAT, _INT)
+
+MIN_CHUNK = 128      # fewest keys a split takes (one block's sweep)
+MAX_SPLITS = 64      # the kernel's cap on splits of a call
+BLOCKS_PER_SM = 4    # blocks the split count aims at, per SM
+
+
+class Plan(NamedTuple):
+    """How one call is cut: ``gt`` query heads a group tile, ``n_gt``
+    tiles per kv head, ``n_split`` chunks of ``chunk`` keys."""
+    gt: int
+    n_gt: int
+    n_split: int
+    chunk: int
+
+    def blocks(self, b: int, hkv: int) -> int:
+        return self.n_split * hkv * self.n_gt * b
+
+
+def plan(b: int, hkv: int, group: int, s: int, dtype: torch.dtype,
+         sms: int) -> Plan:
+    """The split-KV cut of a call, from the shapes and the card's SM count
+    alone (never from ``cur_len``): group tiles of up to 8 query heads (4
+    in float32), and enough splits for about ``BLOCKS_PER_SM`` blocks an
+    SM, at most ``MAX_SPLITS`` and no more than S / ``MIN_CHUNK`` rounded
+    up; chunks are multiples of 16 keys."""
+    gt_max = 8 if dtype == torch.bfloat16 else 4
+    gt = min(gt_max, 1 << (group - 1).bit_length())
+    n_gt = -(-group // gt)
+    want = -(-BLOCKS_PER_SM * sms // (b * hkv * n_gt))
+    n_split = max(1, min(-(-s // MIN_CHUNK), want, MAX_SPLITS))
+    per_split = -(-s // n_split)
+    chunk = -(-per_split // 16) * 16
+    return Plan(gt, n_gt, -(-s // chunk), chunk)
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_scratch: dict = {}  # device -> (float32 partials, int32 counters)
+
+
+def _scratch_for(device: torch.device, n_floats: int, n_counters: int):
+    """The cached partials and counters of ``device``, grown to size.  The
+    counters are zeros when made and the kernel leaves them zero."""
+    part, cnt = _scratch.get(device, (None, None))
+    if part is None or part.numel() < n_floats:
+        part = torch.empty(max(n_floats, 1), dtype=torch.float32,
+                           device=device)
+    if cnt is None or cnt.numel() < n_counters:
+        cnt = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    _scratch[device] = (part, cnt)
+    return part, cnt
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -29,9 +88,14 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel on CUDA tensors already checked by the wrapper;
     ``cur_len`` is an int32 scalar on the card, read there."""
     b, hkv, group, d = q.shape
+    s = k.shape[2]
+    cut = plan(b, hkv, group, s, q.dtype, sm_count(q.device))
+    part, cnt = _scratch_for(q.device, b * hkv * group * cut.n_split * (d + 2)
+                             if cut.n_split > 1 else 0, b * hkv * cut.n_gt)
     out = torch.empty_like(q)
     build.launch("decode_attention", _ARGS, q.device, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), cur_len.data_ptr(),
-                 out.data_ptr(), b, hkv, group, k.shape[2], d,
-                 1.0 / d ** 0.5, int(q.dtype == torch.bfloat16))
+                 out.data_ptr(), part.data_ptr(), cnt.data_ptr(), b, hkv,
+                 group, s, d, cut.n_split, cut.chunk, cut.gt, 1.0 / d ** 0.5,
+                 int(q.dtype == torch.bfloat16))
     return out

@@ -6,7 +6,9 @@ Counterpart of ``repro/kernels/flash_attention.py`` (the Pallas kernel
 ``csrc/flash_attention.cu``, whose header gives its bound and design; the
 plain version is :func:`repro_torch.kernels.ref.attention_ref`.  Callers
 go through :func:`repro_torch.kernels.ops.flash_attention`, which checks
-the arguments.
+the arguments.  The launch function picks one of the source's two
+kernels by the dtype: bfloat16 runs on the tensor cores (wgmma fed by
+TMA), float32 on the SIMT cores.
 """
 from __future__ import annotations
 

@@ -24,8 +24,6 @@ from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
 launches = {"multi_query_match": 0, "amper_sample": 0, "rank_select": 0,
             "tcam_match": 0, "flash_attention": 0, "decode_attention": 0}
 
-MAX_DECODE_OUTS = 4096  # group * D one decode block holds (the kernel's)
-
 
 def reset_launches() -> None:
     for name in launches:
@@ -224,16 +222,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group query heads of each kv head, which share its cache), k and v
     [B, Hkv, S, D]; keys at ``cur_len`` and past it are masked.
     ``cur_len`` is an int32 scalar tensor on the cache's device, which
-    the kernel reads there (no host sync).  Returns [B, Hkv, group, D]
-    in q's dtype."""
+    the kernel reads there (no host sync).  Any group.  Returns
+    [B, Hkv, group, D] in q's dtype."""
     kind = _check_attention("decode_attention", q, k, v)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"decode_attention: q and k differ in kv heads: "
                          f"{tuple(q.shape)} / {tuple(k.shape)}")
-    if q.shape[2] * q.shape[3] > MAX_DECODE_OUTS:
-        raise ValueError(f"decode_attention: group * D must be <= "
-                         f"{MAX_DECODE_OUTS}, got {q.shape[2]} * "
-                         f"{q.shape[3]}")
     if (not isinstance(cur_len, torch.Tensor)
             or cur_len.dtype != torch.int32 or cur_len.ndim
             or cur_len.device != q.device):

@@ -10,6 +10,8 @@ on the CPU), over the reference's own sweep
 hold the CUDA kernels against the plain versions on a card.
 """
 import dataclasses
+import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro.configs import get_reduced_config as jreduced
 from repro_torch.configs import get_reduced_config
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attention_ref, decode_attention_ref
 from repro_torch.models import attention as tattn
@@ -128,12 +131,157 @@ def test_wrappers_refuse_bad_arguments():
     for cur_len in (torch.tensor(3, dtype=torch.int64), 3):
         with pytest.raises(TypeError, match="cur_len"):
             ops.decode_attention(q[:, :2, :2].contiguous(), k, k, cur_len)
-    with pytest.raises(ValueError, match="group"):
-        ops.decode_attention(torch.zeros(1, 2, 17, 256), torch.zeros(
-            1, 2, 8, 256), torch.zeros(1, 2, 8, 256),
-            torch.tensor(3, dtype=torch.int32))
+    # any group: 17 query heads of D 256 a kv head are taken
+    assert ops.decode_attention(torch.zeros(1, 2, 17, 256), torch.zeros(
+        1, 2, 8, 256), torch.zeros(1, 2, 8, 256), torch.tensor(
+            3, dtype=torch.int32)).shape == (1, 2, 17, 256)
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+
+
+def _kv_tile(d):
+    """Keys of a kv tile of the bf16 tensor-core flash kernel
+    (``csrc/flash_attention.cu``, ``kv_tile``): 128 while D fits two
+    64-column panels, else 64."""
+    return 128 if -(-d // 64) <= 2 else 64
+
+
+def _flash_tc_emulation(q, k, v, causal, window):
+    """The bf16 tensor-core flash kernel's arithmetic, written out: raw
+    scores in float32 from the bf16 inputs, masked (-1e30) where the
+    causal or window mask hides a key, an online softmax in log2 units
+    over kv tiles of ``_kv_tile(D)`` keys, p rounded to bf16 for p v (the
+    denominator sums the unrounded p), float32 accumulation, output
+    divided by max(sum, 1e-30) and rounded to bf16."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf = k.repeat_interleave(group, dim=1).float()
+    vf = v.repeat_interleave(group, dim=1).float()
+    c = math.log2(math.e) / math.sqrt(d)
+    m = torch.full((b, hq, s), -1e30)
+    l = torch.zeros(b, hq, s)
+    acc = torch.zeros(b, hq, s, d)
+    pos = torch.arange(s)
+    for k0 in range(0, s, _kv_tile(d)):
+        kp = pos[k0:k0 + _kv_tile(d)]
+        raw = qf @ kf[:, :, kp].transpose(-1, -2)
+        hide = torch.zeros(s, kp.numel(), dtype=torch.bool)
+        if causal:
+            hide |= pos[:, None] < kp[None]
+        if window is not None:
+            hide |= pos[:, None] - kp[None] >= window
+        raw = torch.where(hide, torch.tensor(-1e30), raw)
+        m_new = torch.maximum(m, raw.amax(-1) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(raw * c - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p.to(torch.bfloat16).float() @ vf[
+            :, :, kp]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", FLASH_CASES + [
+    (1, 8, 2, 256, 120, True, None)])
+def test_flash_bf16_p_rounding_fits_the_tolerance(b, hq, hkv, s, d, causal,
+                                                  window):
+    """The one numeric change of the tensor-core kernel (p rounded to bf16
+    before p v) stays within the bf16 tolerance of the reference."""
+    (jq, jk, jv), (q, k, v) = _both(
+        _normal(s + d, (b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)),
+        "bfloat16")
+    got = _flash_tc_emulation(q, k, v, causal, window)
+    _close(got, jref.attention_ref(jq, jk, jv, causal=causal, window=window),
+           2e-2)
+
+
+def _split_kv_emulation(q, k, v, cur, chunk):
+    """The split-KV decode kernel's algebra, written out: each chunk of
+    ``chunk`` keys gives a partial (max, sum, accumulator) in log2 units
+    over its keys below cur_len (an empty one, max -inf, past it; every
+    key masked, -1e30, when cur_len <= 0), and the partials merge with
+    weights exp2(max - max of maxes)."""
+    d, s = q.shape[-1], k.shape[2]
+    c = math.log2(math.e) / math.sqrt(d)
+    live = s if cur <= 0 else min(cur, s)
+    parts = []
+    for c0 in range(0, s, chunk):
+        end = min(c0 + chunk, live)
+        if end <= c0:
+            parts.append(None)
+            continue
+        x = torch.einsum("bkgd,bksd->bkgs", q * c, k[:, :, c0:end])
+        if cur <= 0:
+            x = torch.full_like(x, -1e30)
+        mx = x.amax(-1)
+        p = torch.exp2(x - mx[..., None])
+        parts.append((mx, p.sum(-1), p @ v[:, :, c0:end]))
+    big = torch.stack([pt[0] for pt in parts if pt is not None]).amax(0)
+    den = torch.zeros_like(big)
+    num = torch.zeros_like(q)
+    for pt in parts:
+        if pt is None:
+            continue
+        w = torch.exp2(pt[0] - big)
+        den += pt[1] * w
+        num += pt[2] * w[..., None]
+    return num / den.clamp_min(1e-30)[..., None]
+
+
+# cur_len 0 at an S that the Pallas wrapper's 256-key block divides: it
+# pads a ragged S with keys that cur_len 0 would also weigh.
+SPLIT_CASES = DECODE_CASES + [(1, 2, 3, 256, 32, 0),
+                              (1, 1, 48, 256, 128, 256)]
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_reference(case):
+    """The reference and the Pallas kernel (interpret mode) on a case's
+    float32 inputs, computed once for every chunk size."""
+    b, hkv, group, s, d, cur = case
+    xs = _normal(s + d, (b, hkv, group, d), (b, hkv, s, d), (b, hkv, s, d))
+    (jq, jk, jv), _ = _both(xs, "float32")
+    return (xs, np.asarray(jref.decode_attention_ref(jq, jk, jv, cur)),
+            np.asarray(jops.decode_attention(jq, jk, jv, cur, bkv=256)))
+
+
+@pytest.mark.parametrize("chunk", [16, 48, 112, "one"])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_kv_merge_matches_reference(case, chunk):
+    """Chunks that do not divide S (48, 112), chunks wholly past cur_len
+    (cur 37 and 700), cur_len 0, cur_len = S, and one chunk."""
+    xs, want, pallas = _decode_reference(case)
+    q, k, v = (torch.from_numpy(x) for x in xs)
+    got = _split_kv_emulation(q, k, v, case[-1],
+                              k.shape[2] if chunk == "one" else chunk)
+    _close(got, want, 3e-5)
+    _close(got, pallas, 3e-5)
+
+
+@pytest.mark.parametrize("b,hkv,group,s,dtype,blocks", [
+    (4, 32, 1, 1089, torch.bfloat16, 640),   # the serving shape
+    (1, 1, 48, 4096, torch.bfloat16, 192),   # granite-34b MQA
+    (1, 1, 48, 4096, torch.float32, 384),
+    (2, 4, 1, 300, torch.float32, 24),
+    (64, 32, 1, 100, torch.bfloat16, 2048),  # many heads: one split
+])
+def test_decode_plan_covers_the_cache(b, hkv, group, s, dtype, blocks):
+    cut = _da.plan(b, hkv, group, s, dtype, 132)
+    assert 1 <= cut.n_split <= _da.MAX_SPLITS and cut.chunk % 16 == 0
+    assert (cut.n_split - 1) * cut.chunk < s <= cut.n_split * cut.chunk
+    assert cut.n_gt * cut.gt >= group > (cut.n_gt - 1) * cut.gt
+    assert cut.blocks(b, hkv) == blocks
+
+
+def test_decode_takes_any_group():
+    """granite-34b's MQA, 48 q heads of D 128 on one kv head (group * D =
+    6,144), at a reduced cache: the port equals the JAX wrapper."""
+    (jq, jk, jv), (q, k, v) = _both(
+        _normal(48, (1, 1, 48, 128), (1, 1, 96, 128), (1, 1, 96, 128)),
+        "float32")
+    got = ops.decode_attention(q, k, v, torch.tensor(90, dtype=torch.int32))
+    _close(got, jops.decode_attention(jq, jk, jv, 90, bkv=32), 3e-5)
 
 
 def _cfg():
@@ -216,7 +364,8 @@ def _need_cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", FLASH_CASES + [
-    (4, 32, 32, 1024, 64, True, None)])
+    (4, 32, 32, 1024, 64, True, None), (1, 32, 8, 512, 120, True, None),
+    (2, 4, 4, 700, 64, True, 100)])
 def test_cuda_flash_attention_equals_plain(dtype, b, hq, hkv, s, d, causal,
                                            window):
     _need_cuda()
@@ -232,7 +381,8 @@ def test_cuda_flash_attention_equals_plain(dtype, b, hq, hkv, s, d, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("b,hkv,group,s,d,cur", DECODE_CASES + [
-    (4, 32, 1, 1089, 64, 1088), (4, 32, 1, 1089, 64, 37)])
+    (4, 32, 1, 1089, 64, 1088), (4, 32, 1, 1089, 64, 37),
+    (1, 1, 48, 4096, 128, 4000), (4, 32, 1, 1089, 64, 0)])
 def test_cuda_decode_attention_equals_plain(dtype, b, hkv, group, s, d, cur):
     _need_cuda()
     _, (q, k, v) = _both(
