@@ -120,6 +120,12 @@ def wall_ms(fn, calls: int = 20) -> float:
     return (time.perf_counter() - t0) / calls * 1e3
 
 
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    """max |a - b| of two integer or bool tensors (0 when empty)."""
+    d = (a.long() - b.long()).abs()
+    return int(d.max()) if d.numel() else 0
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -188,7 +194,8 @@ def phase_device(state: dict) -> None:
              for name, text in reports.items()}
     if any("setmaxnreg ignored" in text for text in reports.values()):
         fail("device", "ptxas ignored setmaxnreg in the flash kernel")
-    for name in ("flash_attention", "decode_attention"):
+    for name in ("flash_attention", "decode_attention", "rank_select",
+                 "multi_query_match"):
         spills = re.findall(r"(\d+) bytes spill stores", reports.get(name, ""))
         if any(int(n) for n in spills):
             fail("device", f"ptxas spills registers in {name}")
@@ -200,26 +207,106 @@ def phase_device(state: dict) -> None:
           "ptxas": ptxas})
 
 
+def device_ops(fn, calls: int = 20) -> dict:
+    """The device operations of one ``fn()`` call, by torch.profiler after
+    a warm call: {kernel name: [operations per call, device us per
+    call]}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:100]: [e.count / calls, e.self_device_time_total / calls]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count}
+
+
+# torch.profiler now and then loses a kernel event (0.95 or 0.98 launches
+# a call over 20 calls, in runs where every call launched), so counts of
+# device launches are held to [PROFILER_KEEPS x calls, calls]: a second
+# kernel or a fill a call still fails.
+PROFILER_KEEPS = 0.9
+
+
+def one_kernel(phase: str, fn, kernel: str) -> dict:
+    """``device_ops`` of ``fn``, failing the phase unless a call is one
+    launch of ``kernel`` (no fill or other operation beside it)."""
+    ops_ = device_ops(fn)
+    if (len(ops_) != 1 or kernel not in next(iter(ops_))
+            or not PROFILER_KEEPS <= next(iter(ops_.values()))[0] <= 1.0):
+        fail(phase, f"one call is not one {kernel} launch: {ops_}")
+    return ops_
+
+
+def custom_ranges(kind: str, device):
+    """Range sets beside the DQN's: m = 1 and m = 64 AMPER-fr ranges,
+    ranges no 2^24 window holds (the kernels' integer test) and empty
+    ranges only."""
+    from repro_torch import prng
+    from repro_torch.core import amper
+
+    if kind in ("m1", "m64"):
+        m = int(kind[1:])
+        cfg = amper.AmperConfig(capacity=N_ROWS, m=m, lam_fr=2.0, v_max=8.0)
+        lo, hi = amper.fr_intervals(
+            amper.group_representatives(prng.key(m), cfg), cfg)
+    elif kind == "wide":
+        lo = torch.tensor([-2 ** 30, 5, 3 << 22], dtype=torch.int32)
+        hi = torch.tensor([100, 2 ** 30, 2 ** 31 - 1], dtype=torch.int32)
+    else:  # "empty"
+        lo = torch.tensor([9, 7, 2 ** 31 - 1], dtype=torch.int32)
+        hi = torch.tensor([3, 6, -2 ** 31], dtype=torch.int32)
+    return lo.to(device), hi.to(device)
+
+
+BACK_TO_BACK = 1000  # calls queued with no sync, each checked
+
+
 def phase_match(state: dict) -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import multi_query_match_ref
 
     dev = torch.device("cuda")
     pq, valid = table(N_ROWS, 1000, dev)
+    shard_pq, shard_valid = table(N_ROWS // SHARDS, 0, dev)
     lo, hi = ranges(dev)
-    sel, counts = ops.multi_query_match(pq, valid, lo, hi)
-    sel_p, counts_p = multi_query_match_ref(pq, valid, lo, hi)
+    err = 0
+
+    def check(case, p, v, rlo, rhi):
+        nonlocal err
+        sel, counts = ops.multi_query_match(p, v, rlo, rhi)
+        sel_p, counts_p = multi_query_match_ref(p, v, rlo, rhi)
+        torch.cuda.synchronize()
+        if not torch.equal(sel, sel_p) or not torch.equal(counts, counts_p):
+            fail("match", f"{case}: kernel != plain: sel diff "
+                 f"{int((sel != sel_p).sum())}, counts {counts.tolist()} vs "
+                 f"{counts_p.tolist()}")
+        err = max(err, max_abs_diff(sel, sel_p), max_abs_diff(counts, counts_p))
+        return sel, counts
+
+    sel, counts = check("n1e6", pq, valid, lo, hi)
+    check("shard_250k", shard_pq, shard_valid, lo, hi)
+    # the ragged tail past the last whole group of 4 rows and tile
+    check("odd_999999", pq[1:].clone(), valid[1:].clone(), lo, hi)
+    for n in (0, 1, 700, 250_001):
+        check(f"n{n}", shard_pq[:n].clone(), shard_valid[:n].clone(), lo, hi)
+    for kind in ("m1", "m64", "wide", "empty"):
+        check(kind, shard_pq, shard_valid, *custom_ranges(kind, dev))
+    # back to back on one stream: a stale ticket or partial would show
+    sets = [ranges(dev, seed) for seed in range(3)]
+    want = [multi_query_match_ref(shard_pq, shard_valid, *r) for r in sets]
+    outs = [ops.multi_query_match(shard_pq, shard_valid, *sets[i % 3])
+            for i in range(BACK_TO_BACK)]
     torch.cuda.synchronize()
-    if not torch.equal(sel, sel_p) or not torch.equal(counts, counts_p):
-        fail("match", f"kernel != plain: sel diff "
-             f"{int((sel != sel_p).sum())}, counts {counts.tolist()} vs "
-             f"{counts_p.tolist()}")
-    # odd length: the ragged tail past the last whole group of 4 rows
-    pq_o, valid_o = pq[1:].clone(), valid[1:].clone()
-    sel_o, counts_o = ops.multi_query_match(pq_o, valid_o, lo, hi)
-    sel_op, counts_op = multi_query_match_ref(pq_o, valid_o, lo, hi)
-    if not torch.equal(sel_o, sel_op) or not torch.equal(counts_o, counts_op):
-        fail("match", "kernel != plain on the odd-length table")
+    for i, (s_, c_) in enumerate(outs):
+        if not (torch.equal(s_, want[i % 3][0])
+                and torch.equal(c_, want[i % 3][1])):
+            fail("match", f"back-to-back call {i} != plain")
+    del outs
     # an offset view would break the kernels' 4-row vector loads
     try:
         ops.multi_query_match(pq[1:], valid[1:], lo, hi)
@@ -227,13 +314,19 @@ def phase_match(state: dict) -> None:
         pass
     else:
         fail("match", "the wrapper took a misaligned offset view")
-    err = max(int((sel.int() - sel_p.int()).abs().max()),
-              int((counts - counts_p).abs().max()))
+    split = {"n1e6": one_kernel("match", lambda: ops.multi_query_match(
+        pq, valid, lo, hi), "multi_query_match"),
+        "shard_250k": one_kernel("match", lambda: ops.multi_query_match(
+            shard_pq, shard_valid, lo, hi), "multi_query_match")}
     ms = device_time_ms(lambda: ops.multi_query_match(pq, valid, lo, hi))
+    ms_shard = device_time_ms(lambda: ops.multi_query_match(
+        shard_pq, shard_valid, lo, hi))
     plain_ms = device_time_ms(
         lambda: multi_query_match_ref(pq, valid, lo, hi), calls=10, reps=3)
     # each input read once, each output written once
     bound_ms = nbytes(pq, valid, lo, hi, sel, counts) / HBM_BYTES_PER_S * 1e3
+    bound_shard = (nbytes(shard_pq, shard_valid, lo, hi, counts)
+                   + shard_pq.shape[0]) / HBM_BYTES_PER_S * 1e3
     row = {"name": "multi_query_match", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/multi_query_match.cu",
            "replaces": "src/repro/kernels/tcam_match.py:73",
@@ -242,7 +335,10 @@ def phase_match(state: dict) -> None:
     state["kernels"]["multi_query_match"] = row
     emit({"phase": "match", "ok": True, "n": N_ROWS, "m": 20,
           "members": int(sel.sum()), "counts_sum": int(counts.sum()),
-          "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms})
+          "back_to_back": BACK_TO_BACK, "kernel_ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "kernel_ms_shard_250k": ms_shard, "bound_ms_shard_250k": bound_shard,
+          "ops_per_call_and_us": split})
 
 
 def phase_sample(state: dict) -> None:
@@ -301,8 +397,39 @@ def rank_cases(count: int, batch: int, seed: int) -> torch.Tensor:
     count + 5 and two negative ranks."""
     rng = np.random.default_rng(seed)
     r = rng.integers(-5, count + 10, batch)
-    r[:6] = [0, count - 1, count, count + 5, -1, -3]
+    r[:6] = [0, count - 1, count, count + 5, -1, -3][:batch]
     return torch.from_numpy(r.astype(np.int32)).cuda()
+
+
+def member_table(n: int, members, device):
+    """pq 7 on the ``members`` rows and 3 elsewhere, all valid: with the
+    range [7, 7] the members are exactly those rows."""
+    pq = torch.full((n,), 3, dtype=torch.int32)
+    pq[torch.as_tensor(list(members), dtype=torch.int64)] = 7
+    return pq.to(device), torch.ones(n, dtype=torch.bool, device=device)
+
+
+def rank_edge_cases(shard_pq, shard_valid, lo, hi, device):
+    """(name, pq, valid, lo, hi) of the rank select's edge cases, for its
+    1024-row tiles."""
+    one = torch.tensor([7], dtype=torch.int32, device=device)
+    n = shard_pq.shape[0]
+    cases = [
+        ("tile_boundaries", *member_table(
+            4101, [0, 1023, 1024, 2047, 2048, 3071, 4095, 4096, 4100],
+            device), one, one),
+        ("last_tile_only", *member_table(n, range(n - 140, n, 7), device),
+         one, one),
+        ("single_member", *member_table(n, [123_457], device), one, one),
+        ("empty_tiles_between", *member_table(n, [5, 6, 200_000, n - 1],
+                                              device), one, one),
+        ("n1", shard_pq[:1].clone(), shard_valid[:1].clone(), lo, hi),
+        ("below_one_tile", shard_pq[:700].clone(), shard_valid[:700].clone(),
+         lo, hi),
+        ("odd_250001", *table(250_001, 1, device), lo, hi)]
+    cases += [(kind, shard_pq, shard_valid, *custom_ranges(kind, device))
+              for kind in ("m1", "m64", "wide", "empty")]
+    return cases
 
 
 def phase_rank(state: dict) -> None:
@@ -313,29 +440,47 @@ def phase_rank(state: dict) -> None:
     pq, valid = table(N_ROWS, 1000, dev)
     shard_pq, shard_valid = table(N_ROWS // SHARDS, 0, dev)
     lo, hi = ranges(dev)
-    tables = [("n1e6", pq, valid),
-              ("shard_250k", shard_pq, shard_valid),
-              ("odd_999999", pq[1:].clone(), valid[1:].clone()),
-              ("all_invalid", pq, torch.zeros_like(valid))]
+    tables = [("n1e6", pq, valid, lo, hi),
+              ("shard_250k", shard_pq, shard_valid, lo, hi),
+              ("odd_999999", pq[1:].clone(), valid[1:].clone(), lo, hi),
+              ("all_invalid", pq, torch.zeros_like(valid), lo, hi)]
+    tables += rank_edge_cases(shard_pq, shard_valid, lo, hi, dev)
     err = 0
     results = []
-    for i, (name, p, v) in enumerate(tables):
-        count = int(rank_select_ref(p, v, lo, hi, torch.zeros(
+    for i, (name, p, v, rlo, rhi) in enumerate(tables):
+        count = int(rank_select_ref(p, v, rlo, rhi, torch.zeros(
             1, dtype=torch.int32, device=dev))[1])
-        for batch in (64, 300):
+        # every member's rank where there are few, and the batch 0 call
+        every = torch.arange(count, dtype=torch.int32, device=dev)
+        for batch in (0, 64, 300):
             rank = rank_cases(count, batch, seed=10 * i + batch)
-            idx, cnt = ops.rank_select(p, v, lo, hi, rank)
-            idx_p, cnt_p = rank_select_ref(p, v, lo, hi, rank)
+            if batch == 300 and count <= 4096:
+                rank = torch.cat([rank, every])
+            idx, cnt = ops.rank_select(p, v, rlo, rhi, rank)
+            idx_p, cnt_p = rank_select_ref(p, v, rlo, rhi, rank)
             torch.cuda.synchronize()
             if not torch.equal(idx, idx_p) or not torch.equal(cnt, cnt_p):
-                fail("rank", f"{name} b{batch}: kernel != plain: count "
-                     f"{int(cnt)} vs {int(cnt_p)}, idx diff "
-                     f"{int((idx != idx_p).sum())}/{batch}")
-            err = max(err, int((idx - idx_p).abs().max()),
-                      int((cnt - cnt_p).abs()))
+                fail("rank", f"{name} b{rank.shape[0]}: kernel != plain: "
+                     f"count {int(cnt)} vs {int(cnt_p)}, idx diff "
+                     f"{int((idx != idx_p).sum())}/{rank.shape[0]}")
+            err = max(err, max_abs_diff(idx, idx_p), max_abs_diff(cnt, cnt_p))
         results.append({"case": name, "n": p.shape[0], "members": count})
+    # back to back on one stream: stale look-back words or tickets would
+    # show; the calls take turns over three range sets and rank sets
+    sets = [(*ranges(dev, seed), rank_cases(88_000 + 100 * seed, 64, seed))
+            for seed in range(3)]
+    want = [rank_select_ref(shard_pq, shard_valid, *s_) for s_ in sets]
+    outs = [ops.rank_select(shard_pq, shard_valid, *sets[i % 3])
+            for i in range(BACK_TO_BACK)]
+    torch.cuda.synchronize()
+    for i, (idx, cnt) in enumerate(outs):
+        if not (torch.equal(idx, want[i % 3][0])
+                and torch.equal(cnt, want[i % 3][1])):
+            fail("rank", f"back-to-back call {i} != plain")
     # timed at the main path's shape: one shard, the train batch of ranks
     rank = rank_cases(results[1]["members"], 64, seed=3)
+    split = {"shard_250k": one_kernel("rank", lambda: ops.rank_select(
+        shard_pq, shard_valid, lo, hi, rank), "rank_select")}
     ms = device_time_ms(lambda: ops.rank_select(shard_pq, shard_valid, lo, hi,
                                                 rank))
     plain_ms = device_time_ms(lambda: rank_select_ref(
@@ -344,6 +489,8 @@ def phase_rank(state: dict) -> None:
     bound_ms = nbytes(shard_pq, shard_valid, lo, hi, rank, idx, cnt) \
         / HBM_BYTES_PER_S * 1e3
     rank_full = rank_cases(results[0]["members"], 64, seed=4)
+    split["n1e6"] = one_kernel("rank", lambda: ops.rank_select(
+        pq, valid, lo, hi, rank_full), "rank_select")
     ms_full = device_time_ms(lambda: ops.rank_select(pq, valid, lo, hi,
                                                      rank_full))
     bound_full = nbytes(pq, valid, lo, hi, rank_full, idx, cnt) \
@@ -355,9 +502,11 @@ def phase_rank(state: dict) -> None:
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
     emit({"phase": "rank", "ok": True, "cases": results,
+          "back_to_back": BACK_TO_BACK,
           "timed": {"n": shard_pq.shape[0], "batch": 64},
           "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-          "kernel_ms_n1e6": ms_full, "bound_ms_n1e6": bound_full})
+          "kernel_ms_n1e6": ms_full, "bound_ms_n1e6": bound_full,
+          "ops_per_call_and_us": split})
 
 
 def tcam_path(pq: torch.Tensor, valid: torch.Tensor, seed: int = SEED):
@@ -518,8 +667,8 @@ def phase_flash(state: dict) -> None:
 
 
 def phase_decode(state: dict) -> None:
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import ops
     from repro_torch.kernels.ref import decode_attention_ref
 
     B, H, D = SERVE_BATCH, 32, 64
@@ -539,7 +688,7 @@ def phase_decode(state: dict) -> None:
             case = f"b{b} hkv{hkv} group{g} s{s} d{d} cur{cur} {str(dtype)[6:]}"
             e = check_close("decode", case, got, want, DECODE_TOL[dtype])
             err = max(err, e)
-            cut = da.plan(b, hkv, g, s, dtype, da.sm_count(q.device))
+            cut = da.plan(b, hkv, g, s, dtype, build.sm_count(q.device))
             results.append({"case": case, "splits": cut.n_split,
                             "chunk": cut.chunk, "group_tiles": cut.n_gt,
                             "blocks": cut.blocks(b, hkv), "max_abs_err": e})
@@ -610,6 +759,9 @@ def profile_steps(step, steps: int, out_dir: str, name: str,
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0 and e.key not in span_names]
     busy_us = sum(t for _, t, _ in kernels)
+    sequence = [e.name for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and e.name not in span_names), key=lambda e: e.time_range.start)]
     spans = {e.key: e.cpu_time_total / steps / 1e3 for e in events
              if e.key in span_names and e.device_type == DeviceType.CPU}
     top = sorted(kernels, key=lambda x: -x[1])[:8]
@@ -620,7 +772,32 @@ def profile_steps(step, steps: int, out_dir: str, name: str,
             "span_host_ms_per_step": spans,
             "top_kernels": [{"name": n[:80], "ms_per_step": t / steps / 1e3,
                              "calls_per_step": c / steps}
-                            for n, t, c in top]}
+                            for n, t, c in top],
+            "kernel_sequence": sequence}
+
+
+def check_draw_kernels(phase: str, sequence, calls: dict) -> dict:
+    """Fail the phase unless each ``rank_select`` call of the profiled
+    window was one device launch, and each ``multi_query_match`` call one
+    launch with no fill kernel right before it (the device operations in
+    launch order, ``calls`` the wrappers' counts over the window)."""
+    rank = sum("rank_select_kernel" in k for k in sequence)
+    match = [i for i, k in enumerate(sequence)
+             if "multi_query_match_kernel" in k]
+    before = sorted({sequence[i - 1][:60] for i in match if i})
+    for got, want in ((rank, calls["rank_select"]),
+                      (len(match), calls["multi_query_match"])):
+        if not (want and PROFILER_KEEPS * want <= got <= want):
+            fail(phase, f"device launches {rank} rank_select, {len(match)} "
+                 f"multi_query_match for {calls['rank_select']} and "
+                 f"{calls['multi_query_match']} calls")
+    if any("fill" in k.lower() or "memset" in k.lower() for k in before):
+        fail(phase, f"a fill runs before the match: {before}")
+    return {"rank_select_calls": calls["rank_select"],
+            "rank_select_device_launches": rank,
+            "match_calls": calls["multi_query_match"],
+            "match_device_launches": len(match),
+            "kernels_right_before_a_match": before}
 
 
 def profile_window(dqn, st, out_dir: str, phase: str,
@@ -762,8 +939,13 @@ def train_phase(state: dict, phase: str, steps: int, kernels: dict,
     if not torch.equal(idx, idx_p) or not torch.equal(w, w_p):
         fail(phase, f"{phase} draw != broadcast draw on the trained buffer")
     if trace_dir is not None:
-        emit({"phase": f"{phase}_profile", "ok": True,
-              **profile_window(dqn, st, trace_dir, phase)})
+        ops.reset_launches()
+        prof = profile_window(dqn, st, trace_dir, phase)
+        sequence = prof.pop("kernel_sequence")
+        if phase == "sharded":
+            prof["draw_kernels"] = check_draw_kernels(phase, sequence,
+                                                      dict(ops.launches))
+        emit({"phase": f"{phase}_profile", "ok": True, **prof})
     emit({"phase": phase, "ok": True, "sampler": cfg.sampler,
           "fr_mode": cfg.amper_fr_mode,
           "shards": getattr(dqn.replay.sampler, "n_shards", 1),
@@ -917,6 +1099,7 @@ def phase_serve(state: dict, trace_dir: str | None) -> None:
         box[:] = [Engine._choose(logits, 0.0, None, 0), cache]
         profile = profile_steps(step, 8, trace_dir, "serve_decode",
                                 ("serve_decode", "serve_prefill"))
+        del profile["kernel_sequence"]
         profile["decode_attention_launches_per_token"] = cfg.n_layers
 
     # Decode against prefill, in float32 at full width on a shorter prompt.

@@ -4,9 +4,13 @@ Counterpart of ``repro/kernels/amper_sample.py``: ``amper_sample`` (the
 Pallas kernel ``amper_sample_kernel``, ``amper_sample.py:103``) and
 ``rank_select`` (``rank_select_kernel``, ``:276``).  The kernel sources
 are ``csrc/amper_sample.cu`` and ``csrc/rank_select.cu``, whose headers
-give their bounds and designs; they share the rank-select scheme of
-``csrc/common.cuh``, and the draw has an in-kernel threefry (bit-exact
-with :mod:`repro_torch.prng`).  Callers go through
+give their bounds and designs.  The draw runs the three-launch
+rank-select scheme of ``csrc/common.cuh`` and an in-kernel threefry
+(bit-exact with :mod:`repro_torch.prng`); the rank select is one launch
+(``csrc/onepass.cuh``: decoupled look-back over 1024-row tiles), whose
+ticket and status words live in a scratch buffer kept here per device
+and stream, set apart from call to call by an epoch and a ticket base
+counted on the host.  Callers go through
 :func:`repro_torch.kernels.ops.amper_sample` and
 :func:`repro_torch.kernels.ops.rank_select`; the plain rank select is
 :func:`repro_torch.kernels.ref.rank_select_ref`.
@@ -26,7 +30,8 @@ from repro_torch import prng
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import multi_query_match_ref, nonzero_static
 
-TILE_ROWS = 1024  # rows per count tile (kTileRows in the source)
+TILE_ROWS = 1024  # rows per count tile (kTileRows in common.cuh)
+RANK_TILE_ROWS = 1024  # rows per tile of csrc/rank_select.cu (kRows)
 
 _VP, _LL, _INT, _UINT = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_uint)
@@ -62,7 +67,44 @@ def amper_sample_ref(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
 # launch arguments of csrc/amper_sample.cu and csrc/rank_select.cu
 _SAMPLE_ARGS = (_VP, _VP, _LL, _VP, _VP, _INT, _LL, _UINT, _UINT, _INT, _INT,
                 _VP, _VP, _VP)
-_RANK_ARGS = (_VP, _VP, _LL, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP)
+_RANK_ARGS = (_VP, _VP, _LL, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _UINT,
+              _UINT)
+EPOCHS = 1 << 30  # the kernel's epochs are 1 .. EPOCHS - 1
+
+
+class _LookbackScratch:
+    """The rank select's scratch on one device and stream: the ticket and
+    a status word per tile, zeroed once when made, with the host's count
+    of calls (the epoch of the next) and of tickets taken (its ``base``).
+    Nothing on the card resets it: each call's epoch and base set its
+    words apart from every earlier call's."""
+
+    def __init__(self, device: torch.device, nblk: int):
+        # the ticket's 128-byte line, then one line a tile's status word
+        self.buf = torch.zeros(32 * (nblk + 1), dtype=torch.int32,
+                               device=device)
+        self.nblk, self.epoch, self.base = nblk, 0, 0
+
+    def next_call(self, nblk: int) -> tuple[int, int]:
+        """The (epoch, base) of a call over nblk tiles."""
+        self.epoch += 1
+        base, self.base = self.base, (self.base + nblk) % (1 << 32)
+        return self.epoch, base
+
+
+_lookback: dict = {}  # (device, stream) -> _LookbackScratch
+
+
+def _lookback_key(device: torch.device) -> tuple:
+    return device, torch.cuda.current_stream(device).cuda_stream
+
+
+def _lookback_scratch(device: torch.device, nblk: int) -> _LookbackScratch:
+    key = _lookback_key(device)
+    sc = _lookback.get(key)
+    if sc is None or sc.nblk < nblk or sc.epoch == EPOCHS - 1:
+        sc = _lookback[key] = _LookbackScratch(device, nblk)
+    return sc
 
 
 def amper_sample_cuda(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
@@ -87,15 +129,30 @@ def amper_sample_cuda(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
 def rank_select_cuda(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
                      hi: torch.Tensor, rank: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the three kernels on CUDA tensors checked by the wrapper."""
+    """Launch the kernel on CUDA tensors checked by the wrapper.
+
+    Refuses a stream under CUDA graph capture: a replay would reuse the
+    captured epoch and ticket base, which the host no longer counts."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("rank_select cannot be captured in a CUDA graph: "
+                           "each call takes its epoch and ticket base from "
+                           "the host")
     n = pq.shape[0]
     dev = pq.device
-    nblk = -(-n // TILE_ROWS)
+    nblk = -(-n // RANK_TILE_ROWS)
     idx = torch.empty(rank.shape[0], dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(4 * nblk, dtype=torch.int32, device=dev)
-    build.launch("rank_select", _RANK_ARGS, dev, pq.data_ptr(),
-                 valid.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
-                 lo.shape[0], rank.data_ptr(), rank.shape[0], idx.data_ptr(),
-                 count.data_ptr(), scratch.data_ptr())
+    sc = _lookback_scratch(dev, nblk)
+    epoch, base = sc.next_call(nblk)
+    try:
+        build.launch("rank_select", _RANK_ARGS, dev, pq.data_ptr(),
+                     valid.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
+                     lo.shape[0], rank.data_ptr(), rank.shape[0],
+                     idx.data_ptr(), count.data_ptr(), sc.buf.data_ptr(),
+                     epoch, base)
+    except RuntimeError:
+        # whether the kernel took its tickets is unknown: the next call
+        # starts on a fresh zeroed scratch
+        _lookback.pop(_lookback_key(dev), None)
+        raise
     return idx, count

@@ -112,6 +112,12 @@ def _entry(name: str, argtypes: tuple):
     return fn, err
 
 
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of ``device``'s card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def launch(name: str, argtypes: tuple, device: torch.device, *args) -> None:
     """``<name>_launch(*args, stream)`` from ``csrc/<name>.cu`` (built and
     loaded at first use) with ``device`` current, on its current stream;

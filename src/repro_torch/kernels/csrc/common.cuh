@@ -1,14 +1,17 @@
-// Row loads, the m-range test and the rank-select scheme shared by the
-// AMPER-fr kernels.
+// Row loads, the m-range test and the three-launch rank-select scheme of
+// the AMPER-fr kernels.
 //
 // The wrappers (kernels/ops.py) pass only tables whose pq starts on a
 // 16-byte and valid on a 4-byte boundary, as the caching allocator gives
 // them, so every whole group of 4 rows is one int4 and one uchar4 load;
 // only the ragged tail past the last whole group reads row by row.
+// amper_sample.cu, tcam_match.cu and the one-launch kernels' tiles
+// (onepass.cuh) load rows through here.
 //
-// Rank select (amper_sample.cu and rank_select.cu): finding the flat
-// index of the r-th member of the match, in index order, without a
-// sequential grid and without atomics, in three launches on one stream:
+// Rank select in three launches (amper_sample.cu; rank_select.cu and
+// multi_query_match.cu are one launch each, built from onepass.cuh):
+// finding the flat index of the r-th member of the match, in index
+// order, without a sequential grid and without atomics, on one stream:
 //   1. count:  one block per 1024-row tile writes the tile's (members,
 //              members below `shift`, live rows) to tiles[nblk][3]
 //              (count_tile);

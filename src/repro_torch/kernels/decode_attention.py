@@ -15,7 +15,6 @@ the last block of each kv head merges them.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -62,11 +61,6 @@ def plan(b: int, hkv: int, group: int, s: int, dtype: torch.dtype,
     return Plan(gt, n_gt, -(-s // chunk), chunk)
 
 
-@functools.cache
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 _scratch: dict = {}  # device -> (float32 partials, int32 counters)
 
 
@@ -89,7 +83,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``cur_len`` is an int32 scalar on the card, read there."""
     b, hkv, group, d = q.shape
     s = k.shape[2]
-    cut = plan(b, hkv, group, s, q.dtype, sm_count(q.device))
+    cut = plan(b, hkv, group, s, q.dtype, build.sm_count(q.device))
     part, cnt = _scratch_for(q.device, b * hkv * group * cut.n_split * (d + 2)
                              if cut.n_split > 1 else 0, b * hkv * cut.n_gt)
     out = torch.empty_like(q)

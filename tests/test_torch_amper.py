@@ -121,6 +121,136 @@ def test_multi_query_match_plain_vs_pallas_interpret(n):
     assert _eq(rsel, tsel) and _eq(rcounts, tcounts)
 
 
+def _multi_query_match_emulated(pq, valid, lo, hi, threads, loads, grid_cap):
+    """csrc/multi_query_match.cu in plain torch: a grid of
+    min(tiles, grid_cap) blocks walks the tiles of 4 x threads x loads
+    rows (block b takes tiles b, b + grid, ...); thread t's load l covers
+    rows 4 threads l + 4 t .. +3; each thread counts its rows per range
+    across all its tiles, warps and then the block sum them into the
+    block's partial (range-major scratch), and the last block to take a
+    ticket, whichever it is, sums every block's partial per range."""
+    n, m = pq.shape[0], lo.shape[0]
+    rows = 4 * threads * loads
+    ntiles = -(-n // rows)
+    grid = max(1, min(ntiles, grid_cap))
+    pad = ntiles * rows - n
+    p = torch.cat([pq, torch.full((pad,), -1, dtype=torch.int32)])
+    v = torch.cat([valid, torch.zeros(pad, dtype=torch.bool)])
+    sel = torch.zeros(ntiles * rows, dtype=torch.bool)
+    partial = torch.zeros(m * grid, dtype=torch.int64)
+    for b in range(grid):
+        per_thread = torch.zeros(m, threads, dtype=torch.int64)
+        for t in range(b, ntiles, grid):
+            rs = slice(t * rows, (t + 1) * rows)
+            hit = (v[rs][None] & (p[rs][None] >= lo[:, None])
+                   & (p[rs][None] <= hi[:, None]))       # (m, rows)
+            sel[rs] = hit.any(0)
+            per_thread += hit.reshape(m, loads, threads, 4).sum((1, 3))
+        per_warp = per_thread.reshape(m, threads // 32, 32).sum(2)
+        partial[torch.arange(m) * grid + b] = per_warp.sum(1)
+    counts = partial.reshape(m, grid).sum(1)
+    return sel[:n], counts.to(torch.int32)
+
+
+@pytest.mark.parametrize("threads,loads,grid_cap",
+                         [(256, 2, 264), (32, 1, 3), (64, 4, 5)])
+@pytest.mark.parametrize("n,m", [(1, 1), (700, 20), (10_001, 20),
+                                 (4097, 64), (3001, 1), (0, 20)])
+def test_multi_query_match_decomposition_vs_pallas_interpret(n, m, threads,
+                                                             loads, grid_cap):
+    """The kernel's one-launch decomposition (the built grid of 2 blocks
+    an SM on 132 SMs, and small grids whose blocks walk several tiles)
+    equals the reference's Pallas kernel in interpret mode and the plain
+    version, at m = 1, 20 and 64, ragged tails and an empty table."""
+    pq, valid = _table(max(n, 1), seed=n + m)
+    pq, valid = np.array(pq[:n]), np.array(valid[:n])
+    jc = ja.AmperConfig(capacity=max(n, m), m=m, v_max=8.0, lam_fr=2.0)
+    lo, hi = jax.jit(lambda k: ja.fr_intervals(
+        ja.group_representatives(k, jc), jc))(jax.random.key(n + 1))
+    tlo, thi = (torch.from_numpy(np.array(x)) for x in (lo, hi))
+    got = _multi_query_match_emulated(torch.from_numpy(pq),
+                                      torch.from_numpy(valid), tlo, thi,
+                                      threads, loads, grid_cap)
+    plain = multi_query_match_ref(torch.from_numpy(pq),
+                                  torch.from_numpy(valid), tlo, thi)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    if n:  # the reference's kernel takes no empty table
+        sel, counts = jops.multi_query_match(jnp.asarray(pq),
+                                             jnp.asarray(valid), lo, hi,
+                                             interpret=True)
+        assert _eq(sel, got[0]) and _eq(counts, got[1])
+
+
+I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _float_range_test(pq, valid, lo, hi):
+    """onepass.cuh's range test in float32: the window [A, B] of the
+    non-empty ranges; when B - A < 2^24, x = valid ? clamp(p, A - 1,
+    B + 1) - A : -1, L = 1 - (lo - A), H = hi - A + 1 (empty ranges:
+    -inf), and a hit is sat(x + L) * sat(H - x).  Returns the (m, n)
+    hits, or None where the kernels take the integer test."""
+    live = lo <= hi
+    if not bool(live.any()):
+        return None
+    a, b = int(lo[live].min()), int(hi[live].max())
+    if b - a >= 1 << 24:
+        return None
+    x = torch.where(valid, (pq.long().clamp(a - 1, b + 1) - a).float(),
+                    torch.tensor(-1.0))
+    inf = torch.tensor(float("-inf"))
+    l = torch.where(live, (1 - (lo.long() - a)).float(), inf)
+    h = torch.where(live, (hi.long() - a + 1).float(), inf)
+    assert x.dtype == l.dtype == h.dtype == torch.float32
+    t1 = (x[None] + l[:, None]).clamp(0.0, 1.0)  # add.sat.f32
+    t2 = (h[:, None] - x[None]).clamp(0.0, 1.0)  # sub.sat.f32
+    return t1 * t2
+
+
+@pytest.mark.parametrize("case", ["amper_m20", "amper_m64", "edges",
+                                  "span_2p24_minus_1", "span_2p24",
+                                  "negative", "empty_mixed", "int_max",
+                                  "all_empty"])
+def test_float_range_test_is_exact(case):
+    """The kernels' float form of lo <= p <= hi gives exactly the integer
+    test, or hands the call to the integer test, on AMPER tables and on
+    rows at and beside every window edge and int32 extreme."""
+    if case.startswith("amper"):
+        m = int(case[-2:])
+        pq, valid = (torch.from_numpy(x) for x in _table(5000, seed=m))
+        cfg = ta.AmperConfig(capacity=5000, m=m, v_max=8.0, lam_fr=2.0)
+        lo, hi = ta.fr_intervals(ta.group_representatives(prng.key(m), cfg),
+                                 cfg)
+        want_fp = True
+    else:
+        a = {"negative": -3000, "int_max": I32_MAX - 40}.get(case, 10_000)
+        span = {"span_2p24_minus_1": (1 << 24) - 1, "span_2p24": 1 << 24,
+                "int_max": 40}.get(case, 500)
+        b = a + span
+        lo = torch.tensor([a, a + 7, b, a + 3], dtype=torch.int32)
+        hi = torch.tensor([a + 5, b - 1, b, a + 3], dtype=torch.int32)
+        if case in ("empty_mixed", "all_empty"):
+            lo = torch.cat([lo, torch.tensor([I32_MAX, a + 9, 0],
+                                             dtype=torch.int32)])
+            hi = torch.cat([hi, torch.tensor([I32_MIN, a + 8, -1],
+                                             dtype=torch.int32)])
+        if case == "all_empty":
+            lo, hi = hi[4:] + 1, hi[4:]
+        near = [v + d for v in (a, a + 3, a + 5, a + 7, b - 1, b)
+                for d in range(-2, 3)]
+        rows = [r for r in near + [I32_MIN, I32_MAX, 0, -1]
+                if I32_MIN <= r <= I32_MAX]
+        pq = torch.tensor(rows * 2, dtype=torch.int32)
+        valid = torch.tensor([True] * len(rows) + [False] * len(rows))
+        want_fp = case not in ("span_2p24", "all_empty")
+    hits = _float_range_test(pq, valid, lo, hi)
+    assert (hits is not None) == want_fp
+    if hits is not None:
+        exact = (valid[None] & (pq[None] >= lo[:, None])
+                 & (pq[None] <= hi[:, None])).float()
+        assert torch.equal(hits, exact)
+
+
 def test_nonzero_static_matches_jnp():
     rng = np.random.default_rng(4)
     for n, size, frac in ((50, 10, 0.5), (50, 80, 0.3), (7, 3, 0.0), (9, 9, 1.0)):
@@ -310,17 +440,36 @@ def _need_cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 1000, 100_003])
-def test_cuda_multi_query_match_equals_plain(n):
+@pytest.mark.parametrize("n,m", [(1, 20), (1000, 20), (100_003, 20),
+                                 (250_000, 20), (250_000, 64), (4097, 1),
+                                 (0, 20)])
+def test_cuda_multi_query_match_equals_plain(n, m):
     _need_cuda()
-    pq, valid = _table(n, seed=n)
-    lo, hi = ta.fr_intervals(ta.group_representatives(
-        prng.key(n), ta.AmperConfig(capacity=n, m=20, v_max=8.0, lam_fr=2.0)),
-        ta.AmperConfig(capacity=n, m=20, v_max=8.0, lam_fr=2.0))
-    args = [torch.from_numpy(x).cuda() for x in (pq, valid)] + [lo.cuda(), hi.cuda()]
+    pq, valid = _table(max(n, 1), seed=n)
+    cfg = ta.AmperConfig(capacity=max(n, m), m=m, v_max=8.0, lam_fr=2.0)
+    lo, hi = ta.fr_intervals(ta.group_representatives(prng.key(n), cfg), cfg)
+    args = [torch.from_numpy(np.array(x[:n])).cuda() for x in (pq, valid)] \
+        + [lo.cuda(), hi.cuda()]
     sel, counts = ops.multi_query_match(*args)
     psel, pcounts = multi_query_match_ref(*args)
     assert torch.equal(sel, psel) and torch.equal(counts, pcounts)
+
+
+@pytest.mark.cuda
+def test_cuda_multi_query_match_back_to_back():
+    """Calls queued with no sync in between, over three range sets, each
+    equal to the plain version: the per-range words a call leaves behind
+    must be zero for the next."""
+    _need_cuda()
+    pq, valid = (torch.from_numpy(x).cuda() for x in _table(250_000, seed=3))
+    cfg = ta.AmperConfig(capacity=250_000, m=20, v_max=8.0, lam_fr=2.0)
+    sets = [tuple(x.cuda() for x in ta.fr_intervals(
+        ta.group_representatives(prng.key(s), cfg), cfg)) for s in range(3)]
+    want = [multi_query_match_ref(pq, valid, *r) for r in sets]
+    got = [ops.multi_query_match(pq, valid, *sets[i % 3]) for i in range(300)]
+    for i, (sel, counts) in enumerate(got):
+        assert torch.equal(sel, want[i % 3][0])
+        assert torch.equal(counts, want[i % 3][1])
 
 
 @pytest.mark.cuda

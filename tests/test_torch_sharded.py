@@ -31,7 +31,9 @@ from repro_torch.core.sharded import (ShardedAmperSampler, repartition,
                                       sharded_sample_fr)
 from repro_torch.distributed.sharding import Mesh
 from repro_torch.kernels import ops
+from repro_torch.kernels import amper_sample as tsample
 from repro_torch.kernels.ref import rank_select_ref, tcam_match_ref
+from test_torch_amper import _float_range_test
 from test_torch_dqn import thirty_agent_steps
 
 N = 2048
@@ -91,6 +93,274 @@ def test_rank_select_ref_equals_reference_kernel(n, frac_valid):
     np.testing.assert_array_equal(np.asarray(jidx), tidx.numpy())
     assert int(jcnt) == int(tcnt) == count
     assert tidx.dtype == torch.int32 and tcnt.dtype == torch.int32
+
+
+# --- the one-launch rank_select kernel's decomposition, emulated in torch ------
+#
+# csrc/rank_select.cu in plain torch: tiles of 4 x threads x loads rows;
+# membership words built from each (thread, load)'s 4-row nibble; word
+# prefixes; the tile prefix by decoupled look-back over epoch-tagged
+# status words that tiles publish in a random interleaving, over an
+# earlier call's stale words; each rank resolved by its
+# owning tile from the words alone; the last tile writing count and the
+# zeros outside [0, count).
+
+AGG, INC = 1, 2
+
+
+def _member_words(sel_tile, threads, loads):
+    """The kernel's shared words: thread t's load l covers rows
+    4 threads l + 4 t .. +3, whose nibble lands in bits 4 (t % 8) .. of
+    word l threads / 8 + t // 8 (ORed over 8 lanes by shuffles)."""
+    words = [0] * (threads * loads // 8)
+    for l in range(loads):
+        for t in range(threads):
+            nib = 0
+            for k in range(4):
+                nib |= int(sel_tile[4 * threads * l + 4 * t + k]) << k
+            words[l * threads // 8 + t // 8] |= nib << (4 * (t % 8))
+    return words
+
+
+def _nth_set_bit(x, k):
+    pos = 0
+    for w in (16, 8, 4, 2, 1):
+        low = x & ((1 << w) - 1)
+        c = bin(low).count("1")
+        if k >= c:
+            k, x, pos = k - c, x >> w, pos + w
+        else:
+            x = low
+    return pos
+
+
+def _resolve(words, pre, lr):
+    lo, hi = 0, len(words) - 1
+    while lo < hi:  # the largest word whose prefix is <= lr
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if pre[mid] <= lr else (lo, mid - 1)
+    return 32 * lo + _nth_set_bit(words[lo], lr - pre[lo])
+
+
+def _lookback(members, rng, epoch=7):
+    """Exclusive tile prefixes by decoupled look-back, 32 predecessors a
+    round: tiles start in
+    ticket order and move in a random interleaving; a lane may read a
+    predecessor's aggregate after that tile has gone inclusive; the status
+    words start out holding an earlier call's words (another epoch, random
+    flags and counts), which must read as unpublished."""
+    nblk = len(members)
+    status = [(epoch - 1, int(rng.integers(1, 3)), int(rng.integers(0, 99)))
+              for _ in range(nblk)]
+    walk = [None] * nblk  # (window end, sum so far) of a running tile
+    prefix = [None] * nblk
+    started = 0
+    while None in prefix:
+        t = int(rng.integers(0, min(started + 1, nblk)))
+        if t == started:  # takes the next ticket, publishes
+            status[t] = (epoch, INC if t == 0 else AGG, members[t])
+            walk[t], started = (t - 1, 0), started + 1
+            if t == 0:
+                prefix[0] = 0
+            continue
+        if prefix[t] is not None:
+            continue
+        end, excl = walk[t]
+        window = []
+        for lane in range(32):  # nearest first
+            pred = end - lane
+            e, flag, v = status[pred] if pred >= 0 else (epoch, INC, 0)
+            flag = flag if e == epoch else 0
+            if pred >= 0 and flag == INC and rng.random() < 0.3:
+                flag, v = AGG, members[pred]  # read before it went inclusive
+            window.append((flag, v))
+        if any(f == 0 for f, _ in window):
+            continue  # spins
+        stop = next((i for i, (f, _) in enumerate(window) if f == INC), None)
+        excl += sum(v for _, v in window[:32 if stop is None else stop + 1])
+        if stop is None:
+            walk[t] = (end - 32, excl)
+        else:
+            prefix[t] = excl
+            status[t] = (epoch, INC, excl + members[t])
+    return prefix
+
+
+def _members(pq, valid, lo, hi):
+    """Membership as the kernel tests it: the float test where the
+    window allows it, else the integer one."""
+    hits = _float_range_test(pq, valid, lo, hi)
+    if hits is None:
+        hits = (valid[None] & (pq[None] >= lo[:, None])
+                & (pq[None] <= hi[:, None]))
+    return hits.bool().any(0)
+
+
+def _rank_select_emulated(pq, valid, lo, hi, rank, threads, loads, seed=0):
+    n = pq.shape[0]
+    rows = 4 * threads * loads
+    nblk = -(-n // rows)
+    sel = torch.zeros(nblk * rows, dtype=torch.bool)
+    sel[:n] = _members(pq, valid, lo, hi)
+    tiles = []
+    for t in range(nblk):
+        tile = sel[t * rows:(t + 1) * rows]
+        words = _member_words(tile, threads, loads)
+        # the words hold the tile's membership in index order
+        assert [(words[r // 32] >> (r % 32)) & 1 for r in range(rows)] == \
+            tile.int().tolist()
+        pc = [bin(w).count("1") for w in words]
+        tiles.append((words, [sum(pc[:i]) for i in range(len(pc))], sum(pc)))
+    prefix = _lookback([mem for *_, mem in tiles],
+                       np.random.default_rng(seed))
+    ranks = rank.tolist()
+    idx, count = [None] * len(ranks), None
+    for t, (words, pre, members) in enumerate(tiles):
+        last, total = t == nblk - 1, prefix[t] + members
+        if members == 0 and not last:
+            continue  # owns no rank
+        if last:
+            count = total
+        for j, r in enumerate(ranks):
+            if prefix[t] <= r < total:
+                assert idx[j] is None  # one writer per rank
+                idx[j] = t * rows + _resolve(words, pre, r - prefix[t])
+            elif last and (r < 0 or r >= total):
+                assert idx[j] is None
+                idx[j] = 0
+    assert None not in idx
+    return (torch.tensor(idx, dtype=torch.int32).reshape(-1),
+            torch.tensor(count, dtype=torch.int32))
+
+
+def _edge_table(n, members, m=1):
+    """pq 7 on the member rows, 3 elsewhere, all valid; the range [7, 7]
+    and m - 1 empty ranges."""
+    pq = np.full(n, 3, np.int32)
+    pq[list(members)] = 7
+    lo = torch.tensor([7] + [9] * (m - 1), dtype=torch.int32)
+    hi = torch.tensor([7] + [8] * (m - 1), dtype=torch.int32)
+    return pq, np.ones(n, bool), lo, hi
+
+
+def _rank_case(name):
+    """(pq, valid, lo, hi, ranks) of the edge cases, tiles of 1024 rows."""
+    if name == "tile_boundaries":
+        rows = [0, 1023, 1024, 2047, 2048, 3071, 4095, 4096, 4100]
+        pq, valid, lo, hi = _edge_table(4101, rows)
+    elif name == "last_tile_only":
+        pq, valid, lo, hi = _edge_table(3500, range(3072, 3500, 7))
+    elif name == "single_member":
+        pq, valid, lo, hi = _edge_table(2500, [1777])
+    elif name == "empty_tiles_between":
+        pq, valid, lo, hi = _edge_table(5000, [5, 6, 4500, 4999])
+    elif name in ("batch0", "m1", "m64", "n1", "below_one_tile", "odd"):
+        n = {"n1": 1, "below_one_tile": 700, "odd": 3001}.get(name, 2600)
+        m = {"m1": 1, "m64": 64}.get(name, 20)
+        pq, valid = _table(n, seed=n + m, frac_valid=0.8)
+        cfg = AmperConfig(capacity=max(n, m), m=m, lam_fr=2.0, v_max=8.0)
+        lo, hi = fr_intervals(group_representatives(prng.key(m), cfg), cfg)
+    count = int(rank_select_ref(*_t(pq, valid), lo, hi,
+                                torch.zeros(1, dtype=torch.int32))[1])
+    ranks = (np.zeros(0, np.int32) if name == "batch0" else np.concatenate(
+        [np.arange(count), _ranks_for(count)]).astype(np.int32))
+    return pq, valid, lo, hi, ranks
+
+
+RANK_CASES = ["tile_boundaries", "last_tile_only", "single_member",
+              "empty_tiles_between", "batch0", "m1", "m64", "n1",
+              "below_one_tile", "odd"]
+
+
+@pytest.mark.parametrize("threads,loads", [(128, 2), (256, 4), (32, 1)])
+@pytest.mark.parametrize("case", RANK_CASES)
+def test_rank_select_decomposition_equals_plain(case, threads, loads):
+    """The kernel's decomposition, at its 1024-row tiles and at 4096- and
+    128-row tiles (whose look-back crosses several 32-tile windows),
+    equals rank_select_ref on every edge case."""
+    pq, valid, lo, hi, ranks = _rank_case(case)
+    want = rank_select_ref(*_t(pq, valid), lo, hi, *_t(ranks))
+    for seed in range(3):
+        got = _rank_select_emulated(*_t(pq, valid), lo, hi, *_t(ranks),
+                                    threads, loads, seed)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("case", [c for c in RANK_CASES if c != "batch0"])
+def test_rank_select_decomposition_equals_reference_kernel(case):
+    """The emulated decomposition against the reference's Pallas kernel,
+    run as test_rank_select_ref_equals_reference_kernel runs it."""
+    pq, valid, lo, hi, ranks = _rank_case(case)
+    jidx, jcnt = jops.rank_select(pq, valid, lo.numpy(), hi.numpy(), ranks)
+    idx, cnt = _rank_select_emulated(*_t(pq, valid), lo, hi, *_t(ranks),
+                                     128, 2)
+    np.testing.assert_array_equal(np.asarray(jidx), idx.numpy())
+    assert int(jcnt) == int(cnt)
+
+
+def test_lookback_prefixes_in_any_interleaving():
+    """The look-back's tile prefixes are the exclusive cumsum of the
+    tiles' members whatever order the tiles move in, over stale words of
+    an earlier epoch."""
+    rng = np.random.default_rng(0)
+    for nblk in (1, 2, 31, 33, 65, 100, 245):
+        members = rng.integers(0, 5, nblk).tolist()
+        want = np.concatenate([[0], np.cumsum(members)[:-1]]).tolist()
+        for seed in range(3):
+            assert _lookback(members, np.random.default_rng(seed)) == want
+
+
+@pytest.mark.parametrize("case", ["in_step", "failed_launch", "capture",
+                                  "epoch_wrap"])
+def test_rank_select_epochs_and_ticket_base(monkeypatch, case):
+    """The CUDA wrapper's host bookkeeping, with the launch recorded
+    instead of run: each call takes a new epoch and, as its ticket base,
+    the tiles of the calls before it; a launch that raises drops the
+    scratch (the next call starts on a zeroed one at epoch 1, base 0), a
+    stream under graph capture is refused before anything is counted, and
+    the last epoch is followed by a fresh scratch."""
+    calls = []
+
+    def launch(name, argtypes, device, *args):
+        calls.append(args[-2:])  # (epoch, base)
+        if case == "failed_launch" and len(calls) == 2:
+            raise RuntimeError("rank_select launch failed")
+
+    monkeypatch.setattr(tsample, "_lookback", {})
+    monkeypatch.setattr(tsample, "_lookback_key", lambda dev: (dev, 0))
+    monkeypatch.setattr(tsample.build, "launch", launch)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: case == "capture")
+    pq = torch.zeros(2500, dtype=torch.int32)  # 3 tiles
+    valid = torch.ones(2500, dtype=torch.bool)
+    lo = hi = torch.zeros(3, dtype=torch.int32)
+    rank = torch.zeros(4, dtype=torch.int32)
+
+    def call(n=2500):
+        return tsample.rank_select_cuda(pq[:n], valid[:n], lo, hi, rank)
+
+    if case == "capture":
+        with pytest.raises(RuntimeError, match="graph"):
+            call()
+        assert calls == [] and tsample._lookback == {}
+        return
+    call()
+    if case == "failed_launch":
+        with pytest.raises(RuntimeError, match="launch failed"):
+            call()
+        assert tsample._lookback == {}
+        call()
+        assert calls == [(1, 0), (2, 3), (1, 0)]
+    elif case == "epoch_wrap":
+        sc = tsample._lookback[(CPU, 0)]
+        sc.epoch, sc.base = tsample.EPOCHS - 2, (1 << 32) - 2
+        call()
+        call()
+        assert calls == [(1, 0), (tsample.EPOCHS - 1, (1 << 32) - 2), (1, 0)]
+    else:
+        call(1000)
+        call()
+        assert calls == [(1, 0), (2, 3), (3, 4)]
 
 
 @pytest.mark.parametrize("n", [1, 1001, 4096])
@@ -310,7 +580,8 @@ def _need_cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,frac_valid", [(1, 1.0), (1001, 0.9),
-                                          (250_000, 0.9), (4097, 0.0)])
+                                          (250_000, 0.9), (4097, 0.0),
+                                          (1_000_000, 0.9)])
 def test_cuda_rank_select_equals_plain(n, frac_valid):
     _need_cuda()
     pq, valid = _table(n, seed=n, frac_valid=frac_valid)
@@ -326,6 +597,39 @@ def test_cuda_rank_select_equals_plain(n, frac_valid):
     got = ops.rank_select(*args, rank)
     want = rank_select_ref(*args, rank)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in RANK_CASES if c != "batch0"]
+                         + ["batch0"])
+def test_cuda_rank_select_edge_cases_equal_plain(case):
+    """The kernel on every edge case of the emulated decomposition."""
+    _need_cuda()
+    pq, valid, lo, hi, ranks = _rank_case(case)
+    args = [x.cuda() for x in _t(pq, valid, ranks)]
+    got = ops.rank_select(args[0], args[1], lo.cuda(), hi.cuda(), args[2])
+    want = rank_select_ref(args[0], args[1], lo.cuda(), hi.cuda(), args[2])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_rank_select_back_to_back():
+    """Calls queued with no sync in between, over three range sets and
+    rank sets, each equal to the plain version: a call must never take an
+    earlier call's look-back words or tickets for its own."""
+    _need_cuda()
+    pq, valid = (x.cuda() for x in _t(*_table(250_000, seed=5)))
+    cfg = AmperConfig(capacity=250_000, m=20, lam_fr=2.0, v_max=8.0)
+    rng = np.random.default_rng(5)
+    sets = [(*(x.cuda() for x in fr_intervals(
+        group_representatives(prng.key(s), cfg), cfg)),
+        torch.from_numpy(rng.integers(-3, 90_000, 64).astype(
+            np.int32)).cuda()) for s in range(3)]
+    want = [rank_select_ref(pq, valid, *s_) for s_ in sets]
+    got = [ops.rank_select(pq, valid, *sets[i % 3]) for i in range(300)]
+    for i, (idx, cnt) in enumerate(got):
+        assert torch.equal(idx, want[i % 3][0])
+        assert torch.equal(cnt, want[i % 3][1])
 
 
 @pytest.mark.cuda
