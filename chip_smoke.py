@@ -7,7 +7,9 @@ Run from the repository root with no arguments:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each kernel against its plain PyTorch version at the main path's shapes
-(n = 1,000,000 replay rows, or one 250,000-row shard of them), trains
+(n = 1,000,000 replay rows, or one 250,000-row shard of them), captures
+the two draw kernels in one CUDA graph and holds its replays, and the
+eager calls after them, against the plain versions, trains
 the DQN + AMPER-fr agent on CartPole through the fused draw kernel,
 through the match kernel, and through the sharded draw (4 shards on the
 card: the match and rank-select kernels on every shard) with the
@@ -26,8 +28,9 @@ line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero without that line.  There is no fallback to the CPU: without a
 CUDA device the script exits with code 2.
 
-``--phases`` picks a subset (device,match,sample,rank,tcam,flash,decode,
-fused,kernel,sharded,serve) for debugging; every phase runs by default.
+``--phases`` picks a subset (device,match,sample,rank,graph,tcam,flash,
+decode,fused,kernel,sharded,serve) for debugging; every phase runs by
+default.
 ``--profile`` adds a torch.profiler window after each training phase and
 over decode steps of the serve phase (device busy and idle share per
 step, launches per step, top kernels; the chrome trace goes to
@@ -52,8 +55,8 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 SHARDS = 4                   # logical shards of the sharded phase, on one card
-PHASES = ("device", "match", "sample", "rank", "tcam", "flash", "decode",
-          "fused", "kernel", "sharded", "serve")
+PHASES = ("device", "match", "sample", "rank", "graph", "tcam", "flash",
+          "decode", "fused", "kernel", "sharded", "serve")
 ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
 # The reference's kernel sweep (tests/test_kernels.py) and GQA group 4 at
@@ -195,7 +198,7 @@ def phase_device(state: dict) -> None:
     if any("setmaxnreg ignored" in text for text in reports.values()):
         fail("device", "ptxas ignored setmaxnreg in the flash kernel")
     for name in ("flash_attention", "decode_attention", "rank_select",
-                 "multi_query_match"):
+                 "multi_query_match", "amper_sample"):
         spills = re.findall(r"(\d+) bytes spill stores", reports.get(name, ""))
         if any(int(n) for n in spills):
             fail("device", f"ptxas spills registers in {name}")
@@ -341,39 +344,146 @@ def phase_match(state: dict) -> None:
           "ops_per_call_and_us": split})
 
 
+def scratch_words(kernel: str, device) -> torch.Tensor:
+    """The scratch that ``kernel`` keeps for the current stream of
+    ``device`` (keyed by the tensors' device, which has an index)."""
+    from repro_torch.kernels import build
+
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if device.index is None else device
+    return build._scratch[(kernel, device, build.stream_key(device))]
+
+
+# a scratch's epoch word (int32 index): the last finished call's epoch
+EPOCH_WORD = {"amper_sample": 0, "rank_select": 2}
+MAX_EPOCH = (1 << 30) - 1
+
+
+def check_epoch_wrap(phase: str, kernel: str, device, call, check) -> None:
+    """Set ``kernel``'s epoch word on this stream to 2^30 - 4, then run
+    ``call`` 5 times (epochs 2^30 - 3 .. 2^30 - 1, then 1), each result
+    held by ``check``, across the epoch that wraps: the kernel must zero
+    its status words and go on at epoch 1 (the word then reads 1)."""
+    words = scratch_words(kernel, device)
+    words[EPOCH_WORD[kernel]] = MAX_EPOCH - 4
+    for i in range(5):
+        check(f"epoch wrap, call {i}", call())
+    torch.cuda.synchronize()
+    got = int(words[EPOCH_WORD[kernel]])
+    if got != 1:
+        fail(phase, f"{kernel}: epoch word {got} after the wrap, not 1")
+
+
+def sample_cases(pq, valid, shard_pq, shard_valid, lo, hi, device):
+    """(name, pq, valid, lo, hi, shift, batch, csp_capacity) of the
+    draw's cases at n = 1e6 and one 250k shard (CSP ratio 0.15)."""
+    n, ns = pq.shape[0], shard_pq.shape[0]
+    full = (pq, valid, lo, hi)
+    shard = (shard_pq, shard_valid, lo, hi)
+    every = (torch.tensor([-2 ** 31], dtype=torch.int32, device=device),
+             torch.tensor([2 ** 31 - 1], dtype=torch.int32, device=device))
+    cases = [("n1e6_b64", *full, 4242, 64, 150_000),
+             ("shard_250k_b64", *shard, 4242, 64, 37_500),
+             ("shift_0", *full, 0, 64, 150_000),
+             ("shift_last_b300", *full, n - 1, 300, 150_000),
+             ("shift_tile_boundary", *full, 1024 * 500, 64, 150_000),
+             ("shard_shift_0_b1", *shard, 0, 1, 37_500),
+             ("shard_shift_last", *shard, ns - 1, 64, 37_500),
+             ("shard_shift_tile_boundary_b300", *shard, 1024 * 100, 300,
+              37_500),
+             ("b1", *full, 777, 1, 150_000),
+             ("truncated_csp64", *full, 12_345, 64, 64),
+             ("shard_truncated_csp64", *shard, 12_345, 300, 64),
+             ("empty_csp_live_rows", pq, valid,
+              *custom_ranges("empty", device), 999, 64, 150_000),
+             ("shard_empty_csp", shard_pq, shard_valid,
+              *custom_ranges("empty", device), 999, 300, 37_500),
+             ("no_live_rows", pq, torch.zeros_like(valid), lo, hi, 5, 64,
+              150_000),
+             ("every_row_a_member", pq, torch.ones_like(valid), *every,
+              333_333, 64, 150_000),
+             ("shard_every_row_a_member", shard_pq, shard_valid, *every,
+              ns // 2, 300, 37_500),
+             ("odd_999999", pq[1:].clone(), valid[1:].clone(), lo, hi,
+              500_000, 64, 150_000),
+             ("n1", pq[:1].clone(), valid[:1].clone(), lo, hi, 0, 64, 1)]
+    cases += [(f"{kind}", *shard[:2], *custom_ranges(kind, device), 31_337,
+               64, 37_500) for kind in ("m1", "m64", "wide")]
+    cases += [(f"{kind}_n1e6", *full[:2], *custom_ranges(kind, device),
+               31_337, 64, 150_000) for kind in ("m1", "m64")]
+    return cases
+
+
 def phase_sample(state: dict) -> None:
     from repro_torch import prng
+    from repro_torch.kernels import amper_sample as am
     from repro_torch.kernels import ops
     from repro_torch.kernels.amper_sample import amper_sample_ref
 
     dev = torch.device("cuda")
     pq, valid = table(N_ROWS, 1000, dev)
+    shard_pq, shard_valid = table(N_ROWS // SHARDS, 0, dev)
     lo, hi = ranges(dev)
-    none_valid = torch.zeros_like(valid)
-    cases = [("csp150k_b64", valid, 150_000, 64),
-             ("csp150k_b300", valid, 150_000, 300),
-             ("truncated_csp64", valid, 64, 64),
-             ("empty_table", none_valid, 150_000, 64)]
     err = 0
     results = []
-    for i, (name, v, cap, batch) in enumerate(cases):
-        shift = 12_345 + 99_991 * i
-        k = prng.key(100 + i)
-        idx, stats = ops.amper_sample(pq, v, lo, hi, shift, k, batch=batch,
-                                      csp_capacity=cap)
-        idx_p, stats_p = amper_sample_ref(pq, v, lo, hi, shift, k,
-                                          batch=batch, csp_capacity=cap)
+
+    def check(case, got, want):
+        nonlocal err
         torch.cuda.synchronize()
-        if not torch.equal(idx, idx_p) or not torch.equal(stats, stats_p):
-            fail("sample", f"{name}: kernel != plain: stats "
-                 f"{stats.tolist()} vs {stats_p.tolist()}, idx diff "
-                 f"{int((idx != idx_p).sum())}/{batch}")
-        err = max(err, int((idx - idx_p).abs().max()),
-                  int((stats - stats_p).abs().max()))
-        results.append({"case": name, "stats": stats.tolist()})
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail("sample", f"{case}: kernel != plain: stats "
+                 f"{got[1].tolist()} vs {want[1].tolist()}, idx diff "
+                 f"{int((got[0] != want[0]).sum())}/{want[0].shape[0]}")
+        err = max(err, max_abs_diff(got[0], want[0]),
+                  max_abs_diff(got[1], want[1]))
+
+    for i, (name, p, v, rlo, rhi, shift, batch, cap) in enumerate(
+            sample_cases(pq, valid, shard_pq, shard_valid, lo, hi, dev)):
+        k = prng.key(100 + i)
+        want = amper_sample_ref(p, v, rlo, rhi, shift, k, batch=batch,
+                                csp_capacity=cap)
+        check(name, ops.amper_sample(p, v, rlo, rhi, shift, k, batch=batch,
+                                     csp_capacity=cap), want)
+        # the same draw with shift and key read on the card
+        check(f"{name} (device form)", ops.amper_sample(
+            p, v, rlo, rhi, torch.tensor(shift, dtype=torch.int32,
+                                         device=dev),
+            k.to(dev), batch=batch, csp_capacity=cap), want)
+        results.append({"case": name, "n": p.shape[0], "shift": shift,
+                        "batch": batch, "cap": cap,
+                        "stats": want[1].tolist()})
+    # back to back on one stream: stale look-back words would show; the
+    # calls take turns over three shifts and keys, at a shard and 1e6
+    for name, p, v, cap in (("shard_250k", shard_pq, shard_valid, 37_500),
+                            ("n1e6", pq, valid, 150_000)):
+        draws = [(7 + 99_991 * j % p.shape[0], prng.key(200 + j))
+                 for j in range(3)]
+        want = [amper_sample_ref(p, v, lo, hi, sh, k, batch=64,
+                                 csp_capacity=cap) for sh, k in draws]
+        outs = [ops.amper_sample(p, v, lo, hi, *draws[i % 3], batch=64,
+                                 csp_capacity=cap)
+                for i in range(BACK_TO_BACK)]
+        for i, got in enumerate(outs):
+            check(f"{name} back-to-back call {i}", got, want[i % 3])
+        del outs
     k = prng.key(7)
+    want = amper_sample_ref(shard_pq, shard_valid, lo, hi, 4242, k, batch=64,
+                            csp_capacity=37_500)
+    check_epoch_wrap("sample", "amper_sample", dev, lambda: ops.amper_sample(
+        shard_pq, shard_valid, lo, hi, 4242, k, batch=64,
+        csp_capacity=37_500), lambda case, got: check(case, got, want))
+    # timed at the fused draw's shape: n = 1e6, batch 64, CSP 150,000
+    split = {"n1e6": one_kernel("sample", lambda: ops.amper_sample(
+        pq, valid, lo, hi, 4242, k, batch=64, csp_capacity=150_000),
+        "amper_sample"),
+        "shard_250k": one_kernel("sample", lambda: ops.amper_sample(
+            shard_pq, shard_valid, lo, hi, 4242, k, batch=64,
+            csp_capacity=37_500), "amper_sample")}
     ms = device_time_ms(lambda: ops.amper_sample(
         pq, valid, lo, hi, 4242, k, batch=64, csp_capacity=150_000))
+    ms_shard = device_time_ms(lambda: ops.amper_sample(
+        shard_pq, shard_valid, lo, hi, 4242, k, batch=64,
+        csp_capacity=37_500))
     plain_ms = device_time_ms(lambda: amper_sample_ref(
         pq, valid, lo, hi, 4242, k, batch=64, csp_capacity=150_000),
         calls=5, reps=3)
@@ -382,6 +492,8 @@ def phase_sample(state: dict) -> None:
     # each input read once (shift and key: 16 B), each output written once
     bound_ms = (nbytes(pq, valid, lo, hi, idx, stats) + 16) \
         / HBM_BYTES_PER_S * 1e3
+    bound_shard = (nbytes(shard_pq, shard_valid, lo, hi, idx, stats) + 16) \
+        / HBM_BYTES_PER_S * 1e3
     state["kernels"]["amper_sample"] = {
         "name": "amper_sample", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/amper_sample.cu",
@@ -389,7 +501,11 @@ def phase_sample(state: dict) -> None:
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
     emit({"phase": "sample", "ok": True, "n": N_ROWS, "cases": results,
-          "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms})
+          "back_to_back": BACK_TO_BACK, "epoch_wrap": True,
+          "max_rows": am.max_rows(dev), "kernel_ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "kernel_ms_shard_250k": ms_shard, "bound_ms_shard_250k": bound_shard,
+          "ops_per_call_and_us": split})
 
 
 def rank_cases(count: int, batch: int, seed: int) -> torch.Tensor:
@@ -477,6 +593,14 @@ def phase_rank(state: dict) -> None:
         if not (torch.equal(idx, want[i % 3][0])
                 and torch.equal(cnt, want[i % 3][1])):
             fail("rank", f"back-to-back call {i} != plain")
+
+    def check_wrap(case, got):
+        if not (torch.equal(got[0], want[0][0])
+                and torch.equal(got[1], want[0][1])):
+            fail("rank", f"{case} != plain")
+
+    check_epoch_wrap("rank", "rank_select", dev, lambda: ops.rank_select(
+        shard_pq, shard_valid, *sets[0]), check_wrap)
     # timed at the main path's shape: one shard, the train batch of ranks
     rank = rank_cases(results[1]["members"], 64, seed=3)
     split = {"shard_250k": one_kernel("rank", lambda: ops.rank_select(
@@ -502,11 +626,119 @@ def phase_rank(state: dict) -> None:
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
     emit({"phase": "rank", "ok": True, "cases": results,
-          "back_to_back": BACK_TO_BACK,
+          "back_to_back": BACK_TO_BACK, "epoch_wrap": True,
           "timed": {"n": shard_pq.shape[0], "batch": 64},
           "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
           "kernel_ms_n1e6": ms_full, "bound_ms_n1e6": bound_full,
           "ops_per_call_and_us": split})
+
+
+GRAPH_REPLAYS = 20
+
+
+def phase_graph(state: dict) -> None:
+    """``ops.amper_sample`` (shift and key on the card) and
+    ``ops.rank_select`` captured in one CUDA graph after a warm-up on a
+    side stream; every replay, with fresh shifts, keys and ranks copied
+    into the graph's inputs, and the eager calls on that stream after the
+    replays, held against the plain versions: the card's epochs go on
+    across replays and eager calls.  A host shift under capture, and
+    ``decode_attention`` under capture, must raise."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.amper_sample import amper_sample_ref
+    from repro_torch.kernels.ref import rank_select_ref
+
+    dev = torch.device("cuda")
+    pq, valid = table(N_ROWS, 1000, dev)
+    shard_pq, shard_valid = table(N_ROWS // SHARDS, 0, dev)
+    lo, hi = ranges(dev)
+    count = int(rank_select_ref(shard_pq, shard_valid, lo, hi, torch.zeros(
+        1, dtype=torch.int32, device=dev))[1])
+    draws = [(int(prng.randint(prng.key(300 + i), (), 0, N_ROWS)),
+              prng.key(400 + i), rank_cases(count, 64, seed=500 + i))
+             for i in range(GRAPH_REPLAYS + 5)]
+    want = [(amper_sample_ref(pq, valid, lo, hi, sh, k, batch=64,
+                              csp_capacity=150_000),
+             rank_select_ref(shard_pq, shard_valid, lo, hi, r))
+            for sh, k, r in draws]
+    shift = torch.zeros((), dtype=torch.int32, device=dev)
+    key = torch.zeros(2, dtype=torch.int64, device=dev)
+    rank = torch.zeros(64, dtype=torch.int32, device=dev)
+
+    def calls():
+        return (ops.amper_sample(pq, valid, lo, hi, shift, key, batch=64,
+                                 csp_capacity=150_000),
+                ops.rank_select(shard_pq, shard_valid, lo, hi, rank))
+
+    def set_inputs(i):
+        sh, k, r = draws[i]
+        shift.copy_(torch.tensor(sh, dtype=torch.int32))
+        key.copy_(k)
+        rank.copy_(r)
+
+    def check(case, got, i):
+        for name, g, w in (("amper_sample", got[0], want[i][0]),
+                           ("rank_select", got[1], want[i][1])):
+            if not (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])):
+                fail("graph", f"{case}: {name} != plain")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up makes the scratch
+        set_inputs(0)
+        got = calls()
+        side.synchronize()
+        check("warm-up", got, 0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = calls()
+    with torch.cuda.stream(side):
+        replays = []
+        for i in range(GRAPH_REPLAYS):
+            set_inputs(i)
+            graph.replay()
+            replays.append(tuple(tuple(t.clone() for t in o) for o in out))
+        eager = []
+        for i in range(GRAPH_REPLAYS, GRAPH_REPLAYS + 5):
+            set_inputs(i)
+            eager.append(tuple(tuple(t.clone() for t in o)
+                               for o in calls()))
+        side.synchronize()
+        epochs = {k: int(scratch_words(k, dev)[EPOCH_WORD[k]])
+                  for k in EPOCH_WORD}
+    for i, got in enumerate(replays):
+        check(f"replay {i}", got, i)
+    for i, got in enumerate(eager):
+        check(f"eager call {i} after the replays", got, GRAPH_REPLAYS + i)
+    # the warm-up, the replays and the eager calls, each one epoch
+    if set(epochs.values()) != {1 + GRAPH_REPLAYS + 5}:
+        fail("graph", f"epoch words {epochs} after "
+             f"{1 + GRAPH_REPLAYS + 5} calls")
+    torch.cuda.synchronize()
+    replay_ms = device_time_ms(graph.replay)
+    eager_ms = device_time_ms(calls)
+    refused = {}
+    q, k, v = attention_inputs([(1, 2, 1, 64), (1, 2, 128, 64),
+                                (1, 2, 128, 64)], torch.bfloat16, 0)
+    cur_len = torch.tensor(100, dtype=torch.int32, device=dev)
+    for name, fn in (
+            ("amper_sample_host_shift", lambda: ops.amper_sample(
+                pq, valid, lo, hi, 4242, prng.key(0), batch=64,
+                csp_capacity=150_000)),
+            ("decode_attention", lambda: ops.decode_attention(
+                q, k, v, cur_len))):
+        try:
+            with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+                fn()
+        except RuntimeError as e:
+            refused[name] = str(e)[:80]
+        else:
+            fail("graph", f"{name} was captured; it must be refused")
+    torch.cuda.synchronize()
+    emit({"phase": "graph", "ok": True, "replays": GRAPH_REPLAYS,
+          "eager_after": 5, "epoch_words": epochs,
+          "replay_ms": replay_ms, "eager_ms": eager_ms, "refused": refused})
 
 
 def tcam_path(pq: torch.Tensor, valid: torch.Tensor, seed: int = SEED):
@@ -776,28 +1008,32 @@ def profile_steps(step, steps: int, out_dir: str, name: str,
             "kernel_sequence": sequence}
 
 
+# the replay kernels' device names, by wrapper
+DRAW_KERNELS = {"amper_sample": "amper_sample_kernel",
+                "multi_query_match": "multi_query_match_kernel",
+                "rank_select": "rank_select_kernel"}
+
+
 def check_draw_kernels(phase: str, sequence, calls: dict) -> dict:
-    """Fail the phase unless each ``rank_select`` call of the profiled
-    window was one device launch, and each ``multi_query_match`` call one
-    launch with no fill kernel right before it (the device operations in
-    launch order, ``calls`` the wrappers' counts over the window)."""
-    rank = sum("rank_select_kernel" in k for k in sequence)
-    match = [i for i, k in enumerate(sequence)
-             if "multi_query_match_kernel" in k]
-    before = sorted({sequence[i - 1][:60] for i in match if i})
-    for got, want in ((rank, calls["rank_select"]),
-                      (len(match), calls["multi_query_match"])):
-        if not (want and PROFILER_KEEPS * want <= got <= want):
-            fail(phase, f"device launches {rank} rank_select, {len(match)} "
-                 f"multi_query_match for {calls['rank_select']} and "
-                 f"{calls['multi_query_match']} calls")
+    """Fail the phase unless each call of a replay kernel in the profiled
+    window was one device launch, with no fill or memset kernel right
+    before an ``amper_sample`` or ``multi_query_match`` launch (the device
+    operations in launch order, ``calls`` the wrappers' counts over the
+    window)."""
+    out, before = {}, set()
+    for name, kernel in DRAW_KERNELS.items():
+        at = [i for i, k in enumerate(sequence) if kernel in k]
+        want = calls[name]
+        if not PROFILER_KEEPS * want <= len(at) <= want:
+            fail(phase, f"{len(at)} device launches of {kernel} for {want} "
+                 f"{name} calls")
+        out[name] = {"calls": want, "device_launches": len(at)}
+        if name != "rank_select":
+            before |= {sequence[i - 1][:60] for i in at if i}
     if any("fill" in k.lower() or "memset" in k.lower() for k in before):
-        fail(phase, f"a fill runs before the match: {before}")
-    return {"rank_select_calls": calls["rank_select"],
-            "rank_select_device_launches": rank,
-            "match_calls": calls["multi_query_match"],
-            "match_device_launches": len(match),
-            "kernels_right_before_a_match": before}
+        fail(phase, f"a fill runs before a draw kernel: {before}")
+    out["kernels_right_before_a_draw_or_match"] = sorted(before)
+    return out
 
 
 def profile_window(dqn, st, out_dir: str, phase: str,
@@ -942,9 +1178,8 @@ def train_phase(state: dict, phase: str, steps: int, kernels: dict,
         ops.reset_launches()
         prof = profile_window(dqn, st, trace_dir, phase)
         sequence = prof.pop("kernel_sequence")
-        if phase == "sharded":
-            prof["draw_kernels"] = check_draw_kernels(phase, sequence,
-                                                      dict(ops.launches))
+        prof["draw_kernels"] = check_draw_kernels(phase, sequence,
+                                                  dict(ops.launches))
         emit({"phase": f"{phase}_profile", "ok": True, **prof})
     emit({"phase": phase, "ok": True, "sampler": cfg.sampler,
           "fr_mode": cfg.amper_fr_mode,
@@ -1149,7 +1384,8 @@ def main(argv=None) -> int:
     state = {"smi": nvidia_smi_line(), "kernels": {}, "launches": {}}
     for name, fn in (("device", phase_device), ("match", phase_match),
                      ("sample", phase_sample), ("rank", phase_rank),
-                     ("tcam", phase_tcam), ("flash", phase_flash),
+                     ("graph", phase_graph), ("tcam", phase_tcam),
+                     ("flash", phase_flash),
                      ("decode", phase_decode)):
         if name in phases:
             fn(state)

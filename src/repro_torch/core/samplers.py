@@ -11,8 +11,10 @@ kwargs vocabulary and ignore what they do not consume:
   size; min_csp -- floor of the derived size (usually the train batch);
   device -- where the sampler's state lives (default ``"cuda"``).
 
-This slice registers ``uniform`` and ``amper-fr``; the PER and AMPER-k
-samplers and the sharded fronts wait for later slices.
+Six kinds are registered: ``uniform``, ``per-sumtree``, ``per-cumsum``
+(alias ``per``), ``amper-fr``, and the sharded fronts ``amper-fr-sharded``
+and ``per-sharded`` (``mesh`` and ``axis_names`` besides).  AMPER-k
+(``amper-k``) waits for a later slice.
 """
 from __future__ import annotations
 

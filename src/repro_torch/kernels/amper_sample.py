@@ -4,13 +4,22 @@ Counterpart of ``repro/kernels/amper_sample.py``: ``amper_sample`` (the
 Pallas kernel ``amper_sample_kernel``, ``amper_sample.py:103``) and
 ``rank_select`` (``rank_select_kernel``, ``:276``).  The kernel sources
 are ``csrc/amper_sample.cu`` and ``csrc/rank_select.cu``, whose headers
-give their bounds and designs.  The draw runs the three-launch
-rank-select scheme of ``csrc/common.cuh`` and an in-kernel threefry
-(bit-exact with :mod:`repro_torch.prng`); the rank select is one launch
-(``csrc/onepass.cuh``: decoupled look-back over 1024-row tiles), whose
-ticket and status words live in a scratch buffer kept here per device
-and stream, set apart from call to call by an epoch and a ticket base
-counted on the host.  Callers go through
+give their bounds and designs; both are one launch built from
+``csrc/onepass.cuh`` (1024-row tiles read once, membership kept as bit
+words in shared memory, a decoupled look-back for the tiles' member
+prefixes).  The draw is one cooperative launch, every block resident, so
+that each can wait for the table's total: block b takes tiles b, b + G,
+..., the tile holding ``shift`` publishes the members below it, an
+in-kernel threefry (bit-exact with :mod:`repro_torch.prng`) draws the
+ranks, and each block resolves the ranks in its own tiles; its largest
+table is :func:`max_rows`.  The rank select takes its tiles from a
+ticket.  Both keep their cross-block words in a scratch buffer per
+device and stream (:func:`repro_torch.kernels.build.scratch`), zeroed
+once: the kernels advance a call epoch there themselves and reset their
+tickets and counters, so the host counts nothing and both can be
+captured in a CUDA graph once the stream has run them.  The draw takes
+``shift`` and the key as launch arguments or, for a capture, from
+device tensors.  Callers go through
 :func:`repro_torch.kernels.ops.amper_sample` and
 :func:`repro_torch.kernels.ops.rank_select`; the plain rank select is
 :func:`repro_torch.kernels.ref.rank_select_ref`.
@@ -23,6 +32,7 @@ against each other checks that identity instead of repeating it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,8 +40,7 @@ from repro_torch import prng
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import multi_query_match_ref, nonzero_static
 
-TILE_ROWS = 1024  # rows per count tile (kTileRows in common.cuh)
-RANK_TILE_ROWS = 1024  # rows per tile of csrc/rank_select.cu (kRows)
+TILE_ROWS = 1024  # rows per tile of both kernels (kRows in their sources)
 
 _VP, _LL, _INT, _UINT = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_uint)
@@ -65,94 +74,90 @@ def amper_sample_ref(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
 
 
 # launch arguments of csrc/amper_sample.cu and csrc/rank_select.cu
-_SAMPLE_ARGS = (_VP, _VP, _LL, _VP, _VP, _INT, _LL, _UINT, _UINT, _INT, _INT,
-                _VP, _VP, _VP)
-_RANK_ARGS = (_VP, _VP, _LL, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _UINT,
-              _UINT)
-EPOCHS = 1 << 30  # the kernel's epochs are 1 .. EPOCHS - 1
+_SAMPLE_ARGS = (_VP, _VP, _LL, _VP, _VP, _INT, _LL, _VP, _UINT, _UINT, _VP,
+                _INT, _INT, _VP, _VP, _VP, _INT, _INT)
+_RANK_ARGS = (_VP, _VP, _LL, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT)
 
 
-class _LookbackScratch:
-    """The rank select's scratch on one device and stream: the ticket and
-    a status word per tile, zeroed once when made, with the host's count
-    of calls (the epoch of the next) and of tickets taken (its ``base``).
-    Nothing on the card resets it: each call's epoch and base set its
-    words apart from every earlier call's."""
-
-    def __init__(self, device: torch.device, nblk: int):
-        # the ticket's 128-byte line, then one line a tile's status word
-        self.buf = torch.zeros(32 * (nblk + 1), dtype=torch.int32,
-                               device=device)
-        self.nblk, self.epoch, self.base = nblk, 0, 0
-
-    def next_call(self, nblk: int) -> tuple[int, int]:
-        """The (epoch, base) of a call over nblk tiles."""
-        self.epoch += 1
-        base, self.base = self.base, (self.base + nblk) % (1 << 32)
-        return self.epoch, base
+def _tiles(n: int) -> int:
+    return -(-n // TILE_ROWS)
 
 
-_lookback: dict = {}  # (device, stream) -> _LookbackScratch
-
-
-def _lookback_key(device: torch.device) -> tuple:
-    return device, torch.cuda.current_stream(device).cuda_stream
-
-
-def _lookback_scratch(device: torch.device, nblk: int) -> _LookbackScratch:
-    key = _lookback_key(device)
-    sc = _lookback.get(key)
-    if sc is None or sc.nblk < nblk or sc.epoch == EPOCHS - 1:
-        sc = _lookback[key] = _LookbackScratch(device, nblk)
-    return sc
+@functools.cache
+def max_rows(device: torch.device) -> int:
+    """The largest table ``amper_sample_cuda`` takes on ``device``: the
+    rows whose 1024-row tiles fit in the shared memory of one resident
+    grid (each tile's bit words stay there for the whole call)."""
+    fn = build.symbol("amper_sample", "amper_sample_max_rows", (_INT,), _LL)
+    with torch.cuda.device(device):
+        rows = fn(build.sm_count(device))
+    if rows < 1:
+        raise RuntimeError("amper_sample: the kernel's occupancy query failed")
+    return rows
 
 
 def amper_sample_cuda(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
-                      hi: torch.Tensor, shift: int, key: torch.Tensor, *,
+                      hi: torch.Tensor, shift, key: torch.Tensor, *,
                       batch: int, csp_capacity: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the three kernels on CUDA tensors checked by the wrapper."""
-    n = pq.shape[0]
-    dev = pq.device
-    nblk = -(-n // TILE_ROWS)
+    """Launch the kernel on CUDA tensors checked by the wrapper.
+
+    ``shift`` and ``key`` are a host int and a host ``(2,)`` key (launch
+    arguments), or an int32 0-d and an int64 ``(2,)`` tensor on the card,
+    which the kernel reads there.  The host form is refused under CUDA
+    graph capture, where a replay would draw again with the captured key;
+    a table past :func:`max_rows` is refused too."""
+    n, dev = pq.shape[0], pq.device
+    on_card = isinstance(shift, torch.Tensor)
+    if not on_card and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "amper_sample: a host shift and key would be frozen into the "
+            "CUDA graph; pass them as tensors on the card to capture")
+    limit = max_rows(dev)
+    if n > limit:
+        raise ValueError(
+            f"amper_sample: n = {n} rows is past the kernel's limit of "
+            f"{limit} rows on this card (every 1024-row tile keeps its "
+            "bit words in the shared memory of one resident grid)")
+    nblk = _tiles(n)
+    sc = build.scratch("amper_sample", dev, 64 + 32 * nblk)
     idx = torch.empty(batch, dtype=torch.int32, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
-    scratch = torch.empty(4 * nblk + 2 * batch, dtype=torch.int32, device=dev)
-    k0, k1 = prng.key_data(key).tolist()
-    build.launch("amper_sample", _SAMPLE_ARGS, dev, pq.data_ptr(),
-                 valid.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
-                 lo.shape[0], shift, k0, k1, batch, csp_capacity,
-                 idx.data_ptr(), stats.data_ptr(), scratch.data_ptr())
+    if on_card:
+        host = (0, shift.data_ptr(), 0, 0, key.data_ptr())
+    else:
+        k0, k1 = prng.key_data(key).tolist()
+        host = (shift, None, k0, k1, None)
+    try:
+        build.launch("amper_sample", _SAMPLE_ARGS, dev, pq.data_ptr(),
+                     valid.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
+                     lo.shape[0], *host, batch, csp_capacity,
+                     idx.data_ptr(), stats.data_ptr(), sc.data_ptr(),
+                     (sc.numel() - 64) // 32, build.sm_count(dev))
+    except RuntimeError:
+        # whether the kernel ran, and left its words, is unknown: the next
+        # call starts on a fresh zeroed scratch
+        build.drop_scratch("amper_sample", dev)
+        raise
     return idx, stats
 
 
 def rank_select_cuda(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
                      hi: torch.Tensor, rank: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on CUDA tensors checked by the wrapper.
-
-    Refuses a stream under CUDA graph capture: a replay would reuse the
-    captured epoch and ticket base, which the host no longer counts."""
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("rank_select cannot be captured in a CUDA graph: "
-                           "each call takes its epoch and ticket base from "
-                           "the host")
-    n = pq.shape[0]
-    dev = pq.device
-    nblk = -(-n // RANK_TILE_ROWS)
+    """Launch the kernel on CUDA tensors checked by the wrapper."""
+    n, dev = pq.shape[0], pq.device
+    nblk = _tiles(n)
+    sc = build.scratch("rank_select", dev, 32 * (nblk + 1))
     idx = torch.empty(rank.shape[0], dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    sc = _lookback_scratch(dev, nblk)
-    epoch, base = sc.next_call(nblk)
     try:
         build.launch("rank_select", _RANK_ARGS, dev, pq.data_ptr(),
                      valid.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
                      lo.shape[0], rank.data_ptr(), rank.shape[0],
-                     idx.data_ptr(), count.data_ptr(), sc.buf.data_ptr(),
-                     epoch, base)
+                     idx.data_ptr(), count.data_ptr(), sc.data_ptr(),
+                     sc.numel() // 32 - 1)
     except RuntimeError:
-        # whether the kernel took its tickets is unknown: the next call
-        # starts on a fresh zeroed scratch
-        _lookback.pop(_lookback_key(dev), None)
+        build.drop_scratch("rank_select", dev)
         raise
     return idx, count

@@ -15,6 +15,11 @@ which makes the tensors' device current and passes its current stream;
 every launch function returns ``cudaGetLastError()`` and :func:`launch`
 raises on a non-zero code.  A failed build raises; nothing falls back to
 a plain version.
+
+:func:`scratch` keeps the kernels' cross-block scratch buffers, one per
+kernel, device and stream, zeroed once when made: a kernel that keeps
+its bookkeeping there (epochs, tickets, counters) needs no fill before a
+call, and calls on two streams never share one.
 """
 from __future__ import annotations
 
@@ -99,17 +104,21 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
+def symbol(name: str, fn_name: str, argtypes: tuple, restype):
+    """The typed function ``fn_name`` of ``csrc/<name>.cu``'s library."""
+    fn = getattr(load(name), fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+@functools.cache
 def _entry(name: str, argtypes: tuple):
     """The typed ``<name>_launch`` (``argtypes`` plus the stream) and
     ``<name>_error`` functions of ``csrc/<name>.cu``'s library."""
-    lib = load(name)
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return fn, err
+    return (symbol(name, f"{name}_launch", (*argtypes, ctypes.c_void_p),
+                   ctypes.c_int),
+            symbol(name, f"{name}_error", (ctypes.c_int,), ctypes.c_char_p))
 
 
 @functools.cache
@@ -127,3 +136,43 @@ def launch(name: str, argtypes: tuple, device: torch.device, *args) -> None:
         code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if code:
         raise RuntimeError(f"{name} launch failed: " + err(code).decode())
+
+
+_scratch: dict = {}  # (kernel, device, stream) -> tensor
+# Buffers replaced by a larger one or dropped: a CUDA graph may have
+# captured their address, so they stay allocated for the process's life.
+_retired: list = []
+
+
+def stream_key(device: torch.device) -> int:
+    """The handle of ``device``'s current stream."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def scratch(kernel: str, device: torch.device, numel: int,
+            dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """The scratch of ``kernel`` on ``device``'s current stream, of at
+    least ``numel`` elements, zeros when made.  It is not made while the
+    stream captures a CUDA graph: that raises, and the caller warms the
+    kernel up on the stream first (at this size or larger)."""
+    key = (kernel, device, stream_key(device))
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < numel:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{kernel}: no scratch of {numel} elements for the "
+                "capturing stream; call the kernel once on that stream, at "
+                "this size or larger, before capturing")
+        if buf is not None:
+            _retired.append(buf)
+        buf = _scratch[key] = torch.zeros(numel, dtype=dtype, device=device)
+    return buf
+
+
+def drop_scratch(kernel: str, device: torch.device) -> None:
+    """Forget ``kernel``'s scratch on the current stream (after a launch
+    that raised, whose effect on it is unknown): the next call starts on
+    a fresh zeroed one."""
+    buf = _scratch.pop((kernel, device, stream_key(device)), None)
+    if buf is not None:
+        _retired.append(buf)

@@ -1,18 +1,22 @@
 // One-launch building blocks of the redesigned replay kernels
-// (rank_select.cu and multi_query_match.cu).
+// (rank_select.cu, multi_query_match.cu and amper_sample.cu).
 //
 // Tiles.  A block of T threads takes a tile of 4 T L rows: thread t's
 // load l covers rows tile0 + 4 T l + 4 t .. +3, one int4 of pq and one
 // uchar4 of valid, so each load is coalesced across the block and a
 // thread has its 2 L loads in flight before its first compare.  A tile
 // wholly inside the table is read with vector loads only; the ragged last
-// tile goes through common.cuh's load4.
+// tile goes through common.cuh's load4.  A tile's membership can be kept
+// in shared memory as 32-bit words in index order, with each word's
+// exclusive member prefix in the tile (store_words, word_prefixes), from
+// which the member of any tile-local rank is found without reading the
+// tile again (resolve).
 //
-// Cross-block state without a memset.  Both kernels keep their
+// Cross-block state without a memset.  The kernels keep their
 // cross-block words (look-back status words, tickets, partial counts) in
 // a scratch buffer that the wrapper allocates zeroed once per device and
 // stream and reuses; how each keeps a call from seeing the last one's
-// words is in its source.
+// words is in its source and below.
 //
 // The range test on the FP32 pipe.  With A the smallest lo and B the
 // largest hi of the non-empty ranges and B - A < 2^24, a row's key
@@ -35,11 +39,26 @@
 // status word, flag in bits 32-33 and a member count in bits 0-31 (a
 // count is below 2^31, since n is): first (aggregate, its own count), and
 // once it knows its exclusive prefix, (inclusive, prefix + count), each
-// word tagged with the call's epoch.  Tiles take their index from an
-// atomic ticket in launch order, so every tile a block waits on belongs
-// to a block that has already started: the spin always ends.  Integer
-// sums are exact, so the prefix does not depend on which words a tile
-// happened to find.
+// word tagged with the call's epoch.  A tile waits only on lower tiles,
+// so the spin ends as long as every lower tile's block is running or
+// done: rank_select takes tiles from an atomic ticket in launch order,
+// amper_sample runs a cooperative grid whose blocks are all resident.
+// Integer sums are exact, so the prefix does not depend on which words a
+// tile happened to find.
+//
+// Epochs on the card.  The scratch holds the epoch of the last call that
+// finished on it (0 when made), and a call runs at that epoch + 1, read
+// by every block as it starts.  Each block adds one to a done counter
+// once it will read no status word again (one atomic, whose old value
+// the block reads only after its own work); the block whose add
+// completes the count finished the call last (finish_call): it resets
+// the counter (and rank_select's ticket), and sets the next call's
+// epoch.  After epoch 2^30 - 1 it zeroes every status word of the
+// scratch first and the epochs start again at 1, so no two calls that
+// share a word share an epoch.  A call queued behind this one on the
+// stream starts only after it has ended, and a CUDA graph's replays
+// advance the same words, so the host counts nothing and a captured call
+// replays correctly.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -260,6 +279,162 @@ __device__ __forceinline__ int nth_set_bit(unsigned x, int k) {
     }
   }
   return pos;
+}
+
+
+// The tile's membership: mem[k] for the row of p[k], v[k].
+template <int R>
+__device__ __forceinline__ void test_rows(const int32_t (&p)[R],
+                                          const bool (&v)[R], Window win,
+                                          int m, const int32_t* s_lo,
+                                          const int32_t* s_hi,
+                                          const float* s_l, const float* s_h,
+                                          bool (&mem)[R]) {
+  if (win.fp) {
+    float x[R], hits[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      x[k] = row_key(p[k], v[k], win);
+      hits[k] = 0.0f;
+    }
+    for (int i = 0; i < m; ++i) {
+      const float l = s_l[i], h = s_h[i];
+#pragma unroll
+      for (int k = 0; k < R; ++k) hits[k] = add_hit(x[k], l, h, hits[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) mem[k] = hits[k] > 0.0f;
+  } else {
+#pragma unroll
+    for (int k = 0; k < R; ++k) mem[k] = false;
+    for (int i = 0; i < m; ++i) {
+      const int32_t a = s_lo[i], b = s_hi[i];
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        mem[k] |= v[k] & (p[k] >= a) & (p[k] <= b);
+    }
+  }
+}
+
+// Called by every thread of a block of T threads with the membership of
+// its 4 L rows in a tile: writes the tile's membership as 4 T L / 32
+// words in index order.  Rows 4 tid .. 4 tid + 3 of load l are bits
+// 4 (tid % 8) .. +3 of word (4 T l + 4 tid) / 32, ORed across 8 lanes by
+// shuffles.
+template <int T, int L>
+__device__ __forceinline__ void store_words(const bool (&mem)[4 * L],
+                                            unsigned* words) {
+  const int tid = threadIdx.x, lane = tid & 31;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    unsigned nib = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      nib |= static_cast<unsigned>(mem[4 * l + k]) << k;
+    unsigned w = nib << (4 * (lane & 7));
+    w |= __shfl_xor_sync(kFull, w, 1);
+    w |= __shfl_xor_sync(kFull, w, 2);
+    w |= __shfl_xor_sync(kFull, w, 4);
+    if ((lane & 7) == 0) words[l * (T / 8) + (tid >> 3)] = w;
+  }
+}
+
+// Called by the 32 lanes of one warp: pre[w] = the members of the tile's
+// words 0 .. w-1; returns the tile's members in every lane.
+template <int kWords>
+__device__ __forceinline__ int word_prefixes(const unsigned* words,
+                                             int* pre) {
+  static_assert(kWords % 32 == 0, "a warp scans the tile's words");
+  constexpr int kPerLane = kWords / 32;
+  const int lane = threadIdx.x & 31;
+  int c[kPerLane];
+  int sum = 0;
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    c[k] = __popc(words[lane * kPerLane + k]);
+    sum += c[k];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  int run = incl - sum;
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    pre[lane * kPerLane + k] = run;
+    run += c[k];
+  }
+  return __shfl_sync(kFull, incl, 31);
+}
+
+// The tile-local offset of the lr-th member (0 <= lr < members).  The
+// largest word whose prefix is <= lr holds it, since empty words never
+// end a run of prefixes <= lr.
+template <int kWords>
+__device__ __forceinline__ int resolve(const unsigned* words, const int* pre,
+                                       int lr) {
+  int lo = 0, hi = kWords - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (pre[mid] <= lr) lo = mid; else hi = mid - 1;
+  }
+  return 32 * lo + nth_set_bit(words[lo], lr - pre[lo]);
+}
+
+// The epochs of the header: a call runs at *epoch_word + 1, in
+// 1 .. kMaxEpoch.
+constexpr unsigned kMaxEpoch = (1u << 30) - 1;
+
+// The add of a block to the done counter, made once the block reads no
+// status word again; the block waits for the old value only after its
+// own work, or in a thread that has none.  It orders nothing, and needs
+// not, except in the call at kMaxEpoch: there the last block zeroes the
+// status words, so every block's status stores (made before a
+// __syncthreads, or by the adding thread) must come before its add
+// (release, cumulative) and the last block's zeroing after every add
+// (acquire).
+__device__ __forceinline__ unsigned arrive(unsigned* done, unsigned x,
+                                           unsigned epoch) {
+  unsigned old;
+  if (epoch == kMaxEpoch)
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+                 : "=r"(old) : "l"(done), "r"(x) : "memory");
+  else
+    asm volatile("atom.relaxed.gpu.global.add.u32 %0, [%1], %2;"
+                 : "=r"(old) : "l"(done), "r"(x) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ unsigned long long arrive(unsigned long long* done,
+                                                     unsigned long long x,
+                                                     unsigned epoch) {
+  unsigned long long old;
+  if (epoch == kMaxEpoch)
+    asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], %2;"
+                 : "=l"(old) : "l"(done), "l"(x) : "memory");
+  else
+    asm volatile("atom.relaxed.gpu.global.add.u64 %0, [%1], %2;"
+                 : "=l"(old) : "l"(done), "l"(x) : "memory");
+  return old;
+}
+
+// Called by one thread of the block that finished the call at `epoch`
+// last (no block reads a status word of this call again): sets the next
+// call's epoch, after the last one zeroing the `words` status words of
+// the scratch (every word a call of it may have written) so that the
+// epochs can start again at 1.
+__device__ __forceinline__ void finish_call(unsigned* epoch_word,
+                                            unsigned epoch,
+                                            unsigned long long* status,
+                                            int words) {
+  if (epoch == kMaxEpoch) {
+    for (int t = 0; t < words; ++t) status[t * kStatusStride] = 0;
+    *epoch_word = 0;
+  } else {
+    *epoch_word = epoch;
+  }
 }
 
 }  // namespace onepass

@@ -9,8 +9,10 @@ the plain version is :func:`repro_torch.kernels.ref.decode_attention_ref`.
 Callers go through :func:`repro_torch.kernels.ops.decode_attention`,
 which checks the arguments.  The kernel is split-KV in one launch:
 :func:`plan` cuts the keys into chunks on the host, each block writes a
-partial softmax state to a scratch buffer cached here per device, and
-the last block of each kv head merges them.
+partial softmax state to a scratch buffer kept per device and stream
+(:func:`repro_torch.kernels.build.scratch`), and the last block of each
+kv head merges them.  A call is refused under CUDA graph capture: a
+larger call would replace the buffers a captured one points at.
 """
 from __future__ import annotations
 
@@ -61,31 +63,24 @@ def plan(b: int, hkv: int, group: int, s: int, dtype: torch.dtype,
     return Plan(gt, n_gt, -(-s // chunk), chunk)
 
 
-_scratch: dict = {}  # device -> (float32 partials, int32 counters)
-
-
-def _scratch_for(device: torch.device, n_floats: int, n_counters: int):
-    """The cached partials and counters of ``device``, grown to size.  The
-    counters are zeros when made and the kernel leaves them zero."""
-    part, cnt = _scratch.get(device, (None, None))
-    if part is None or part.numel() < n_floats:
-        part = torch.empty(max(n_floats, 1), dtype=torch.float32,
-                           device=device)
-    if cnt is None or cnt.numel() < n_counters:
-        cnt = torch.zeros(n_counters, dtype=torch.int32, device=device)
-    _scratch[device] = (part, cnt)
-    return part, cnt
-
-
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           cur_len: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on CUDA tensors already checked by the wrapper;
-    ``cur_len`` is an int32 scalar on the card, read there."""
+    ``cur_len`` is an int32 scalar on the card, read there.  The merge
+    counters are zeros when made and the kernel leaves them zero."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "decode_attention cannot be captured in a CUDA graph yet: its "
+            "scratch is replaced when a call needs more, under a captured "
+            "call's feet")
     b, hkv, group, d = q.shape
     s = k.shape[2]
     cut = plan(b, hkv, group, s, q.dtype, build.sm_count(q.device))
-    part, cnt = _scratch_for(q.device, b * hkv * group * cut.n_split * (d + 2)
-                             if cut.n_split > 1 else 0, b * hkv * cut.n_gt)
+    n_part = b * hkv * group * cut.n_split * (d + 2) if cut.n_split > 1 else 0
+    part = build.scratch("decode_attention.partials", q.device,
+                         max(n_part, 1), torch.float32)
+    cnt = build.scratch("decode_attention.counters", q.device,
+                        b * hkv * cut.n_gt)
     out = torch.empty_like(q)
     build.launch("decode_attention", _ARGS, q.device, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), cur_len.data_ptr(),

@@ -6,8 +6,9 @@ lie: on the CPU it runs the kernel's plain PyTorch version, on a CUDA
 device it launches the hand-written kernel, and anywhere else it raises.
 There is no fallback: a kernel that fails to build or launch raises.
 
-``launches`` counts kernel launches per wrapper (never plain runs), so a
-run can show that its path really went through the kernels.
+``launches`` counts kernel launches per wrapper (never plain runs, nor
+calls that raise), so a run can show that its path really went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -79,12 +80,13 @@ def multi_query_match(pq: torch.Tensor, valid: torch.Tensor,
     """
     if _check_table("multi_query_match", pq, valid, lo, hi) == "cpu":
         return multi_query_match_ref(pq, valid, lo, hi)
+    out = _tm.multi_query_match_cuda(pq, valid, lo, hi)
     launches["multi_query_match"] += 1
-    return _tm.multi_query_match_cuda(pq, valid, lo, hi)
+    return out
 
 
 def amper_sample(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
-                 hi: torch.Tensor, shift: int, key: torch.Tensor, *,
+                 hi: torch.Tensor, shift, key: torch.Tensor, *,
                  batch: int, csp_capacity: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The whole AMPER-fr draw: match, CSP count, pick, rank select.
@@ -92,28 +94,48 @@ def amper_sample(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
     Bit-identical to the reference ``_compact`` + ``sample_from_csp``
     pipeline under the same ``(shift, key)``: ``shift`` is the compaction
     rotation (``randint(kroll, (), 0, n)``) and ``key`` the un-split pick
-    key (an int64 ``(2,)`` host tensor, see :mod:`repro_torch.prng`).
+    key.  Either a host int and a host int64 ``(2,)`` key (see
+    :mod:`repro_torch.prng`), which a launch takes as arguments, or an
+    int32 0-d tensor and an int64 ``(2,)`` tensor (uint32 words) on the
+    table's device, which the kernel reads there: the form a CUDA graph
+    captures, and which the wrapper does not range-check on the card
+    (that would sync); the kernel counts the members at index < shift.
 
     Returns ``(idx int32[batch], stats int32[4] = [members, members below
     shift, live rows, truncated CSP count])``.
     """
     kind = _check_table("amper_sample", pq, valid, lo, hi)
     n = pq.shape[0]
-    shift = int(shift)
-    if not 0 <= shift < n or n >= 2 ** 31:
-        raise ValueError(f"amper_sample: need 0 <= shift < n < 2^31, got "
-                         f"shift={shift}, n={n}")
-    if batch < 1 or csp_capacity < 1:
+    if batch < 1 or csp_capacity < 1 or n >= 2 ** 31:
         raise ValueError(f"amper_sample: batch and csp_capacity must be "
-                         f">= 1, got {batch} / {csp_capacity}")
-    if tuple(key.shape) != (2,) or key.device.type != "cpu":
-        raise ValueError("amper_sample: key must be a (2,) host key")
+                         f">= 1 and n < 2^31, got {batch} / {csp_capacity} "
+                         f"/ {n}")
+    if tuple(key.shape) != (2,):
+        raise ValueError(f"amper_sample: key must have shape (2,), got "
+                         f"{tuple(key.shape)}")
+    if isinstance(shift, torch.Tensor):
+        if (shift.dtype != torch.int32 or shift.ndim
+                or key.dtype != torch.int64):
+            raise TypeError(f"amper_sample: a tensor shift must be an int32 "
+                            f"scalar and its key int64, got {shift.dtype} "
+                            f"{tuple(shift.shape)} / {key.dtype}")
+        _device_kind("amper_sample", (pq, shift, key))
+        host_shift = int(shift) if kind == "cpu" else None
+    else:
+        if key.device.type != "cpu":
+            raise ValueError("amper_sample: a host shift goes with a host "
+                             f"key, got a key on {key.device}")
+        host_shift = shift = int(shift)
+    if host_shift is not None and not 0 <= host_shift < n:
+        raise ValueError(f"amper_sample: need 0 <= shift < n, got "
+                         f"shift={host_shift}, n={n}")
     if kind == "cpu":
-        return _as.amper_sample_ref(pq, valid, lo, hi, shift, key,
+        return _as.amper_sample_ref(pq, valid, lo, hi, host_shift, key,
                                     batch=batch, csp_capacity=csp_capacity)
+    out = _as.amper_sample_cuda(pq, valid, lo, hi, shift, key, batch=batch,
+                                csp_capacity=csp_capacity)
     launches["amper_sample"] += 1
-    return _as.amper_sample_cuda(pq, valid, lo, hi, shift, key, batch=batch,
-                                 csp_capacity=csp_capacity)
+    return out
 
 
 def rank_select(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
@@ -139,8 +161,9 @@ def rank_select(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
                          f"{pq.shape[0]}")
     if kind == "cpu":
         return rank_select_ref(pq, valid, lo, hi, rank)
+    out = _as.rank_select_cuda(pq, valid, lo, hi, rank)
     launches["rank_select"] += 1
-    return _as.rank_select_cuda(pq, valid, lo, hi, rank)
+    return out
 
 
 def tcam_match(pq: torch.Tensor, query, mask) -> torch.Tensor:
@@ -162,8 +185,9 @@ def tcam_match(pq: torch.Tensor, query, mask) -> torch.Tensor:
     if _device_kind("tcam_match", (pq, query, mask),
                     {"pq": (pq, 16)}) == "cpu":
         return tcam_match_ref(pq, query, mask)
+    out = _tm.tcam_match_cuda(pq, query, mask)
     launches["tcam_match"] += 1
-    return _tm.tcam_match_cuda(pq, query, mask)
+    return out
 
 
 def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
@@ -212,8 +236,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window = None if window is None else int(window)
     if kind == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
+    out = _fa.flash_attention_cuda(q, k, v, causal, window)
     launches["flash_attention"] += 1
-    return _fa.flash_attention_cuda(q, k, v, causal, window)
+    return out
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -238,5 +263,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"tensor on {q.device}, got {got}")
     if kind == "cpu":
         return decode_attention_ref(q, k, v, cur_len)
+    out = _da.decode_attention_cuda(q, k, v, cur_len)
     launches["decode_attention"] += 1
-    return _da.decode_attention_cuda(q, k, v, cur_len)
+    return out

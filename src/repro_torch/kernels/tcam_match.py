@@ -10,8 +10,9 @@ and :func:`repro_torch.kernels.ref.tcam_match_ref`.  Callers go through
 :func:`repro_torch.kernels.ops.multi_query_match` and
 :func:`repro_torch.kernels.ops.tcam_match`.  The match is one launch:
 its blocks add their partial counts into a per-range word of a scratch
-buffer kept here per device and stream, the block completing a range
-writes its count, so nothing is zero-filled before a call.
+buffer kept per device and stream (:func:`repro_torch.kernels.build.scratch`),
+and the block completing a range writes its count and puts the word back
+to zero, so nothing is zero-filled before a call.
 """
 from __future__ import annotations
 
@@ -25,20 +26,6 @@ _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 # launch arguments of csrc/multi_query_match.cu and csrc/tcam_match.cu
 _MATCH_ARGS = (_VP, _VP, _LL, _VP, _VP, _INT, _VP, _VP, _VP, _INT)
-
-_scratch: dict = {}  # (device, stream) -> int32 scratch
-
-
-def _match_scratch(device: torch.device, numel: int) -> torch.Tensor:
-    """The match's scratch for ``device``'s current stream: zeros when
-    made (the only fill), and every call leaves it zero again.  Each
-    stream has its own, so calls on two streams never share it."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    buf = _scratch.get(key)
-    if buf is None or buf.numel() < numel:
-        buf = _scratch[key] = torch.zeros(numel, dtype=torch.int32,
-                                          device=device)
-    return buf
 _TCAM_ARGS = (_VP, _LL, _VP, _VP, _VP)
 
 
@@ -49,7 +36,7 @@ def multi_query_match_cuda(pq: torch.Tensor, valid: torch.Tensor,
     n, dev = pq.shape[0], pq.device
     sel = torch.empty(n, dtype=torch.bool, device=dev)
     counts = torch.empty(lo.shape[0], dtype=torch.int32, device=dev)
-    scratch = _match_scratch(dev, 128)  # 64 words of (blocks, sum)
+    scratch = build.scratch("multi_query_match", dev, 128)  # 64 words
     build.launch("multi_query_match", _MATCH_ARGS, dev, pq.data_ptr(),
                  valid.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
                  lo.shape[0], sel.data_ptr(), counts.data_ptr(),

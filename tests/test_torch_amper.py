@@ -19,9 +19,13 @@ from repro.kernels import ref as jref
 from repro_torch import prng
 from repro_torch.core import amper as ta
 from repro_torch.core import quantize as tqz
+from repro_torch.kernels import amper_sample as tsample
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.amper_sample import amper_sample_ref
 from repro_torch.kernels.ref import multi_query_match_ref, nonzero_static
+
+
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -365,6 +369,350 @@ def test_fused_refuses_wide_fractions_like_the_reference():
         smp.sample(smp.init(), prng.key(0), 8)
 
 
+# --- the one-launch kernels' decompositions, emulated in torch ----------------
+#
+# csrc/onepass.cuh in plain Python: tiles of 4 x threads x loads rows;
+# membership words built from each (thread, load)'s 4-row nibble; word
+# prefixes; tile prefixes by decoupled look-back over epoch-tagged status
+# words that blocks publish in a random interleaving, over stale words of
+# earlier calls; the card-side epoch, ticket and done counter of a scratch
+# that lives across calls (finish_call).  test_torch_sharded.py emulates
+# csrc/rank_select.cu with these; csrc/amper_sample.cu is emulated below.
+
+AGG, INC = 1, 2
+MAX_EPOCH = (1 << 30) - 1
+ZERO_WORD = (0, 0, 0)  # (epoch, flag, count) of a status word
+
+
+def _member_words(sel_tile, threads, loads):
+    """The kernel's shared words: thread t's load l covers rows
+    4 threads l + 4 t .. +3, whose nibble lands in bits 4 (t % 8) .. of
+    word l threads / 8 + t // 8 (ORed over 8 lanes by shuffles)."""
+    words = [0] * (threads * loads // 8)
+    for l in range(loads):
+        for t in range(threads):
+            nib = 0
+            for k in range(4):
+                nib |= int(sel_tile[4 * threads * l + 4 * t + k]) << k
+            words[l * threads // 8 + t // 8] |= nib << (4 * (t % 8))
+    return words
+
+
+def _nth_set_bit(x, k):
+    pos = 0
+    for w in (16, 8, 4, 2, 1):
+        low = x & ((1 << w) - 1)
+        c = bin(low).count("1")
+        if k >= c:
+            k, x, pos = k - c, x >> w, pos + w
+        else:
+            x = low
+    return pos
+
+
+def _resolve(words, pre, lr):
+    lo, hi = 0, len(words) - 1
+    while lo < hi:  # the largest word whose prefix is <= lr
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if pre[mid] <= lr else (lo, mid - 1)
+    return 32 * lo + _nth_set_bit(words[lo], lr - pre[lo])
+
+
+def _members(pq, valid, lo, hi):
+    """Membership as the kernels test it: the float test where the
+    window allows it, else the integer one."""
+    hits = _float_range_test(pq, valid, lo, hi)
+    if hits is None:
+        hits = (valid[None] & (pq[None] >= lo[:, None])
+                & (pq[None] <= hi[:, None]))
+    return hits.bool().any(0)
+
+
+def _tiles(pq, valid, lo, hi, threads, loads):
+    """Per tile: (words, word prefixes, members, live rows)."""
+    n, rows = pq.shape[0], 4 * threads * loads
+    nblk = -(-n // rows)
+    sel = torch.zeros(nblk * rows, dtype=torch.bool)
+    sel[:n] = _members(pq, valid, lo, hi)
+    out = []
+    for t in range(nblk):
+        tile = sel[t * rows:(t + 1) * rows]
+        words = _member_words(tile, threads, loads)
+        # the words hold the tile's membership in index order
+        assert [(words[r // 32] >> (r % 32)) & 1 for r in range(rows)] == \
+            tile.int().tolist()
+        pc = [bin(w).count("1") for w in words]
+        out.append((words, [sum(pc[:i]) for i in range(len(pc))], sum(pc),
+                    int(valid[t * rows:(t + 1) * rows].sum())))
+    return out
+
+
+class _Scratch:
+    """A kernel's scratch words as the card keeps them across calls: the
+    ticket, the done counter (blocks, and amper_sample's live rows), the
+    epoch word, a status word a tile and amper_sample's s_shift word, all
+    zero when made."""
+
+    def __init__(self, capacity):
+        self.ticket = self.done = self.live = self.epoch_word = 0
+        self.status = [ZERO_WORD] * capacity
+        self.shift_word = ZERO_WORD
+
+    def plant(self, rng, epochs):
+        """Every status word set to a word of one of ``epochs`` with a
+        random flag and count."""
+        self.status = [(int(rng.choice(epochs)), int(rng.integers(1, 3)),
+                        int(rng.integers(0, 99))) for _ in self.status]
+
+    def finish(self, epoch):
+        """finish_call, by the block that completed the done count."""
+        if epoch == MAX_EPOCH:
+            self.status = [ZERO_WORD] * len(self.status)
+            self.shift_word = ZERO_WORD
+            self.epoch_word = 0
+        else:
+            self.epoch_word = epoch
+
+
+def _flag(word, epoch):
+    return word[1] if word[0] == epoch else 0
+
+
+def _walk(t, status, members, epoch, rng):
+    """Tile t's look-back (onepass::lookback), a generator that yields
+    where the warp spins or ends a round: 32 predecessors a round, nearest
+    first; the nearest inclusive word ends it, every aggregate nearer adds
+    in.  A lane may read a predecessor's aggregate after that tile has
+    gone inclusive.  Returns the exclusive prefix."""
+    end, excl = t - 1, 0
+    while True:
+        window = []
+        for lane in range(32):
+            pred = end - lane
+            word = status[pred] if pred >= 0 else (epoch, INC, 0)
+            flag, v = _flag(word, epoch), word[2]
+            if pred >= 0 and flag == INC and rng.random() < 0.3:
+                flag, v = AGG, members[pred]  # read before it went inclusive
+            window.append((flag, v))
+        if any(f == 0 for f, _ in window):
+            yield  # spins
+            continue
+        stop = next((i for i, (f, _) in enumerate(window) if f == INC), None)
+        excl += sum(v for _, v in window[:32 if stop is None else stop + 1])
+        if stop is not None:
+            return excl
+        end -= 32
+        yield
+
+
+def _interleave(blocks, rng, in_order):
+    """Runs the block generators in a random interleaving until all end.
+    ``in_order``: blocks start in ticket order (rank_select); else any
+    block may move at any time (a cooperative grid, all resident)."""
+    running, todo, steps = [], list(range(len(blocks))), 0
+    while running or todo:
+        steps += 1
+        assert steps < 1_000_000, "the blocks deadlock"
+        i = int(rng.integers(0, len(running) + bool(todo)))
+        if i == len(running):
+            k = todo.pop(0 if in_order else int(rng.integers(0, len(todo))))
+            running.append(blocks[k]())
+        try:
+            next(running[i])
+        except StopIteration:
+            running.pop(i)
+
+
+def _amper_sample_emulated(pq, valid, lo, hi, shift, key, batch, cap,
+                           threads, loads, grid, seed=0, scratch=None,
+                           tiles=None):
+    """csrc/amper_sample.cu in plain Python: a cooperative grid of
+    min(grid, tiles) blocks, block b over tiles b, b + G, ...; each
+    publishes its tiles' aggregates, then their inclusive prefixes by
+    look-back in tile order; the tile holding ``shift`` publishes the
+    members below it; every block reads the total and s_shift, draws the
+    ranks by threefry and resolves those in its tiles from their words;
+    the block completing the done word writes the stats and the
+    fallbacks and moves the scratch's epoch on."""
+    rng = np.random.default_rng(seed)
+    n, rows = pq.shape[0], 4 * threads * loads
+    tiles = tiles or _tiles(pq, valid, lo, hi, threads, loads)
+    nblk = len(tiles)
+    sc = scratch or _Scratch(nblk)
+    if scratch is None:
+        sc.plant(rng, [sc.epoch_word])  # an earlier call's words
+    members = [tm for _, _, tm, _ in tiles]
+    g = min(grid, nblk)
+    shift = min(max(int(shift), 0), n)  # members at index < shift
+    k_pick, k_fb = prng.split(key)
+    pick_bits = prng.bits(k_pick, (batch,)).tolist()
+    idx, stats = [None] * batch, None
+
+    def block(b):
+        nonlocal stats
+        own = list(range(b, nblk, g))
+        epoch = sc.epoch_word + 1
+        for t in own:  # rows, tests, words: the aggregate
+            sc.status[t] = (epoch, INC if t == 0 else AGG, members[t])
+            yield
+        tpre, below, total = {}, 0 if shift == 0 else None, None
+        for t in own:
+            prefix = 0
+            if t > 0:
+                prefix = yield from _walk(t, sc.status, members, epoch, rng)
+                sc.status[t] = (epoch, INC, prefix + members[t])
+            tpre[t] = prefix
+            if t == nblk - 1:
+                total = prefix + members[t]
+            if 0 < shift < n and t == shift // rows:
+                words, pre, _, _ = tiles[t]
+                off = shift - t * rows
+                below = prefix + pre[off // 32] + bin(
+                    words[off // 32] & ((1 << (off % 32)) - 1)).count("1")
+                sc.shift_word = (epoch, INC, below)
+            yield
+        while total is None:
+            word = sc.status[nblk - 1]
+            if _flag(word, epoch) == INC:
+                total = word[2]
+            else:
+                yield
+        if below is None and shift >= n:
+            below = total
+        while below is None:
+            if _flag(sc.shift_word, epoch) == INC:
+                below = sc.shift_word[2]
+            else:
+                yield
+        # arrive: this block reads no status word again
+        sc.done += 1
+        sc.live += sum(tiles[t][3] for t in own)
+        if sc.done == g:
+            stats = [total, below, sc.live, min(total, cap)]
+            if total == 0:
+                fb = prng.bits(k_fb, (batch,)).tolist()
+                for j in range(batch):
+                    idx[j] = fb[j] % max(sc.live, 1)
+            sc.done = sc.live = 0
+            sc.finish(epoch)
+        if total == 0:
+            return
+        count = min(total, cap)
+        for j in range(batch):
+            r = (pick_bits[j] % max(count, 1) + below) % total
+            for t in own:
+                if tpre[t] <= r < tpre[t] + members[t]:
+                    assert idx[j] is None  # one writer per draw
+                    words, pre, _, _ = tiles[t]
+                    idx[j] = t * rows + _resolve(words, pre, r - tpre[t])
+        yield
+
+    _interleave([lambda b=b: block(b) for b in range(g)], rng,
+                in_order=False)
+    assert None not in idx and stats is not None
+    return (torch.tensor(idx, dtype=torch.int32).reshape(-1),
+            torch.tensor(stats, dtype=torch.int32))
+
+
+def _draw_table(name):
+    """(pq, valid, lo, hi, csp_capacity) of the draw's cases."""
+    n = {"n1": 1, "n1023": 1023, "n1024": 1024, "n1025": 1025}.get(name,
+                                                                  10_001)
+    frac = {"no_live_rows": 0.0, "all_members": 1.0}.get(name, 0.9)
+    m = {"m1": 1, "m64": 64}.get(name, 20)
+    pq, valid = (torch.from_numpy(np.array(x))
+                 for x in _table(n, seed=n + m, frac_valid=frac))
+    cfg = ta.AmperConfig(capacity=n, m=m, v_max=8.0, lam_fr=2.0)
+    lo, hi = ta.fr_intervals(ta.group_representatives(prng.key(m), cfg), cfg)
+    if name == "empty_csp":  # no member, live rows: the fallback draw
+        lo, hi = torch.tensor([9, 4], dtype=torch.int32), \
+            torch.tensor([3, 2], dtype=torch.int32)
+    if name == "all_members":
+        lo = torch.tensor([I32_MIN], dtype=torch.int32)
+        hi = torch.tensor([I32_MAX], dtype=torch.int32)
+    cap = {"truncated_csp": 64}.get(name, 3 * n)
+    return pq, valid, lo, hi, cap
+
+
+DRAW_CASES = ["n1", "n1023", "n1024", "n1025", "n10001", "truncated_csp",
+              "empty_csp", "no_live_rows", "all_members", "m1", "m64"]
+_draw_want: dict = {}  # (case, shift, batch) -> (idx, stats) of the reference
+
+
+def _reference_draw(case, pq, valid, lo, hi, shift, seed, batch, cap):
+    """The reference's jnp pipeline at a given rotation: _compact of the
+    selection rolled by -shift (as _compact rolls it for its key), the
+    indices rotated back, then sample_from_csp; held against
+    amper_sample_ref.  Cached per case, shift and batch."""
+    if (case, shift, batch) not in _draw_want:
+        n = pq.shape[0]
+        sel, _ = jref.multi_query_match_ref(
+            jnp.asarray(pq.numpy()), jnp.asarray(valid.numpy()),
+            jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy()))
+        csp = ja._compact(jnp.roll(sel, -shift), cap)
+        csp = csp._replace(indices=jnp.where(
+            csp.indices >= 0, (csp.indices + shift) % n, -1))
+        jidx = ja.sample_from_csp(csp, jax.random.key(seed), batch,
+                                  jnp.sum(valid.numpy().astype(np.int32)))
+        want = amper_sample_ref(pq, valid, lo, hi, shift, prng.key(seed),
+                                batch=batch, csp_capacity=cap)
+        assert _eq(jidx, want[0]) and int(want[1][3]) == int(csp.count)
+        _draw_want[(case, shift, batch)] = want
+    return _draw_want[(case, shift, batch)]
+
+
+@pytest.mark.parametrize("threads,loads", [(128, 2), (32, 1)])
+@pytest.mark.parametrize("case", DRAW_CASES)
+def test_amper_sample_decomposition_equals_plain_and_reference(case, threads,
+                                                                loads):
+    """The cooperative draw's decomposition, at the kernel's 1024-row
+    tiles and at 128-row tiles (whose look-back crosses 32-tile windows),
+    on grids of 1, 3 and 132 x 8 blocks, with shift at 0, n - 1, a tile
+    boundary and inside a tile, equals amper_sample_ref and the
+    reference's _compact + sample_from_csp exactly (max |err| 0)."""
+    pq, valid, lo, hi, cap = _draw_table(case)
+    n, rows = pq.shape[0], 4 * threads * loads
+    tiles = _tiles(pq, valid, lo, hi, threads, loads)
+    shifts = sorted({0, n - 1, min(rows, n - 1), n // 2})
+    for i, (shift, grid) in enumerate(
+            (s, g) for s in shifts for g in (1, 3, 132 * 8)):
+        batch = (1, 64, 300)[i % 3]
+        seed = 1000 + shift
+        want = _reference_draw(case, pq, valid, lo, hi, shift, seed, batch,
+                               cap)
+        got = _amper_sample_emulated(pq, valid, lo, hi, shift,
+                                     prng.key(seed), batch, cap, threads,
+                                     loads, grid, seed=i, tiles=tiles)
+        assert torch.equal(got[0], want[0]), (shift, grid)
+        assert torch.equal(got[1], want[1]), (shift, grid)
+
+
+def test_amper_sample_decomposition_over_calls_and_the_epoch_wrap():
+    """One scratch over a sequence of draws of varying table sizes, each
+    on the words the last one left, across the epoch that wraps: after
+    epoch 2^30 - 1 the words are zeroed and the epochs start at 1, so the
+    words planted at epoch 1 (a tile no call touched since) never pass for
+    the new epoch-1 call's."""
+    rng = np.random.default_rng(3)
+    pq, valid, lo, hi, cap = _draw_table("n10001")
+    sc = _Scratch(-(-pq.shape[0] // 128))
+    sc.plant(rng, [1])
+    sc.epoch_word = MAX_EPOCH - 3
+    for call in range(6):
+        # the calls before the wrap leave most planted words in place
+        n = int(rng.integers(1, 2000)) if call < 3 else \
+            int(rng.integers(5000, pq.shape[0] + 1))
+        args = (pq[:n].clone(), valid[:n].clone(), lo, hi)
+        shift = int(rng.integers(0, n))
+        want = amper_sample_ref(*args, shift, prng.key(call), batch=64,
+                                csp_capacity=cap)
+        got = _amper_sample_emulated(*args, shift, prng.key(call), 64, cap,
+                                     32, 1, 8, seed=call, scratch=sc)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert sc.epoch_word == (MAX_EPOCH - 2 + call) % MAX_EPOCH
+        assert sc.done == sc.live == 0
+
+
 # --- wrappers: no silent fallback -----------------------------------------------------
 
 
@@ -399,6 +747,100 @@ def test_wrappers_check_shapes_and_dtypes():
     with pytest.raises(ValueError):
         ops.amper_sample(pq, valid, lo, hi, 16, prng.key(0), batch=4,
                          csp_capacity=8)
+
+
+def test_amper_sample_takes_shift_and_key_on_the_device():
+    """The device form (an int32 0-d shift and an int64 (2,) key on the
+    table's device) gives the host form's draw; a tensor of another type
+    is refused."""
+    pq, valid, lo, hi, cap = _draw_table("n10001")
+    for shift in (0, 4321, 10_000):
+        k = prng.key(shift)
+        want = ops.amper_sample(pq, valid, lo, hi, shift, k, batch=64,
+                                csp_capacity=cap)
+        got = ops.amper_sample(pq, valid, lo, hi,
+                               torch.tensor(shift, dtype=torch.int32),
+                               k.clone(), batch=64, csp_capacity=cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(TypeError, match="int32"):
+        ops.amper_sample(pq, valid, lo, hi, torch.tensor(3), prng.key(0),
+                         batch=4, csp_capacity=8)
+    with pytest.raises(ValueError, match="shift"):
+        ops.amper_sample(pq, valid, lo, hi,
+                         torch.tensor(10_001, dtype=torch.int32),
+                         prng.key(0), batch=4, csp_capacity=8)
+
+
+@pytest.mark.parametrize("case", ["host_form", "device_form",
+                                  "capture_host_form",
+                                  "capture_device_form", "past_max_rows",
+                                  "failed_launch"])
+def test_amper_sample_wrapper(monkeypatch, case):
+    """The CUDA wrapper with the launch recorded instead of run: the host
+    form passes shift and the key words as arguments and no pointers, the
+    device form passes the tensors' addresses; under graph capture the
+    host form is refused (a replay would draw with the captured key) and
+    the device form is taken on the scratch its stream already has; a
+    table past the kernel's shared-memory limit raises a ValueError that
+    names it; a launch that raises drops the scratch."""
+    calls = []
+
+    def launch(name, argtypes, device, *args):
+        calls.append(args)
+        if case == "failed_launch":
+            raise RuntimeError("amper_sample launch failed")
+
+    monkeypatch.setattr(tsample.build, "_scratch", {})
+    monkeypatch.setattr(tsample.build, "_retired", [])
+    monkeypatch.setattr(tsample.build, "stream_key", lambda dev: 0)
+    monkeypatch.setattr(tsample.build, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(tsample.build, "launch", launch)
+    monkeypatch.setattr(tsample, "max_rows",
+                        lambda dev: 1000 if case == "past_max_rows" else 1e8)
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    pq = torch.zeros(2500, dtype=torch.int32)  # 3 tiles
+    valid = torch.ones(2500, dtype=torch.bool)
+    lo = hi = torch.zeros(3, dtype=torch.int32)
+    shift = torch.tensor(7, dtype=torch.int32)
+    key = prng.key(5)
+
+    def call(on_card):
+        return tsample.amper_sample_cuda(
+            pq, valid, lo, hi, *((shift, key) if on_card else (7, key)),
+            batch=64, csp_capacity=100)
+
+    def scratch():
+        return tsample.build._scratch.get(("amper_sample", CPU, 0))
+
+    if case == "past_max_rows":
+        with pytest.raises(ValueError, match="limit of 1000 rows"):
+            call(True)
+        assert calls == []
+        return
+    if case.startswith("capture"):
+        call(True)  # the warm-up on the stream makes the scratch
+        capturing[0] = True
+    if case == "failed_launch":
+        with pytest.raises(RuntimeError, match="launch failed"):
+            call(False)
+        assert scratch() is None and len(tsample.build._retired) == 1
+        return
+    if case == "capture_host_form":
+        with pytest.raises(RuntimeError, match="tensors on the card"):
+            call(False)
+        assert len(calls) == 1
+        return
+    call(case != "host_form")
+    sc = scratch()
+    assert sc is not None and sc.numel() == 64 + 32 * 3
+    # shift, shift pointer, key words, key pointer; scratch, capacity
+    shift_args, tail = calls[-1][6:11], calls[-1][-3:-1]
+    assert tail == (sc.data_ptr(), 3)
+    k0, k1 = prng.key_data(key).tolist()
+    assert shift_args == ((7, None, k0, k1, None) if case == "host_form"
+                          else (0, shift.data_ptr(), 0, 0, key.data_ptr()))
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -297,6 +297,43 @@ def _gqa_params(jcfg, seed):
                 ).astype(np.float32) for n, sp in specs.items()}
 
 
+def test_decode_scratch_is_per_stream_and_capture_is_refused(monkeypatch):
+    """The CUDA wrapper with the launch recorded instead of run: each
+    stream gets its own partials and counters (two streams decoding on one
+    card never share them), a larger call gets larger ones, and a call
+    under CUDA graph capture is refused before anything is made or
+    launched."""
+    calls = []
+    stream = [1]
+    capturing = [False]
+    monkeypatch.setattr(_da.build, "_scratch", {})
+    monkeypatch.setattr(_da.build, "_retired", [])
+    monkeypatch.setattr(_da.build, "stream_key", lambda dev: stream[0])
+    monkeypatch.setattr(_da.build, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(_da.build, "launch", lambda name, argtypes, dev,
+                        *args: calls.append(args[5:7]))  # (part, cnt)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+
+    def call(s):
+        q = torch.zeros(2, 4, 1, 64)
+        k = torch.zeros(2, 4, s, 64)
+        return _da.decode_attention_cuda(q, k, k, torch.tensor(s // 2))
+
+    call(1024)
+    call(1024)
+    stream[0] = 2
+    call(1024)
+    assert calls[0] == calls[1] and calls[2][0] != calls[0][0]
+    assert calls[2][1] != calls[0][1]
+    call(4096)  # more splits: the partials grow
+    assert calls[3][0] != calls[2][0] and len(_da.build._retired) == 1
+    capturing[0] = True
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        call(1024)
+    assert len(calls) == 4
+
+
 @pytest.mark.parametrize("causal,window", [
     (True, None), (True, 8), (False, None), (False, 8)])
 def test_gqa_apply_matches_reference(causal, window):

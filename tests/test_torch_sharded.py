@@ -33,7 +33,8 @@ from repro_torch.distributed.sharding import Mesh
 from repro_torch.kernels import ops
 from repro_torch.kernels import amper_sample as tsample
 from repro_torch.kernels.ref import rank_select_ref, tcam_match_ref
-from test_torch_amper import _float_range_test
+from test_torch_amper import (INC, MAX_EPOCH, _interleave, _Scratch, _tiles,
+                              _resolve, _walk)
 from test_torch_dqn import thirty_agent_steps
 
 N = 2048
@@ -97,125 +98,60 @@ def test_rank_select_ref_equals_reference_kernel(n, frac_valid):
 
 # --- the one-launch rank_select kernel's decomposition, emulated in torch ------
 #
-# csrc/rank_select.cu in plain torch: tiles of 4 x threads x loads rows;
-# membership words built from each (thread, load)'s 4-row nibble; word
-# prefixes; the tile prefix by decoupled look-back over epoch-tagged
-# status words that tiles publish in a random interleaving, over an
-# earlier call's stale words; each rank resolved by its
-# owning tile from the words alone; the last tile writing count and the
-# zeros outside [0, count).
-
-AGG, INC = 1, 2
+# csrc/rank_select.cu in plain torch, on test_torch_amper.py's emulation
+# of onepass.cuh: blocks start in ticket order and move in a random
+# interleaving, each takes its tile from the ticket, publishes, finds its
+# prefix by look-back and arrives at the done counter; the last to arrive
+# resets the ticket and the counter and moves the epoch on.  Each rank is
+# resolved by its owning tile from the words alone; the last tile writes
+# count and the zeros outside [0, count).
 
 
-def _member_words(sel_tile, threads, loads):
-    """The kernel's shared words: thread t's load l covers rows
-    4 threads l + 4 t .. +3, whose nibble lands in bits 4 (t % 8) .. of
-    word l threads / 8 + t // 8 (ORed over 8 lanes by shuffles)."""
-    words = [0] * (threads * loads // 8)
-    for l in range(loads):
-        for t in range(threads):
-            nib = 0
-            for k in range(4):
-                nib |= int(sel_tile[4 * threads * l + 4 * t + k]) << k
-            words[l * threads // 8 + t // 8] |= nib << (4 * (t % 8))
-    return words
-
-
-def _nth_set_bit(x, k):
-    pos = 0
-    for w in (16, 8, 4, 2, 1):
-        low = x & ((1 << w) - 1)
-        c = bin(low).count("1")
-        if k >= c:
-            k, x, pos = k - c, x >> w, pos + w
-        else:
-            x = low
-    return pos
-
-
-def _resolve(words, pre, lr):
-    lo, hi = 0, len(words) - 1
-    while lo < hi:  # the largest word whose prefix is <= lr
-        mid = (lo + hi + 1) // 2
-        lo, hi = (mid, hi) if pre[mid] <= lr else (lo, mid - 1)
-    return 32 * lo + _nth_set_bit(words[lo], lr - pre[lo])
-
-
-def _lookback(members, rng, epoch=7):
-    """Exclusive tile prefixes by decoupled look-back, 32 predecessors a
-    round: tiles start in
-    ticket order and move in a random interleaving; a lane may read a
-    predecessor's aggregate after that tile has gone inclusive; the status
-    words start out holding an earlier call's words (another epoch, random
-    flags and counts), which must read as unpublished."""
+def _rank_call(sc, members, rng):
+    """One call's bookkeeping on scratch ``sc``: the tiles' exclusive
+    prefixes."""
     nblk = len(members)
-    status = [(epoch - 1, int(rng.integers(1, 3)), int(rng.integers(0, 99)))
-              for _ in range(nblk)]
-    walk = [None] * nblk  # (window end, sum so far) of a running tile
     prefix = [None] * nblk
-    started = 0
-    while None in prefix:
-        t = int(rng.integers(0, min(started + 1, nblk)))
-        if t == started:  # takes the next ticket, publishes
-            status[t] = (epoch, INC if t == 0 else AGG, members[t])
-            walk[t], started = (t - 1, 0), started + 1
-            if t == 0:
-                prefix[0] = 0
-            continue
-        if prefix[t] is not None:
-            continue
-        end, excl = walk[t]
-        window = []
-        for lane in range(32):  # nearest first
-            pred = end - lane
-            e, flag, v = status[pred] if pred >= 0 else (epoch, INC, 0)
-            flag = flag if e == epoch else 0
-            if pred >= 0 and flag == INC and rng.random() < 0.3:
-                flag, v = AGG, members[pred]  # read before it went inclusive
-            window.append((flag, v))
-        if any(f == 0 for f, _ in window):
-            continue  # spins
-        stop = next((i for i, (f, _) in enumerate(window) if f == INC), None)
-        excl += sum(v for _, v in window[:32 if stop is None else stop + 1])
-        if stop is None:
-            walk[t] = (end - 32, excl)
-        else:
-            prefix[t] = excl
-            status[t] = (epoch, INC, excl + members[t])
+
+    def block():
+        tile, epoch = sc.ticket, sc.epoch_word + 1  # ticket: atomicAdd
+        sc.ticket += 1
+        assert tile < nblk  # the last call put the ticket back
+        sc.status[tile] = (epoch, INC if tile == 0 else 1, members[tile])
+        yield
+        p = 0
+        if tile > 0:
+            p = yield from _walk(tile, sc.status, members, epoch, rng)
+            sc.status[tile] = (epoch, INC, p + members[tile])
+        prefix[tile] = p
+        sc.done += 1  # arrive: this block reads no status word again
+        if sc.done == nblk:
+            sc.ticket = sc.done = 0
+            sc.finish(epoch)
+
+    _interleave([block] * nblk, rng, in_order=True)
     return prefix
 
 
-def _members(pq, valid, lo, hi):
-    """Membership as the kernel tests it: the float test where the
-    window allows it, else the integer one."""
-    hits = _float_range_test(pq, valid, lo, hi)
-    if hits is None:
-        hits = (valid[None] & (pq[None] >= lo[:, None])
-                & (pq[None] <= hi[:, None]))
-    return hits.bool().any(0)
+def _lookback(members, rng, epoch=7):
+    """Exclusive tile prefixes of one call at ``epoch``, over status words
+    that hold an earlier call's words (another epoch, random flags and
+    counts), which must read as unpublished."""
+    sc = _Scratch(len(members))
+    sc.plant(rng, [epoch - 1])
+    sc.epoch_word = epoch - 1
+    return _rank_call(sc, members, rng)
 
 
 def _rank_select_emulated(pq, valid, lo, hi, rank, threads, loads, seed=0):
-    n = pq.shape[0]
     rows = 4 * threads * loads
-    nblk = -(-n // rows)
-    sel = torch.zeros(nblk * rows, dtype=torch.bool)
-    sel[:n] = _members(pq, valid, lo, hi)
-    tiles = []
-    for t in range(nblk):
-        tile = sel[t * rows:(t + 1) * rows]
-        words = _member_words(tile, threads, loads)
-        # the words hold the tile's membership in index order
-        assert [(words[r // 32] >> (r % 32)) & 1 for r in range(rows)] == \
-            tile.int().tolist()
-        pc = [bin(w).count("1") for w in words]
-        tiles.append((words, [sum(pc[:i]) for i in range(len(pc))], sum(pc)))
-    prefix = _lookback([mem for *_, mem in tiles],
+    tiles = _tiles(pq, valid, lo, hi, threads, loads)
+    nblk = len(tiles)
+    prefix = _lookback([mem for _, _, mem, _ in tiles],
                        np.random.default_rng(seed))
     ranks = rank.tolist()
     idx, count = [None] * len(ranks), None
-    for t, (words, pre, members) in enumerate(tiles):
+    for t, (words, pre, members, _) in enumerate(tiles):
         last, total = t == nblk - 1, prefix[t] + members
         if members == 0 and not last:
             continue  # owns no rank
@@ -310,27 +246,67 @@ def test_lookback_prefixes_in_any_interleaving():
             assert _lookback(members, np.random.default_rng(seed)) == want
 
 
-@pytest.mark.parametrize("case", ["in_step", "failed_launch", "capture",
+@pytest.mark.parametrize("case", ["varying_nblk", "stale_words",
                                   "epoch_wrap"])
-def test_rank_select_epochs_and_ticket_base(monkeypatch, case):
-    """The CUDA wrapper's host bookkeeping, with the launch recorded
-    instead of run: each call takes a new epoch and, as its ticket base,
-    the tiles of the calls before it; a launch that raises drops the
-    scratch (the next call starts on a zeroed one at epoch 1, base 0), a
-    stream under graph capture is refused before anything is counted, and
-    the last epoch is followed by a fresh scratch."""
+def test_rank_select_card_side_epochs_and_ticket(case):
+    """The kernel's bookkeeping on the card over a sequence of calls on
+    one scratch: each call's tiles come from a ticket that the last call
+    put back to 0, its epoch is the last call's plus one, and its prefixes
+    are right whatever the earlier calls left: calls over more and fewer
+    tiles, words planted from earlier epochs, and the wrap after epoch
+    2^30 - 1, which zeroes the words (so the words planted at epoch 1,
+    beyond the tiles the calls before it touched, never pass for the new
+    epoch 1's)."""
+    rng = np.random.default_rng(["varying_nblk", "stale_words",
+                                 "epoch_wrap"].index(case))
+    sc = _Scratch(300)
+    if case == "stale_words":
+        sc.plant(rng, [1, 2, 3, 4])  # every word from an earlier call
+        sc.epoch_word = 4
+    elif case == "epoch_wrap":
+        sc.plant(rng, [1])
+        sc.epoch_word = MAX_EPOCH - 3
+    for call in range(8):
+        nblk = int(rng.integers(1, 300)) if case == "varying_nblk" else \
+            int(rng.integers(1, 40)) if call < 3 else \
+            int(rng.integers(100, 300))
+        members = rng.integers(0, 9, nblk).tolist()
+        epoch = sc.epoch_word + 1
+        prefix = _rank_call(sc, members, rng)
+        assert prefix == np.concatenate([[0], np.cumsum(members)[:-1]]
+                                        ).tolist(), call
+        assert sc.ticket == sc.done == 0
+        assert sc.epoch_word == (epoch if epoch < MAX_EPOCH else 0)
+        if epoch == MAX_EPOCH:
+            assert all(w == (0, 0, 0) for w in sc.status)
+    if case == "epoch_wrap":
+        assert sc.epoch_word == 5
+
+
+@pytest.mark.parametrize("case", ["failed_launch", "capture_without_scratch",
+                                  "capture_after_warm_up", "grows"])
+def test_rank_select_wrapper_scratch(monkeypatch, case):
+    """The CUDA wrapper with the launch recorded instead of run: the
+    scratch is made zeroed once per stream and reused (the host passes no
+    epoch or ticket); a launch that raises drops it, so the next call
+    starts on a fresh one; under graph capture a call is taken on the
+    scratch its stream already has, and refused when there is none or it
+    is too small; a larger table gets a larger scratch, the old one kept
+    alive for any graph that captured it."""
     calls = []
 
     def launch(name, argtypes, device, *args):
-        calls.append(args[-2:])  # (epoch, base)
+        calls.append((args[-2], args[-1]))  # (scratch, capacity)
         if case == "failed_launch" and len(calls) == 2:
             raise RuntimeError("rank_select launch failed")
 
-    monkeypatch.setattr(tsample, "_lookback", {})
-    monkeypatch.setattr(tsample, "_lookback_key", lambda dev: (dev, 0))
+    monkeypatch.setattr(tsample.build, "_scratch", {})
+    monkeypatch.setattr(tsample.build, "_retired", [])
+    monkeypatch.setattr(tsample.build, "stream_key", lambda dev: 0)
     monkeypatch.setattr(tsample.build, "launch", launch)
+    capturing = [False]
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
-                        lambda: case == "capture")
+                        lambda: capturing[0])
     pq = torch.zeros(2500, dtype=torch.int32)  # 3 tiles
     valid = torch.ones(2500, dtype=torch.bool)
     lo = hi = torch.zeros(3, dtype=torch.int32)
@@ -339,28 +315,43 @@ def test_rank_select_epochs_and_ticket_base(monkeypatch, case):
     def call(n=2500):
         return tsample.rank_select_cuda(pq[:n], valid[:n], lo, hi, rank)
 
-    if case == "capture":
-        with pytest.raises(RuntimeError, match="graph"):
+    def scratch():
+        return tsample.build._scratch.get(("rank_select", CPU, 0))
+
+    if case == "capture_without_scratch":
+        capturing[0] = True
+        with pytest.raises(RuntimeError, match="before capturing"):
             call()
-        assert calls == [] and tsample._lookback == {}
+        assert calls == [] and scratch() is None
         return
     call()
+    first = scratch()
+    assert first is not None and not bool(first.any())
+    assert calls == [(first.data_ptr(), 3)]
     if case == "failed_launch":
         with pytest.raises(RuntimeError, match="launch failed"):
             call()
-        assert tsample._lookback == {}
+        assert scratch() is None
         call()
-        assert calls == [(1, 0), (2, 3), (1, 0)]
-    elif case == "epoch_wrap":
-        sc = tsample._lookback[(CPU, 0)]
-        sc.epoch, sc.base = tsample.EPOCHS - 2, (1 << 32) - 2
-        call()
-        call()
-        assert calls == [(1, 0), (tsample.EPOCHS - 1, (1 << 32) - 2), (1, 0)]
-    else:
+        assert scratch() is not first
+        assert tsample.build._retired == [first]
+    elif case == "capture_after_warm_up":
+        capturing[0] = True
         call(1000)
         call()
-        assert calls == [(1, 0), (2, 3), (3, 4)]
+        assert calls[1:] == [(first.data_ptr(), 3)] * 2
+        with pytest.raises(RuntimeError, match="before capturing"):
+            tsample.rank_select_cuda(torch.zeros(5000, dtype=torch.int32),
+                                     torch.ones(5000, dtype=torch.bool), lo,
+                                     hi, rank)
+    else:
+        call(1000)
+        assert calls[1] == (first.data_ptr(), 3)
+        tsample.rank_select_cuda(torch.zeros(5000, dtype=torch.int32),
+                                 torch.ones(5000, dtype=torch.bool), lo, hi,
+                                 rank)
+        assert scratch() is not first and calls[2][1] == 5
+        assert tsample.build._retired == [first]
 
 
 @pytest.mark.parametrize("n", [1, 1001, 4096])

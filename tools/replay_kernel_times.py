@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's two replay kernels of one source tree on one GPU.
+"""Time the port's three replay kernels of one source tree on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
 
@@ -15,11 +15,12 @@ it into a ``.gitignore``d directory and run the two in turns on one card:
     done
 
 Each run builds that tree's kernels at first use and calls them through
-its public wrappers, ``ops.multi_query_match`` and ``ops.rank_select``.
-At n = 1,000,000 and at one 250,000-row shard (``chip_smoke.py``'s
-tables, its m = 20 ranges, 64 ranks) it holds each result exactly
-against the plain version, then prints one JSON line per kernel and
-shape: the device time of a call (``chip_smoke.device_time_ms``, CUDA
+its public wrappers, ``ops.multi_query_match``, ``ops.rank_select`` and
+``ops.amper_sample``.  At n = 1,000,000 and at one 250,000-row shard
+(``chip_smoke.py``'s tables, its m = 20 ranges, 64 ranks; the draw's
+batch 64 with CSP capacities 150,000 and 37,500, the fused sampler's
+0.15 of the rows) it holds each result exactly against the plain
+version, then prints one JSON line per kernel and shape: the device time of a call (``chip_smoke.device_time_ms``, CUDA
 events) and the call's device operations with their times
 (``chip_smoke.device_ops``, torch.profiler).  The last line is the
 card's name and power limit.  Exits 2 without a CUDA device, 1 when a
@@ -48,7 +49,9 @@ def main() -> int:
     sys.path[:0] = [os.path.abspath(args.src), ROOT]
     import chip_smoke as cs
     import repro_torch
+    from repro_torch import prng
     from repro_torch.kernels import ops
+    from repro_torch.kernels.amper_sample import amper_sample_ref
     from repro_torch.kernels.ref import multi_query_match_ref, rank_select_ref
 
     dev = torch.device("cuda")
@@ -59,11 +62,16 @@ def main() -> int:
         count = int(rank_select_ref(pq, valid, lo, hi, torch.zeros(
             1, dtype=torch.int32, device=dev))[1])
         rank = cs.rank_cases(count, 64, seed=3)
+        key, cap = prng.key(7), int(0.15 * pq.shape[0])
         calls = {"multi_query_match": (
             lambda: ops.multi_query_match(pq, valid, lo, hi),
             multi_query_match_ref(pq, valid, lo, hi)),
             "rank_select": (lambda: ops.rank_select(pq, valid, lo, hi, rank),
-                            rank_select_ref(pq, valid, lo, hi, rank))}
+                            rank_select_ref(pq, valid, lo, hi, rank)),
+            "amper_sample": (lambda: ops.amper_sample(
+                pq, valid, lo, hi, 4242, key, batch=64, csp_capacity=cap),
+                amper_sample_ref(pq, valid, lo, hi, 4242, key, batch=64,
+                                 csp_capacity=cap))}
         for name, (fn, want) in calls.items():
             got = fn()
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
