@@ -13,7 +13,11 @@ eager calls after them, against the plain versions, trains
 the DQN + AMPER-fr agent on CartPole through the fused draw kernel,
 through the match kernel, and through the sharded draw (4 shards on the
 card: the match and rank-select kernels on every shard) with the
-standard 1M-transition replay memory, runs the m group queries of a draw
+standard 1M-transition replay memory, trains the paper's learning path
+(AMPER-k on Acrobot and AMPER-fr through the draw kernel on MountainCar,
+two seeds in lockstep through ``train_many``, each held bit for bit
+against ``train`` of one seed) and holds AMPER-k's three kNN modes on
+the card against the CPU at 1M rows, runs the m group queries of a draw
 as single TCAM searches, holds the two attention kernels against their
 plain versions at the serving path's shapes and the reference's sweep
 (the decode kernel timed with the cache out of L2, as a decode step
@@ -29,8 +33,8 @@ non-zero without that line.  There is no fallback to the CPU: without a
 CUDA device the script exits with code 2.
 
 ``--phases`` picks a subset (device,match,sample,rank,graph,tcam,flash,
-decode,fused,kernel,sharded,serve) for debugging; every phase runs by
-default.
+decode,fused,kernel,sharded,table1,serve) for debugging; every phase
+runs by default.
 ``--profile`` adds a torch.profiler window after each training phase and
 over decode steps of the serve phase (device busy and idle share per
 step, launches per step, top kernels; the chrome trace goes to
@@ -56,7 +60,7 @@ BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 SHARDS = 4                   # logical shards of the sharded phase, on one card
 PHASES = ("device", "match", "sample", "rank", "graph", "tcam", "flash",
-          "decode", "fused", "kernel", "sharded", "serve")
+          "decode", "fused", "kernel", "sharded", "table1", "serve")
 ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
 # The reference's kernel sweep (tests/test_kernels.py) and GQA group 4 at
@@ -1096,11 +1100,12 @@ def prng_window(dqn, st, steps: int = 50):
                 "prng_share": prng_ms / (wall / steps * 1e3)}
 
 
-def broadcast_twin(sampler):
-    """The same sampler with the plain ``broadcast`` match (no kernel)."""
+def plain_twin(sampler, fr_mode: str = "broadcast"):
+    """The same sampler with a plain match, the ``broadcast`` one unless
+    ``fr_mode`` names another (no kernel)."""
     from repro_torch.core import amper, sharded
 
-    cfg = sampler.cfg._replace(fr_mode="broadcast")
+    cfg = sampler.cfg._replace(fr_mode=fr_mode)
     if isinstance(sampler, sharded.ShardedAmperSampler):
         return sharded.ShardedAmperSampler(
             cfg, sampler.mesh, axis_names=sampler.axis_names,
@@ -1169,7 +1174,7 @@ def train_phase(state: dict, phase: str, steps: int, kernels: dict,
     buf = st.buffer
     draw_ms = wall_ms(lambda: dqn.replay.sample(buf, k, cfg.batch))
     idx, _, w = dqn.replay.sample(buf, k, cfg.batch)
-    plain = ReplayBuffer(cfg.replay_size, broadcast_twin(dqn.replay.sampler),
+    plain = ReplayBuffer(cfg.replay_size, plain_twin(dqn.replay.sampler),
                          alpha=cfg.alpha, beta=cfg.beta)
     idx_p, _, w_p = plain.sample(buf, k, cfg.batch)
     if not torch.equal(idx, idx_p) or not torch.equal(w, w_p):
@@ -1218,6 +1223,156 @@ def per_sharded_run(mesh, steps: int = 100) -> None:
           "shards": dqn.replay.sampler.n_shards, "steps": steps,
           "train_s": train_s, "return_mean_last": float(returns[-1]),
           "loss_last": float(losses[-1])})
+
+
+def same_agent_state(a, b) -> bool:
+    """Params, Adam moments, ring storage and sampler state bit for bit."""
+    from repro_torch.models.qhead import tree_leaves
+
+    pairs = [(x, y) for t in ("params", "target_params", "opt_m", "opt_v")
+             for x, y in zip(tree_leaves(getattr(a, t)),
+                             tree_leaves(getattr(b, t)))]
+    pairs += [(a.buffer.storage[k], b.buffer.storage[k])
+              for k in a.buffer.storage]
+    pairs += list(zip(a.buffer.sampler_state, b.buffer.sampler_state))
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+TABLE1_SEEDS, TABLE1_STEPS, TABLE1_STEADY = 2, 300, 100
+TABLE1_RUNS = (  # (a) and (b): env, sampler, agent, n_step, fr_mode
+    ("acrobot", "amper-k", "double", 3, "broadcast"),
+    ("mountaincar", "amper-fr", "dueling", 1, "fused"),
+)
+
+
+def table1_run(state: dict, env: str, sampler: str, agent: str, n_step: int,
+               fr_mode: str) -> tuple:
+    """S seeds of DQN in lockstep through ``train_many`` at the training
+    phases' width (1M replay), then ``evaluate_many``; seed 0 retrained
+    alone through ``train`` must end in the same state bit for bit.
+    Returns (the agent, its states, the run's numbers)."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.models.qhead import tree_leaves
+    from repro_torch.rl.dqn import DQNConfig, make_dqn
+
+    cfg = DQNConfig(env=env, sampler=sampler, agent=agent, n_step=n_step,
+                    amper_fr_mode=fr_mode, num_envs=16, replay_size=N_ROWS,
+                    batch=64, hidden=128, v_max=8.0, learn_start=100)
+    dqn = make_dqn(cfg, device="cuda")
+    keys = torch.stack([prng.key(SEED + s) for s in range(TABLE1_SEEDS)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in keys:                       # set-up alone: S 1M-row replays
+        dqn.init(k)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    states, metrics = dqn.train_many(keys, TABLE1_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    learn_steps = sum(1 for t in range(TABLE1_STEPS)
+                      if t >= cfg.learn_start and t % cfg.train_every == 0)
+    want = TABLE1_SEEDS * learn_steps if fr_mode == "fused" else 0
+    if launches["amper_sample"] != want or \
+            sum(launches.values()) != launches["amper_sample"]:
+        fail("table1", f"{env}/{sampler}: launches {launches}, want "
+             f"{want} amper_sample ({learn_steps} learn steps a seed)")
+    state["launches"]["amper_sample"] = (
+        state["launches"].get("amper_sample", 0) + launches["amper_sample"])
+    losses = metrics["loss"][:, cfg.learn_start:]
+    if not (bool(torch.isfinite(losses).all()) and all(
+            bool(torch.isfinite(t).all())
+            for st in states for t in tree_leaves(st.params))):
+        fail("table1", f"{env}/{sampler}: non-finite params or loss")
+    scores = dqn.evaluate_many(
+        states, torch.stack([prng.key(SEED + 100 + s)
+                             for s in range(TABLE1_SEEDS)]), 3)
+    if scores.shape != (TABLE1_SEEDS,) or not bool(
+            torch.isfinite(scores).all()):
+        fail("table1", f"{env}/{sampler}: scores {scores.tolist()}")
+    alone, _ = dqn.train(keys[0], TABLE1_STEPS)
+    if not same_agent_state(alone, states[0]):
+        fail("table1", f"{env}/{sampler}: train_many's seed 0 != train")
+    # Steady lockstep iterations past the run, timed alone.
+    step_keys = prng.split(prng.key(SEED + 4), (TABLE1_STEADY, TABLE1_SEEDS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ks in step_keys:
+        for s, k in enumerate(ks):
+            states[s], _ = dqn.agent_step(states[s], k)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    return dqn, states, {
+        "sampler": sampler, "agent": agent, "n_step": n_step,
+        "fr_mode": fr_mode, "seeds": TABLE1_SEEDS, "steps": TABLE1_STEPS,
+        "learn_steps_per_seed": learn_steps, "launches": launches,
+        "init_s": init_s, "train_s": train_s,
+        "train_lockstep_per_s": TABLE1_STEPS / train_s,
+        "steady_lockstep_per_s": TABLE1_STEADY / steady_s,
+        "steady_ms_per_seed_step": steady_s / (TABLE1_STEADY
+                                               * TABLE1_SEEDS) * 1e3,
+        "eval_scores": scores.tolist(), "train_equals_train_many_seed0": True,
+        "replay_rows": int(states[0].buffer.size)}
+
+
+def phase_table1(state: dict) -> None:
+    """The paper's learning path: AMPER-k and AMPER-fr over S seeds in
+    lockstep (see ``table1_run``), then on the trained 1M-row tables each
+    kNN mode of ``build_csp_k`` on the card held exactly against the same
+    mode on the CPU (timed as a draw and as device work), and the
+    ``interval`` and ``window`` draws held against ``broadcast``."""
+    from repro_torch import prng
+    from repro_torch.core import amper
+    from repro_torch.core.replay_buffer import ReplayBuffer
+
+    out = {}
+    dqn, states, out["acrobot/amper-k"] = table1_run(state, *TABLE1_RUNS[0])
+    st = states[0].buffer.sampler_state
+    cpu = amper.AmperState(st.pq.cpu(), st.valid.cpu())
+    key = prng.key(SEED + 5)
+    knn = {}
+    for mode in amper.KNN_MODES:
+        cfg = dqn.replay.sampler.cfg._replace(knn_mode=mode)
+        got = amper.build_csp_k(st.pq, st.valid, key, cfg)
+        want = amper.build_csp_k(cpu.pq, cpu.valid, key, cfg)
+        for f in ("selected", "indices", "count"):
+            if not torch.equal(getattr(got, f).cpu(), getattr(want, f)):
+                fail("table1", f"build_csp_k {mode}: {f} differs from the "
+                     "CPU")
+        smp = amper.AmperSampler(cfg, "k", device="cuda")
+
+        def build():
+            return amper.build_csp_k(st.pq, st.valid, key, cfg)
+
+        split = sorted(device_ops(build).items(), key=lambda kv: -kv[1][1])
+        knn[mode] = {
+            "csp_count": int(want.count),
+            "draw_ms": wall_ms(lambda: smp.sample(st, key, 64)),
+            "build_csp_k_device_ms": device_time_ms(build, calls=4),
+            "device_operations": sum(n for n, _ in dict(split).values()),
+            "top_device_us": {k[:60]: v for k, v in split[:4]}}
+    del dqn, states, st
+    dqn, states, out["mountaincar/amper-fr"] = table1_run(
+        state, *TABLE1_RUNS[1])
+    buf, k = states[0].buffer, prng.key(SEED + 1)
+    cfg = dqn.cfg
+    draws = {"fused": dqn.replay.sample(buf, k, cfg.batch)}
+    for mode in ("broadcast", "interval", "window"):
+        twin = ReplayBuffer(cfg.replay_size,
+                            plain_twin(dqn.replay.sampler, mode),
+                            alpha=cfg.alpha, beta=cfg.beta)
+        draws[mode] = twin.sample(buf, k, cfg.batch)
+    idx_b, _, w_b = draws["broadcast"]
+    for mode, (idx, _, w) in draws.items():
+        if not torch.equal(idx, idx_b) or not torch.equal(w, w_b):
+            fail("table1", f"the {mode} draw != the broadcast draw on the "
+                 "trained buffer")
+    emit({"phase": "table1", "ok": True, "runs": out, "replay": N_ROWS,
+          "knn_modes": knn, "knn_cpu_exact": True,
+          "fr_modes_equal_broadcast": sorted(draws)})
 
 
 # Decode vs prefill in float32, relative to max |logit|.  Both paths are
@@ -1405,6 +1560,8 @@ def main(argv=None) -> int:
                     trace_dir, mesh=mesh, sampler="amper-fr-sharded",
                     amper_fr_mode="fused")
         per_sharded_run(mesh)
+    if "table1" in phases:
+        phase_table1(state)
     if "serve" in phases:
         phase_serve(state, trace_dir)
     rows = []

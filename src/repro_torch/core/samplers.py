@@ -5,16 +5,18 @@ the same five methods (init / update / sample / priorities / total) and
 is built through :func:`make_sampler`, whose builders accept one shared
 kwargs vocabulary and ignore what they do not consume:
 
-  m, lam_fr, csp_ratio, v_max, fr_mode, exact_radius, frac_bits -- AMPER
-  hyper-parameters (``fr_mode``: broadcast / kernel / fused, all
-  bit-identical); csp_capacity -- overrides the csp_ratio-derived CSP
-  size; min_csp -- floor of the derived size (usually the train batch);
-  device -- where the sampler's state lives (default ``"cuda"``).
+  m, lam, lam_fr, csp_ratio, v_max, knn_mode, fr_mode, exact_radius,
+  frac_bits -- AMPER hyper-parameters (``lam`` defaults to csp_ratio / 2;
+  ``knn_mode``: sort / bisect / hist, default bisect; ``fr_mode``:
+  broadcast / interval / window / kernel / fused, all bit-identical);
+  csp_capacity -- overrides the csp_ratio-derived CSP size; min_csp --
+  floor of the derived size (usually the train batch); device -- where
+  the sampler's state lives (default ``"cuda"``).
 
-Six kinds are registered: ``uniform``, ``per-sumtree``, ``per-cumsum``
-(alias ``per``), ``amper-fr``, and the sharded fronts ``amper-fr-sharded``
-and ``per-sharded`` (``mesh`` and ``axis_names`` besides).  AMPER-k
-(``amper-k``) waits for a later slice.
+Seven kinds are registered: ``uniform``, ``per-sumtree``, ``per-cumsum``
+(alias ``per``), ``amper-k``, ``amper-fr``, and the sharded fronts
+``amper-fr-sharded`` and ``per-sharded`` (``mesh`` and ``axis_names``
+besides).
 """
 from __future__ import annotations
 
@@ -109,17 +111,25 @@ def _build_cumsum(capacity: int, *, device="cuda", **_unused) -> Sampler:
 
 
 def _amper_config(capacity: int, *, m: int = 20, lam_fr: float = 2.0,
-                  csp_ratio: float = 0.15, v_max: float = 1.0,
-                  csp_capacity: int | None = None, min_csp: int = 64,
+                  csp_ratio: float = 0.15, lam: float | None = None,
+                  v_max: float = 1.0, csp_capacity: int | None = None,
+                  min_csp: int = 64, knn_mode: str = "bisect",
                   fr_mode: str = "broadcast", exact_radius: bool = False,
                   frac_bits: int | None = None, **_unused) -> AmperConfig:
     """The one place the kwargs vocabulary becomes an AmperConfig."""
     return AmperConfig(
-        capacity=capacity, m=m, lam_fr=lam_fr, v_max=v_max,
+        capacity=capacity, m=m, lam_fr=lam_fr,
+        lam=csp_ratio / 2.0 if lam is None else lam, v_max=v_max,
         csp_capacity=(csp_capacity if csp_capacity is not None
                       else max(int(capacity * csp_ratio), min_csp)),
         frac_bits=qz.DEFAULT_FRAC_BITS if frac_bits is None else frac_bits,
-        exact_radius=exact_radius, fr_mode=fr_mode)
+        exact_radius=exact_radius, knn_mode=knn_mode, fr_mode=fr_mode)
+
+
+@register_sampler("amper-k")
+def _build_amper_k(capacity: int, *, device="cuda", **kw) -> Sampler:
+    return AmperSampler(_amper_config(capacity, **kw), variant="k",
+                        device=device)
 
 
 @register_sampler("amper-fr")

@@ -18,11 +18,12 @@ So a draw moves O(S + batch) scalars between shards
 hierarchical-cumsum PER baseline needs each shard's total instead: one
 all-gather of S floats and one psum of the batch.
 
-``fr_mode`` picks the per-shard match as on one device: ``"broadcast"``
-compares in PyTorch, ``"kernel"`` runs the ``multi_query_match`` kernel
-on each shard, and ``"fused"`` adds the ``rank_select`` kernel, which
-turns each shard's owned draws into local indices in one pass without a
-compacted CSP.  All three give bit-identical draws.
+``fr_mode`` picks the per-shard match as on one device: ``"broadcast"``,
+``"interval"`` and ``"window"`` test the ranges in PyTorch, ``"kernel"``
+runs the ``multi_query_match`` kernel on each shard, and ``"fused"`` adds
+the ``rank_select`` kernel, which turns each shard's owned draws into
+local indices in one pass without a compacted CSP.  All five give
+bit-identical draws.
 
 Two things differ from the single-device sampler, exactly as in the
 reference: the key tree (``kq, kpick = split(key)``, then ``kpick, kfb =
@@ -86,7 +87,9 @@ def _local_match_fr(pq_local: torch.Tensor, valid_local: torch.Tensor,
                     v_rep: torch.Tensor, lo_hi, cfg: AmperConfig
                     ) -> torch.Tensor:
     """m-query ternary match on one shard (no communication); the
-    kernel modes take the shard device's ranges ``lo_hi``."""
+    kernel modes take the shard device's ranges ``lo_hi``, the others
+    (``broadcast``, ``interval``, ``window``) go through
+    :func:`~repro_torch.core.amper.fr_match` as on one device."""
     if cfg.fr_mode in ("kernel", "fused"):
         sel, _counts = ops.multi_query_match(pq_local, valid_local, *lo_hi)
         return sel

@@ -90,6 +90,31 @@ def agent_state_from_jax(st, device="cuda", sampler=None) -> AgentState:
         n_episodes=to_tensor(st.n_episodes, device))
 
 
+def _take(tree, s: int):
+    """Entry ``s`` of every leaf of a numpy pytree whose leaves lead with
+    a seed axis (NamedTuples, tuples, lists and dicts are walked; None
+    stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _take(v, s) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_take(v, s) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_take(v, s) for v in tree)
+    return np.asarray(tree)[s]
+
+
+def agent_states_from_jax(st, device="cuda", sampler=None) -> list:
+    """A batch of reference ``AgentState``s (numpy leaves with a leading
+    seed axis S, as the reference's ``train_many`` returns them) as a
+    list of S port states, in the layout the port's ``train_many``
+    returns."""
+    n_seeds = np.asarray(st.step).shape[0]
+    return [agent_state_from_jax(_take(st, s), device, sampler)
+            for s in range(n_seeds)]
+
+
 def _lm_leaf(x, device) -> torch.Tensor:
     """A numpy leaf of the reference's LM (float32, int32 or bfloat16,
     whose numpy type torch cannot read) as a tensor of the same dtype."""

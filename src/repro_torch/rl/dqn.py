@@ -2,13 +2,16 @@
 
 Counterpart of ``repro/rl/dqn.py`` for the vector envs: epsilon-greedy
 actors over a :class:`~repro_torch.rl.envs.VectorEnv`, a ring replay
-buffer with uniform or AMPER-fr sampling, the MLP or dueling Q-head,
-vanilla or Double-DQN targets, n-step returns, hard target sync and the
-reference's hand-written Adam.
+buffer with any registered sampler (uniform, PER, AMPER-k, AMPER-fr),
+the MLP or dueling Q-head, vanilla or Double-DQN targets, n-step
+returns, hard target sync and the reference's hand-written Adam.
 
 The reference runs the whole loop as one ``lax.scan``; here ``train`` is
 a Python loop over :func:`agent_step`, and the reference's ``lax.cond``
 on the step counter is a host-side ``if`` (the counter is a host int).
+The reference's ``train_many`` vmaps that scan over S seeds; here the S
+seeds run in lockstep (step t of every seed before step t + 1 of any),
+each with its own state, and ``train`` is ``train_many`` of one seed.
 PRNG keys are host tensors (:mod:`repro_torch.prng`) consumed exactly as
 the reference consumes its keys, so the two packages take the same
 actions and draw the same replay indices from the same state.
@@ -52,7 +55,7 @@ AGENTS = {
 @dataclasses.dataclass(frozen=True)
 class DQNConfig:
     env: str = "cartpole"
-    sampler: str = "uniform"       # a repro_torch.core.samplers registry name
+    sampler: str = "per-sumtree"   # a repro_torch.core.samplers registry name
     agent: str = "dqn"             # dqn | double | dueling | double-dueling
     n_step: int = 1
     num_envs: int = 1
@@ -98,7 +101,10 @@ class DQN(NamedTuple):
     init: Callable           # key -> AgentState
     agent_step: Callable     # (AgentState, key) -> (AgentState, metrics)
     train: Callable          # (key, n_steps) -> (AgentState, metrics)
+    train_many: Callable     # (keys [S, 2], n_steps) -> ([S] states,
+    #                          metrics [S, n_steps])
     evaluate: Callable       # (params | AgentState, key, n_episodes) -> return
+    evaluate_many: Callable  # ([S] states, keys [S, 2], n_episodes) -> [S]
     act: Callable            # (params, env_state, obs, step, key)
     #                          -> (env_state, next_obs, transitions)
     learn: Callable          # (params, target, m, v, step, batch, weights)
@@ -138,8 +144,8 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
     sampler = make_sampler(
         cfg.sampler, cfg.replay_size, device=dev, m=cfg.amper_m,
         lam_fr=cfg.amper_lam_fr, csp_ratio=cfg.amper_csp_ratio,
-        v_max=cfg.v_max, min_csp=cfg.batch, fr_mode=cfg.amper_fr_mode,
-        mesh=mesh)
+        v_max=cfg.v_max, min_csp=cfg.batch, knn_mode="bisect",
+        fr_mode=cfg.amper_fr_mode, mesh=mesh)
     # Compare concrete devices ("cuda" and "cuda:0" are one card).
     if (torch.empty(0, device=sampler.device).device
             != torch.empty(0, device=dev).device):
@@ -290,18 +296,44 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
                    "idx": idx, "td": td}
         return new, metrics
 
+    def lockstep(keys: torch.Tensor, n_steps: int):
+        """``init`` on each key, then ``n_steps`` agent steps of every
+        seed, step t of all seeds before step t + 1 of any; seed s steps
+        on the reference's keys ``split(fold_in(keys[s], 1), n_steps)``.
+        Returns the S final states and each seed's metrics as lists."""
+        states = [init(k) for k in keys]
+        step_keys = [prng.split(prng.fold_in(k, 1), n_steps) for k in keys]
+        metrics = [{"return_mean": [], "beta": [], "loss": []}
+                   for _ in states]
+        for t in range(n_steps):
+            for s, (st, ks, mts) in enumerate(zip(states, step_keys,
+                                                  metrics)):
+                states[s], mt = agent_step(st, ks[t])
+                for name, seq in mts.items():
+                    seq.append(mt[name])
+        return states, metrics
+
     def train(key: torch.Tensor, n_steps: int):
         """``init`` then ``n_steps`` agent steps on the reference's step
         keys (``split(fold_in(key, 1), n_steps)``).  Returns the final
         state and per-step metrics as lists."""
-        state = init(key)
-        keys = prng.split(prng.fold_in(key, 1), n_steps)
-        metrics = {"return_mean": [], "beta": [], "loss": []}
-        for k in keys:
-            state, mt = agent_step(state, k)
-            for name in metrics:
-                metrics[name].append(mt[name])
-        return state, metrics
+        states, metrics = lockstep(prng.key_data(key)[None], n_steps)
+        return states[0], metrics[0]
+
+    def train_many(keys: torch.Tensor, n_steps: int):
+        """S seeds (``keys`` [S, 2]) trained in lockstep, each as
+        ``train`` trains it.  Returns the list of S final states and the
+        metrics stacked float32 [S, n_steps] on the agent's device."""
+        states, metrics = lockstep(prng.key_data(keys).reshape(-1, 2),
+                                   n_steps)
+
+        def stack(seq):  # 0-d tensors on the device, or host floats
+            return torch.stack([torch.as_tensor(v, dtype=torch.float32)
+                                .to(dev) for v in seq]) if seq else \
+                torch.zeros(0, device=dev)
+
+        return states, {name: torch.stack([stack(m[name]) for m in metrics])
+                        for name in metrics[0]}
 
     def evaluate(state, key: torch.Tensor, n_episodes: int = 10) -> float:
         """Greedy-policy average return over ``n_episodes`` episodes run
@@ -327,10 +359,20 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
                     break
         return float(ret.mean())
 
+    def evaluate_many(states, keys: torch.Tensor, n_episodes: int = 10
+                      ) -> torch.Tensor:
+        """Per-seed ``evaluate`` scores of ``train_many``'s states, one
+        key each: float32 [S] on the agent's device."""
+        keys = prng.key_data(keys).reshape(-1, 2)
+        return torch.tensor([evaluate(st, k, n_episodes)
+                             for st, k in zip(states, keys)],
+                            dtype=torch.float32, device=dev)
+
     return DQN(init=init, agent_step=agent_step, train=train,
-               evaluate=evaluate, act=act, learn=learn, cfg=cfg, env=env,
-               venv=venv, replay=rb, beta_at=beta_at, q_apply=q_apply,
-               example_transition=example_transition)
+               train_many=train_many, evaluate=evaluate,
+               evaluate_many=evaluate_many, act=act, learn=learn, cfg=cfg,
+               env=env, venv=venv, replay=rb, beta_at=beta_at,
+               q_apply=q_apply, example_transition=example_transition)
 
 
 def _unflatten(tree, leaves):

@@ -1,7 +1,9 @@
-"""Environments on tensors: gym's CartPole-v1, batched.
+"""Environments on tensors: gym's classic-control envs, batched.
 
-Counterpart of ``repro/rl/envs.py`` for the env this slice of the port
-needs; Acrobot, MountainCar and the pixel envs wait for later slices.
+Counterpart of ``repro/rl/envs.py`` for the flat envs: CartPole-v1
+(Euler), Acrobot-v1 (RK4, wrapped angles) and MountainCar-v0 (Euler,
+clipped, with the left-wall stop).  The pixel envs wait for a later
+slice of the port.
 
 An env works on a batch of states (leading dims of its tensors) and
 exposes::
@@ -19,11 +21,13 @@ still bootstraps.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
 
 from repro_torch import prng, resolve_device
+from repro_torch.xla_float import fma32
 
 _ENV_REGISTRY: dict[str, Callable[[], Any]] = {}
 
@@ -51,6 +55,11 @@ def make_env(name: str):
         raise ValueError(f"unknown env: {name!r} "
                          f"(available: {available_envs()})") from None
     return cls()
+
+
+def _f32(c: float) -> torch.Tensor:
+    """A Python constant as the float32 scalar XLA folds it to."""
+    return torch.tensor(c, dtype=torch.float32)
 
 
 class EnvState(NamedTuple):
@@ -98,6 +107,145 @@ class CartPole:
         terminated = (new[..., 0].abs() > 2.4) | (new[..., 2].abs() > 0.2095)
         done = terminated | (t >= self.max_steps)
         reward = torch.ones_like(t, dtype=torch.float32)
+        fresh = self.reset(keys, device=new.device)
+        next_state = EnvState(x=torch.where(done[..., None], fresh.x, new),
+                              t=torch.where(done, fresh.t, t))
+        return next_state, new, reward, done, terminated
+
+
+@register_env("acrobot")
+class Acrobot:
+    """Acrobot-v1: swing the tip above the bar; -1 per step until solved.
+
+    RK4 over ``_dsdt`` on ``[0, DT]``, then the angles wrapped (floor
+    mod, as ``jnp``'s ``%``) and the velocities clipped.  The float32
+    arithmetic is the jitted reference's (see ``_dsdt``; each RK4 stage
+    is one multiply-add), so within one step the two packages differ
+    only where XLA's ``sin`` or ``cos`` rounds otherwise than torch's.
+    """
+
+    obs_dim = 6
+    obs_shape = (6,)
+    n_actions = 3
+    max_steps = 500
+
+    M1 = M2 = 1.0
+    L1 = 1.0
+    LC1 = LC2 = 0.5
+    I1 = I2 = 1.0
+    G = 9.8
+    DT = 0.2
+
+    def reset(self, keys: torch.Tensor, device=None) -> EnvState:
+        x = prng.uniform(keys, (4,), -0.1, 0.1, device=device)
+        return EnvState(x=x, t=torch.zeros(x.shape[:-1], dtype=torch.int32,
+                                           device=x.device))
+
+    def obs(self, state: EnvState) -> torch.Tensor:
+        th1, th2, d1, d2 = state.x.unbind(-1)
+        return torch.stack([torch.cos(th1), torch.sin(th1), torch.cos(th2),
+                            torch.sin(th2), d1, d2], -1)
+
+    def _dsdt(self, s: torch.Tensor, torque: torch.Tensor) -> torch.Tensor:
+        """The reference's ``_dsdt`` as XLA compiles it: the constant
+        terms of ``d1`` and ``d2`` fold into one, and each multiply feeding
+        an add or subtract rounds once (:func:`fma32`)."""
+        th1, th2, dth1, dth2 = s.unbind(-1)
+        m1, m2, l1, lc1, lc2, i1, i2, g = (self.M1, self.M2, self.L1,
+                                           self.LC1, self.LC2, self.I1,
+                                           self.I2, self.G)
+        half_pi = math.pi / 2
+        cos2, sin2 = torch.cos(th2), torch.sin(th2)
+        cos_a = torch.cos(th1 + th2 - half_pi)
+        cos_b = torch.cos(th1 - half_pi)
+        c_phi2 = _f32(m2 * lc2 * g)
+        c_phi1 = _f32((m1 * lc1 + m2 * l1) * g)
+        # m1 lc1^2 + m2 (l1^2 + lc2^2 + 2 l1 lc2 cos th2) + i1 + i2
+        d1 = (2 * l1 * lc2 * m2 * cos2
+              + (m1 * lc1 ** 2 + m2 * (l1 ** 2 + lc2 ** 2) + i1 + i2))
+        d2 = m2 * l1 * lc2 * cos2 + (m2 * lc2 ** 2 + i2)
+        # -m2 l1 lc2 dth2^2 sin th2 - 2 m2 l1 lc2 dth2 dth1 sin th2
+        #   + (m1 lc1 + m2 l1) g cos(th1 - pi/2) + phi2
+        phi1 = fma32(-m2 * l1 * lc2 * (dth2 * dth2), sin2,
+                     -(2 * m2 * l1 * lc2 * (dth2 * dth1) * sin2))
+        phi1 = fma32(cos_b, c_phi1, phi1)
+        phi1 = fma32(cos_a, c_phi2, phi1)        # + phi2, phi2 = c_phi2 cos_a
+        # (torque + d2 / d1 phi1 - m2 l1 lc2 dth1^2 sin th2 - phi2)
+        #   / (m2 lc2^2 + i2 - d2^2 / d1)
+        num = fma32(d2 / d1, phi1, torque)
+        num = fma32(-m2 * l1 * lc2 * (dth1 * dth1), sin2, num)
+        num = fma32(cos_a, -c_phi2, num)
+        ddth2 = num / (m2 * lc2 ** 2 + i2 - d2 * d2 / d1)
+        ddth1 = -fma32(d2, ddth2, phi1) / d1
+        return torch.stack([dth1, dth2, ddth1, ddth2], -1)
+
+    def step(self, state: EnvState, action: torch.Tensor, keys: torch.Tensor):
+        torque = action.to(torch.float32) - 1.0  # {-1, 0, +1}
+        s = state.x
+        h = self.DT
+        k1 = self._dsdt(s, torque)
+        k2 = self._dsdt(fma32(k1, _f32(h / 2), s), torque)
+        k3 = self._dsdt(fma32(k2, _f32(h / 2), s), torque)
+        k4 = self._dsdt(fma32(k3, _f32(h), s), torque)
+        new = fma32(k1 + 2 * k2 + 2 * k3 + k4, _f32(h / 6), s)
+        th1, th2, d1, d2 = new.unbind(-1)
+        pi = math.pi
+        new = torch.stack([(th1 + pi) % (2 * pi) - pi,   # floor-mod wrap
+                           (th2 + pi) % (2 * pi) - pi,
+                           d1.clamp(-4 * pi, 4 * pi),
+                           d2.clamp(-9 * pi, 9 * pi)], -1)
+        t = state.t + 1
+        terminated = (-torch.cos(new[..., 0])
+                      - torch.cos(new[..., 1] + new[..., 0])) > 1.0
+        done = terminated | (t >= self.max_steps)
+        reward = torch.where(terminated, 0.0, -1.0)
+        fresh = self.reset(keys, device=new.device)
+        next_state = EnvState(x=torch.where(done[..., None], fresh.x, new),
+                              t=torch.where(done, fresh.t, t))
+        pre_reset = self.obs(EnvState(x=new, t=t))
+        return next_state, pre_reset, reward, done, terminated
+
+
+@register_env("mountaincar")
+class MountainCar:
+    """MountainCar-v0: drive up the right hill; -1 per step; 200-step cap.
+
+    Euler steps with the reference's clip, left-wall stop and goal test.
+    The velocity update's multiply-add is rounded once, as XLA compiles
+    the reference.
+    """
+
+    obs_dim = 2
+    obs_shape = (2,)
+    n_actions = 3
+    max_steps = 200
+
+    MIN_POS, MAX_POS = -1.2, 0.6
+    MAX_SPEED = 0.07
+    GOAL_POS, GOAL_VEL = 0.5, 0.0
+    FORCE, GRAVITY = 0.001, 0.0025
+
+    def reset(self, keys: torch.Tensor, device=None) -> EnvState:
+        pos = prng.uniform(keys, (), -0.6, -0.4, device=device)
+        return EnvState(x=torch.stack([pos, torch.zeros_like(pos)], -1),
+                        t=torch.zeros(pos.shape, dtype=torch.int32,
+                                      device=pos.device))
+
+    def obs(self, state: EnvState) -> torch.Tensor:
+        return state.x
+
+    def step(self, state: EnvState, action: torch.Tensor, keys: torch.Tensor):
+        pos, vel = state.x.unbind(-1)
+        vel = vel + (action.to(torch.float32) - 1.0) * self.FORCE
+        vel = fma32(torch.cos(3.0 * pos), _f32(-self.GRAVITY), vel)
+        vel = vel.clamp(-self.MAX_SPEED, self.MAX_SPEED)
+        pos = (pos + vel).clamp(self.MIN_POS, self.MAX_POS)
+        vel = torch.where((pos <= self.MIN_POS) & (vel < 0), 0.0, vel)
+        t = state.t + 1
+        terminated = (pos >= self.GOAL_POS) & (vel >= self.GOAL_VEL)
+        done = terminated | (t >= self.max_steps)
+        reward = torch.full_like(pos, -1.0)
+        new = torch.stack([pos, vel], -1)
         fresh = self.reset(keys, device=new.device)
         next_state = EnvState(x=torch.where(done[..., None], fresh.x, new),
                               t=torch.where(done, fresh.t, t))

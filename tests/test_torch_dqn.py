@@ -8,14 +8,22 @@ moments and TD errors within rtol 1e-5 / atol 1e-6, because XLA and
 torch sum the matmuls in different orders.  A quantized priority may
 differ by one code only where the two packages' float priorities (from
 those TD errors, or from the running max priority for new rows) round to
-the two codes.
+the two codes.  Such a row can cross a selection boundary (AMPER-k's
+kNN radius) and change a draw; the step is then taken again from the
+reference's state, on whose table the port's draw must be exact.  Where
+the jitted reference's AMPER-k draw disagrees with its own functions
+(ROADMAP C9), the port's draw must equal those functions' draw, and
+the loop goes on from the reference's state after the step.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import repro.core.amper as ja
 import repro.core.quantize as jqz
 from repro.models import qhead as jqh
 from repro.rl import dqn as jd
@@ -101,6 +109,42 @@ def _jax_peek(jdq, batch):
     return jax.jit(peek)
 
 
+def _jax_table(jdq):
+    """The reference agent_step's sampler state after this step's ring
+    write, and the key of its draw."""
+
+    def table(state, key):
+        k_act, k_sample = jax.random.split(key)
+        _, _, tr = jdq.act(state.params, state.env_state, state.obs,
+                           state.step, k_act)
+        return jdq.replay.add_batch(state.buffer, tr).sampler_state, k_sample
+
+    return jax.jit(table)
+
+
+def _amper_k_draw_one_rep(cfg, st, key, batch):
+    """The reference's AMPER-k draw (``AmperSampler.sample``, variant
+    "k") composed of its own functions, with each V(g_i) computed once."""
+    kcsp, kpick = jax.random.split(key)
+    kv, kroll = jax.random.split(kcsp)
+    vq, n_i = jax.jit(lambda kv, pq, valid: (
+        jqz.quantize(ja.group_representatives(kv, cfg), cfg.v_max,
+                     cfg.frac_bits),
+        ja.knn_sizes(ja.group_representatives(kv, cfg),
+                     ja.group_counts(pq, valid, cfg), cfg)))(
+            kv, st.pq, st.valid)
+    select = {"sort": ja._knn_select_sort,
+              "bisect": functools.partial(ja._knn_select_bisect,
+                                          frac_bits=cfg.frac_bits),
+              "hist": functools.partial(ja._knn_select_hist,
+                                        frac_bits=cfg.frac_bits)}
+    sel = jax.jit(select[cfg.knn_mode])(st.pq, st.valid, vq, n_i)
+    csp = ja._compact(jnp.any(sel, axis=0) & st.valid, cfg.csp_capacity,
+                      kroll)
+    return ja.sample_from_csp(csp, kpick, batch,
+                              jnp.sum(st.valid.astype(jnp.int32)))
+
+
 def _trace_codes(jpq, tpq, explained, arc, idx, jtd, ttd, jmax, tmax, v_max):
     """Every row whose quantized priority differs is explained: written
     this step (from the max priority or a TD error of this step, both
@@ -129,9 +173,15 @@ def _trace_codes(jpq, tpq, explained, arc, idx, jtd, ttd, jmax, tmax, v_max):
     return keep
 
 
-SLICES = [  # sampler, agent, n_step, the port's fr_mode
-    ("amper-fr", "dqn", 1, "fused"),
-    ("uniform", "double-dueling", 3, "broadcast"),
+SLICES = [  # sampler, agent, n_step, the port's fr_mode, env
+    pytest.param("amper-fr", "dqn", 1, "fused", "cartpole",
+                 id="amper-fr-dqn-1-fused"),
+    pytest.param("uniform", "double-dueling", 3, "broadcast", "cartpole",
+                 id="uniform-double-dueling-3-broadcast"),
+    pytest.param("amper-k", "double", 3, "broadcast", "acrobot",
+                 id="acrobot-amper-k-double-3-broadcast"),
+    pytest.param("amper-fr", "dueling", 1, "fused", "mountaincar",
+                 id="mountaincar-amper-fr-dueling-1-fused"),
 ]
 
 
@@ -140,12 +190,14 @@ def _dense(x):
     return torch.cat(x) if isinstance(x, tuple) else x
 
 
-def thirty_agent_steps(sampler, agent, n_step, fr_mode, mesh=None):
+def thirty_agent_steps(sampler, agent, n_step, fr_mode, mesh=None,
+                       env="cartpole"):
     """Start the reference and the port from one state and hold them
-    together over 30 ``agent_step``s (see the module docstring).  With a
-    sharded ``sampler``, the caller points the reference's default mesh
-    at the same shard count as the port's ``mesh``."""
-    kw = dict(env="cartpole", sampler=sampler, agent=agent, n_step=n_step,
+    together over 30 ``agent_step``s on ``env`` (see the module
+    docstring).  With a sharded ``sampler``, the caller points the
+    reference's default mesh at the same shard count as the port's
+    ``mesh``."""
+    kw = dict(env=env, sampler=sampler, agent=agent, n_step=n_step,
               num_envs=4, replay_size=256, batch=16, hidden=32,
               learn_start=8, target_sync=10)
     jdq = jd.make_dqn(jd.DQNConfig(**kw))
@@ -163,15 +215,51 @@ def thirty_agent_steps(sampler, agent, n_step, fr_mode, mesh=None):
                                   tkeys.numpy())
     step = jax.jit(jdq.agent_step)
     peek = _jax_peek(jdq, kw["batch"])
+    table = _jax_table(jdq)
     explained = {}
-    learned = 0
+    learned = resynced = 0
     for i in range(30):
         jidx, jtd = peek(js, jkeys[i]) if i >= kw["learn_start"] else (None, None)
         jmax_before = np.asarray(js.buffer.max_priority)
         tmax_before = ts.buffer.max_priority.clone()
         arc = [(ts.buffer.pos + j) % kw["replay_size"] for j in range(4)]
+        js_before = js
         js, _ = step(js, jkeys[i])
         ts, tm = tdq.agent_step(ts, tkeys[i])
+        if jidx is not None and not np.array_equal(jidx, tm["idx"].numpy()):
+            # The port's draw on the reference's own table and key.
+            ts_ref, tm_ref = tdq.agent_step(interop.agent_state_from_jax(
+                jax.tree.map(np.asarray, js_before), device="cpu",
+                sampler=tdq.replay.sampler), tkeys[i])
+            if np.array_equal(jidx, tm_ref["idx"].numpy()):
+                # A traced one-code row crossed a selection boundary (a
+                # kNN radius); go on from the reference's table.
+                assert explained, "a draw differs on identical tables"
+                tmax_before = interop.to_tensor(
+                    np.asarray(js_before.buffer.max_priority), "cpu")
+                ts, tm = ts_ref, tm_ref
+                explained = {}
+                resynced += 1
+            else:
+                # The jitted reference recomputes V(g_i) in several fusions
+                # with different multiply-add contractions, so its kNN
+                # radius and its final selection can disagree (ROADMAP
+                # C9).  The port's draw equals the reference's own
+                # functions with each V(g_i) computed once, and the step
+                # goes on from the reference's state after it.
+                st, k_sample = table(js_before, jkeys[i])
+                want = _amper_k_draw_one_rep(jdq.replay.sampler.cfg, st,
+                                             k_sample, kw["batch"])
+                np.testing.assert_array_equal(np.asarray(want),
+                                              tm_ref["idx"].numpy())
+                assert not np.array_equal(np.asarray(want), jidx)
+                ts = interop.agent_state_from_jax(
+                    jax.tree.map(np.asarray, js), device="cpu",
+                    sampler=tdq.replay.sampler)
+                explained = {}
+                learned += 1
+                resynced += 1
+                continue
         jb = jax.tree.map(np.asarray, js.buffer)
         tb = ts.buffer
         # exact: actions, ring position, stamps, episode counters
@@ -196,7 +284,7 @@ def thirty_agent_steps(sampler, agent, n_step, fr_mode, mesh=None):
         learned += 1
         np.testing.assert_array_equal(np.asarray(jidx), tm["idx"].numpy())
         _close(jtd, tm["td"])
-        if sampler.startswith("amper-fr"):
+        if sampler.startswith("amper"):
             explained = _trace_codes(
                 jb.sampler_state.pq, _dense(tb.sampler_state.pq).numpy(),
                 explained, arc if n_step == 1 else [], tm["idx"],
@@ -206,11 +294,13 @@ def thirty_agent_steps(sampler, agent, n_step, fr_mode, mesh=None):
             _close(jdq.replay.sampler.priorities(js.buffer.sampler_state),
                    tdq.replay.sampler.priorities(tb.sampler_state))
     assert learned == 30 - kw["learn_start"]
+    return resynced
 
 
-@pytest.mark.parametrize("sampler,agent,n_step,fr_mode", SLICES)
-def test_thirty_agent_steps_match_reference(sampler, agent, n_step, fr_mode):
-    thirty_agent_steps(sampler, agent, n_step, fr_mode)
+@pytest.mark.parametrize("sampler,agent,n_step,fr_mode,env", SLICES)
+def test_thirty_agent_steps_match_reference(sampler, agent, n_step, fr_mode,
+                                            env):
+    thirty_agent_steps(sampler, agent, n_step, fr_mode, env=env)
 
 
 def test_train_and_evaluate_run_on_cpu():
@@ -236,7 +326,9 @@ def test_entry_points_refuse_missing_cuda():
 @pytest.mark.parametrize("entry", [
     "vector_env", "make_qhead", "mlp_init", "to_tensor", "params_from_jax",
     "amper_sampler", "uniform_sampler", "make_sampler", "lm_params_from_jax",
-    "lm_cache_from_jax", "lm_init_cache", "lm_init_params", "serve_cli"])
+    "lm_cache_from_jax", "lm_init_cache", "lm_init_params", "serve_cli",
+    "amper_k_sampler", "make_sampler_amper_k", "train_many",
+    "vector_env_acrobot", "vector_env_mountaincar"])
 def test_each_entry_point_defaults_to_cuda(entry):
     """Left at its default device, every entry point asks for the card,
     so a state built without ``device=`` never lands on the CPU."""
@@ -270,6 +362,16 @@ def test_each_entry_point_defaults_to_cuda(entry):
             get_reduced_config("stablelm-1.6b")).init_params(
                 torch.Generator().manual_seed(0)),
         "serve_cli": lambda: serve.main(["--reduced"]),
+        "amper_k_sampler": lambda: ta.AmperSampler(
+            ta.AmperConfig(capacity=8, knn_mode="bisect"), variant="k"),
+        "make_sampler_amper_k": lambda: tsm.make_sampler("amper-k", 8),
+        "train_many": lambda: td.make_dqn(td.DQNConfig(
+            env="acrobot", sampler="amper-k")).train_many(
+                torch.stack([prng.key(0), prng.key(1)]), 2),
+        "vector_env_acrobot": lambda: tenvs.VectorEnv(
+            tenvs.make_env("acrobot"), 2),
+        "vector_env_mountaincar": lambda: tenvs.VectorEnv(
+            tenvs.make_env("mountaincar"), 2),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

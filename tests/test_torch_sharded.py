@@ -413,8 +413,9 @@ def jax_membership():
     return get
 
 
-@pytest.mark.parametrize("mode", ["broadcast", "kernel", "fused"])
-@pytest.mark.parametrize("shards", [1, 2, 8])
+@pytest.mark.parametrize("mode", ["broadcast", "kernel", "fused",
+                                  "interval", "window"])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
 def test_sharded_amper_sampler_bit_identical(shards, mode, jax_membership):
     pq, valid = _table(N, seed=1)
     js = JSharded(JConfig(**CFG, fr_mode=mode), _jmesh(shards),
