@@ -17,8 +17,14 @@ standard 1M-transition replay memory, trains the paper's learning path
 (AMPER-k on Acrobot and AMPER-fr through the draw kernel on MountainCar,
 two seeds in lockstep through ``train_many``, each held bit for bit
 against ``train`` of one seed) and holds AMPER-k's three kNN modes on
-the card against the CPU at 1M rows, runs the m group queries of a draw
-as single TCAM searches, holds the two attention kernels against their
+the card against the CPU at 1M rows, trains the pixel path (Breakout and
+Freeway: the conv Q-heads on uint8 frame stacks, a 1M-transition uint8
+frame store materializing the stacked batches at sample time) through
+all three replay kernels, through ``train`` and ``train_many``, holding
+the card's materialized batches against the CPU's bit for bit and the
+conv heads' Q-values within a stated tolerance, runs the m group
+queries of a draw as single TCAM searches, holds the two attention
+kernels against their
 plain versions at the serving path's shapes and the reference's sweep
 (the decode kernel timed with the cache out of L2, as a decode step
 finds it, and in L2 beside it),
@@ -33,8 +39,8 @@ non-zero without that line.  There is no fallback to the CPU: without a
 CUDA device the script exits with code 2.
 
 ``--phases`` picks a subset (device,match,sample,rank,graph,tcam,flash,
-decode,fused,kernel,sharded,table1,serve) for debugging; every phase
-runs by default.
+decode,fused,kernel,sharded,table1,pixel,serve) for debugging; every
+phase runs by default.
 ``--profile`` adds a torch.profiler window after each training phase and
 over decode steps of the serve phase (device busy and idle share per
 step, launches per step, top kernels; the chrome trace goes to
@@ -60,7 +66,7 @@ BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 SHARDS = 4                   # logical shards of the sharded phase, on one card
 PHASES = ("device", "match", "sample", "rank", "graph", "tcam", "flash",
-          "decode", "fused", "kernel", "sharded", "table1", "serve")
+          "decode", "fused", "kernel", "sharded", "table1", "pixel", "serve")
 ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
 # The reference's kernel sweep (tests/test_kernels.py) and GQA group 4 at
@@ -1375,6 +1381,302 @@ def phase_table1(state: dict) -> None:
           "fr_modes_equal_broadcast": sorted(draws)})
 
 
+# The pixel path (Breakout and Freeway, the uint8 frame store, the conv
+# Q-heads) at the training phases' width.  (a)-(c) train through ``train``,
+# (d) through ``train_many``: name, env, sampler, agent, n_step, fr_mode,
+# steps, steady learn steps timed after the run, and the replay kernels'
+# launches per learn step (and seed).  With learn_start 100, (b) and (d)
+# learn on 50 steps.
+PIXEL_RUNS = (
+    ("a", "breakout", "amper-fr", "double-dueling", 3, "fused", 500, 200,
+     {"amper_sample": 1}),
+    ("b", "freeway", "amper-fr", "dqn", 1, "kernel", 150, 50,
+     {"multi_query_match": 1}),
+    ("c", "breakout", "amper-fr-sharded", "dqn", 1, "fused", 200, 200,
+     {"multi_query_match": SHARDS, "rank_select": SHARDS}),
+    ("d", "freeway", "amper-fr", "dqn", 1, "fused", 150, 50,
+     {"amper_sample": 1}),
+)
+PIXEL_SEEDS = 2
+# Q-values of the conv heads on the card against the CPU, atol = rtol:
+# float32 throughout (TF32 off), so the two differ only in the order of
+# their sums (cuDNN's conv and cuBLAS against the CPU's, 1,024-term dense
+# rows), about 1e-6; a frame stack or flatten in the wrong order moves
+# Q-values by their own size (0.1-1).
+PIXEL_Q_TOL = 1e-4
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (a float -0.0 is not 0.0)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def frame_store_bytes(buf, frame_store) -> dict:
+    """The frame store's bytes on the card (storage and stamps), and those
+    of a float buffer holding the same transitions with stacked ``obs``
+    and ``next_obs`` in place of the frame."""
+    frame = buf.storage["frame"]
+    stored = nbytes(*buf.storage.values(), buf.write_stamp, buf.write_gen)
+    stack = frame[0].numel() * frame_store.history_len * 4   # float32
+    as_float = stored - nbytes(frame) + 2 * frame.shape[0] * stack
+    return {"frame_store_bytes": stored, "float_stacked_bytes": as_float,
+            "bytes_per_transition": stored / frame.shape[0],
+            "float_bytes_per_transition": as_float / frame.shape[0]}
+
+
+def pixel_check(phase: str, dqn, st, key) -> dict:
+    """On a trained state: time the draw, ``materialize``, the actor's
+    step (``act``) and the learner's (``learn``) alone, split
+    ``materialize`` into device operations, hold the card's materialized
+    batch at the drawn rows and 400 rows around the write head (written
+    rows, the head and unwritten ones) against the CPU's on a copy of the
+    buffer bit for bit, and the conv head's Q-values on it against the
+    CPU within ``PIXEL_Q_TOL``."""
+    from repro_torch.core.replay_buffer import ReplayBuffer
+    from repro_torch.core.samplers import make_sampler
+    from repro_torch.models.qhead import tree_map
+
+    rb, buf, batch = dqn.replay, st.buffer, dqn.cfg.batch
+    idx = rb.sampler.sample(buf.sampler_state, key, batch)
+    draw_ms = wall_ms(lambda: rb.sampler.sample(buf.sampler_state, key,
+                                                batch))
+    materialize_ms = wall_ms(lambda: rb.materialize(buf, idx))
+    split = device_ops(lambda: rb.materialize(buf, idx))
+    head = (buf.pos + torch.arange(-200, 200, device=idx.device)) \
+        % rb.capacity
+    _, batch_, w = rb.sample(buf, key, batch)
+    act_ms = wall_ms(lambda: dqn.act(st.params, st.env_state, st.obs,
+                                     st.step, key))
+    learn_ms = wall_ms(lambda: dqn.learn(st.params, st.target_params,
+                                         st.opt_m, st.opt_v, st.step,
+                                         batch_, w))
+    rows = torch.cat([idx.long(), head])
+    got = rb.materialize(buf, rows)
+    cpu_rb = ReplayBuffer(rb.capacity, make_sampler(
+        "uniform", rb.capacity, device="cpu"), frame_store=rb.frame_store)
+    cpu_buf = buf._replace(
+        storage={k: v.cpu() for k, v in buf.storage.items()},
+        sampler_state=None, max_priority=buf.max_priority.cpu(),
+        write_stamp=buf.write_stamp.cpu(), write_gen=buf.write_gen.cpu())
+    want = cpu_rb.materialize(cpu_buf, rows.cpu())
+    for k in want:
+        if not same_bits(got[k].cpu(), want[k]):
+            fail(phase, f"materialize {k}: the card's != the CPU's")
+    with torch.no_grad():
+        q = dqn.q_apply(st.params, got["obs"]).cpu()
+        q_cpu = dqn.q_apply(tree_map(lambda t: t.cpu(), st.params),
+                            want["obs"])
+    if not (bool(torch.isfinite(q).all()) and torch.allclose(
+            q, q_cpu, rtol=PIXEL_Q_TOL, atol=PIXEL_Q_TOL)):
+        fail(phase, f"conv Q-values on the card != the CPU's: max |err| "
+             f"{float((q - q_cpu).abs().max())}")
+    return {"draw_ms": draw_ms, "materialize_ms": materialize_ms,
+            "act_ms": act_ms, "learn_ms": learn_ms,
+            "materialize_device_operations": sum(n for n, _ in
+                                                 split.values()),
+            "materialize_device_us": sum(t for _, t in split.values()),
+            "materialize_cpu_exact_rows": int(rows.numel()),
+            "q_max_abs_err_vs_cpu": float((q - q_cpu).abs().max()),
+            "q_tol": PIXEL_Q_TOL, "obs_nonzero_share": float(
+                (got["obs"] != 0).float().mean())}
+
+
+def pixel_launches(phase: str, launches: dict, per_step: dict,
+                   learn_steps: int) -> None:
+    """Fail unless the run launched each replay kernel ``per_step`` times a
+    learn step and no other kernel."""
+    want = {k: per_step.get(k, 0) * learn_steps for k in launches}
+    if launches != want:
+        fail(phase, f"launches {launches}, want {want} ({learn_steps} "
+             "learn steps)")
+
+
+def pixel_run(state: dict, run, trace_dir: str | None) -> None:
+    """One pixel run through ``train`` (see ``PIXEL_RUNS``): launches
+    checked exactly, uint8 stacks and frames, finite params and losses,
+    steady learn steps timed alone, ``pixel_check``, the draw held
+    against the same sampler's plain broadcast match, and a greedy
+    evaluation."""
+    from repro_torch import prng
+    from repro_torch.core.replay_buffer import ReplayBuffer
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models.qhead import tree_leaves
+    from repro_torch.rl.dqn import DQNConfig, make_dqn
+
+    name, env, sampler, agent, n_step, fr_mode, steps, steady, per_step = run
+    phase = f"pixel_{name}"
+    mesh = (Mesh([torch.device("cuda", 0)] * SHARDS)
+            if sampler.endswith("sharded") else None)
+    cfg = DQNConfig(env=env, sampler=sampler, agent=agent, n_step=n_step,
+                    amper_fr_mode=fr_mode, num_envs=16, replay_size=N_ROWS,
+                    batch=64, hidden=128, history_len=4, v_max=8.0,
+                    learn_start=100)
+    dqn = make_dqn(cfg, device="cuda", mesh=mesh)
+    key = prng.key(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dqn.init(key)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # The main path, through the trainer's entry point.
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    st, metrics = dqn.train(key, steps)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    learn_steps = sum(1 for t in range(steps)
+                      if t >= cfg.learn_start and t % cfg.train_every == 0)
+    pixel_launches(phase, launches, per_step, learn_steps)
+    for k, n in launches.items():
+        state["launches"][k] = state["launches"].get(k, 0) + n
+    if st.obs.dtype != torch.uint8 or \
+            st.buffer.storage["frame"].dtype != torch.uint8:
+        fail(phase, "the frame stack or the frame store is not uint8")
+    losses = torch.stack(metrics["loss"])[cfg.learn_start:]
+    if not (bool(torch.isfinite(losses).all()) and all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(st.params))):
+        fail(phase, "non-finite params or loss")
+    keys = prng.split(prng.key(SEED + 4), steady)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in keys:
+        st, _ = dqn.agent_step(st, k)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steady * 1e3
+    k = prng.key(SEED + 1)
+    checks = pixel_check(phase, dqn, st, k)
+    buf = st.buffer
+    idx, batch, w = dqn.replay.sample(buf, k, cfg.batch)
+    plain = ReplayBuffer(cfg.replay_size, plain_twin(dqn.replay.sampler),
+                         alpha=cfg.alpha, beta=cfg.beta,
+                         frame_store=dqn.replay.frame_store)
+    idx_p, batch_p, w_p = plain.sample(buf, k, cfg.batch)
+    if not (torch.equal(idx, idx_p) and torch.equal(w, w_p) and all(
+            same_bits(batch[f], batch_p[f]) for f in batch)):
+        fail(phase, f"{fr_mode} draw != broadcast draw on the trained buffer")
+    ret = dqn.evaluate(st, prng.key(SEED + 100), 4)
+    if not np.isfinite(ret):
+        fail(phase, f"evaluation return {ret}")
+    prof = None
+    if trace_dir is not None:
+        ops.reset_launches()
+        prof = profile_window(dqn, st, trace_dir, phase)
+        sequence = prof.pop("kernel_sequence")
+        prof["draw_kernels"] = check_draw_kernels(phase, sequence,
+                                                  dict(ops.launches))
+    emit({"phase": "pixel", "run": name, "ok": True, "env": env,
+          "sampler": sampler, "agent": agent, "n_step": n_step,
+          "fr_mode": fr_mode,
+          "shards": getattr(dqn.replay.sampler, "n_shards", 1),
+          "steps": steps, "learn_steps": learn_steps, "launches": launches,
+          "init_s": init_s, "train_s": train_s, "steady_steps": steady,
+          "steps_per_s": 1e3 / step_ms, "step_ms": step_ms, **checks,
+          "draw_share": checks["draw_ms"] / step_ms,
+          "materialize_share": checks["materialize_ms"] / step_ms,
+          **frame_store_bytes(buf, dqn.replay.frame_store),
+          "replay_rows": int(buf.size), "eval_return": ret,
+          "loss_last": float(losses[-1]), "profile": prof})
+
+
+def pixel_train_many(state: dict, run, trace_dir: str | None) -> None:
+    """Run (d): ``PIXEL_SEEDS`` seeds in lockstep through ``train_many``,
+    ``evaluate_many``, seed 0 retrained alone through ``train`` and held
+    bit for bit, steady lockstep iterations, and ``pixel_check`` on
+    seed 0."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.models.qhead import tree_leaves
+    from repro_torch.rl.dqn import DQNConfig, make_dqn
+
+    name, env, sampler, agent, n_step, fr_mode, steps, steady, per_step = run
+    phase = f"pixel_{name}"
+    # cuDNN's conv weight gradient may sum with atomics, in an order that
+    # changes from call to call; the bit-for-bit check of train_many's seed
+    # 0 against train needs its deterministic algorithms (TF32 is off).
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    cfg = DQNConfig(env=env, sampler=sampler, agent=agent, n_step=n_step,
+                    amper_fr_mode=fr_mode, num_envs=16, replay_size=N_ROWS,
+                    batch=64, hidden=128, history_len=4, v_max=8.0,
+                    learn_start=100)
+    dqn = make_dqn(cfg, device="cuda")
+    keys = torch.stack([prng.key(SEED + s) for s in range(PIXEL_SEEDS)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in keys:
+        dqn.init(k)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    states, metrics = dqn.train_many(keys, steps)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    learn_steps = sum(1 for t in range(steps)
+                      if t >= cfg.learn_start and t % cfg.train_every == 0)
+    pixel_launches(phase, launches, {k: PIXEL_SEEDS * n
+                                     for k, n in per_step.items()},
+                   learn_steps)
+    for k, n in launches.items():
+        state["launches"][k] = state["launches"].get(k, 0) + n
+    losses = metrics["loss"][:, cfg.learn_start:]
+    if not (bool(torch.isfinite(losses).all()) and all(
+            bool(torch.isfinite(t).all())
+            for st in states for t in tree_leaves(st.params))):
+        fail(phase, "non-finite params or loss")
+    scores = dqn.evaluate_many(states, torch.stack(
+        [prng.key(SEED + 100 + s) for s in range(PIXEL_SEEDS)]), 2)
+    if scores.shape != (PIXEL_SEEDS,) or not bool(
+            torch.isfinite(scores).all()):
+        fail(phase, f"scores {scores.tolist()}")
+    alone, _ = dqn.train(keys[0], steps)
+    if not (same_agent_state(alone, states[0])
+            and torch.equal(alone.obs, states[0].obs)):
+        fail(phase, "train_many's seed 0 != train")
+    torch.backends.cudnn.deterministic = deterministic
+    step_keys = prng.split(prng.key(SEED + 4), (steady, PIXEL_SEEDS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ks in step_keys:
+        for s, k in enumerate(ks):
+            states[s], _ = dqn.agent_step(states[s], k)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    checks = pixel_check(phase, dqn, states[0], prng.key(SEED + 1))
+    prof = None
+    if trace_dir is not None:
+        ops.reset_launches()
+        prof = profile_window(dqn, states[0], trace_dir, phase)
+        sequence = prof.pop("kernel_sequence")
+        prof["draw_kernels"] = check_draw_kernels(phase, sequence,
+                                                  dict(ops.launches))
+    emit({"phase": "pixel", "run": name, "ok": True, "env": env,
+          "sampler": sampler, "agent": agent, "n_step": n_step,
+          "fr_mode": fr_mode, "seeds": PIXEL_SEEDS, "steps": steps,
+          "learn_steps_per_seed": learn_steps, "launches": launches,
+          "init_s": init_s, "train_s": train_s, "steady_steps": steady,
+          "steady_lockstep_per_s": steady / steady_s,
+          "steady_ms_per_seed_step": steady_s / (steady * PIXEL_SEEDS)
+          * 1e3, **checks,
+          **frame_store_bytes(states[0].buffer, dqn.replay.frame_store),
+          "eval_returns": scores.tolist(),
+          "train_equals_train_many_seed0": True, "profile": prof})
+
+
+def phase_pixel(state: dict, trace_dir: str | None) -> None:
+    """The pixel path's four runs (``PIXEL_RUNS``)."""
+    for run in PIXEL_RUNS[:-1]:
+        pixel_run(state, run, trace_dir)
+    pixel_train_many(state, PIXEL_RUNS[-1], trace_dir)
+
+
 # Decode vs prefill in float32, relative to max |logit|.  Both paths are
 # float32 throughout (TF32 off) and differ only in the order of their sums
 # (GEMM vs GEMV, the flash vs the decode kernel).  Sound runs on the H100
@@ -1562,6 +1864,8 @@ def main(argv=None) -> int:
         per_sharded_run(mesh)
     if "table1" in phases:
         phase_table1(state)
+    if "pixel" in phases:
+        phase_pixel(state, trace_dir)
     if "serve" in phases:
         phase_serve(state, trace_dir)
     rows = []

@@ -1,10 +1,12 @@
 """Experience-replay ring buffer with a pluggable priority sampler.
 
-Counterpart of ``repro/core/replay_buffer.py`` for the flat (vector
-observation) path; the frame-deduplicated pixel store waits for a later
-slice of the port.  Any registry sampler plugs in, the sharded kinds
-included: the buffer reads the priorities only through the sampler's
-dense ``priorities`` view, and keeps the transitions themselves on the
+Counterpart of ``repro/core/replay_buffer.py``, both storage modes: the
+flat ring of whole transitions, and the frame-deduplicated pixel store
+(:class:`FrameStore`: one uint8 frame a transition, the stacked float
+``obs`` / ``next_obs`` and the n-step return materialized at sample
+time).  Any registry sampler plugs in, the sharded kinds included: the
+buffer reads the priorities only through the sampler's dense
+``priorities`` view, and keeps the transitions themselves on the
 sampler's (lead) device.
 
 The buffer stores a dict of tensors with a leading capacity dim.  New
@@ -30,6 +32,7 @@ import torch
 from repro_torch.core.per import importance_from_selected
 from repro_torch.core.samplers import masked_update
 from repro_torch.obs.tracing import span
+from repro_torch.xla_float import fma32
 
 _I32 = 2 ** 31
 
@@ -109,6 +112,33 @@ class NStepAccumulator:
         return new, emitted, count >= self.n
 
 
+class FrameStore(NamedTuple):
+    """Configuration of the frame-deduplicated pixel storage mode.
+
+    history_len: frames stacked into one observation (the conv head's
+      channel dim).
+    frame_shape: shape of one stored frame, e.g. ``(H, W)``.
+    stride: ring distance between consecutive timesteps of one env (the
+      writer's lockstep width, ``num_envs``).
+    n_step: n-step return aggregated at sample time (the stored stream
+      stays 1-step).
+    gamma: discount of the sample-time n-step return.
+    scale: uint8 -> float factor; the actor converts its stack with the
+      same ``frame.float() * scale``, so materialized stacks equal what
+      the policy saw bit for bit.
+    """
+
+    history_len: int
+    frame_shape: tuple
+    stride: int = 1
+    n_step: int = 1
+    gamma: float = 0.99
+    scale: float = 1.0 / 255.0
+
+
+_FRAME_KEYS = ("frame", "action", "reward", "done")
+
+
 class ReplayState(NamedTuple):
     storage: dict            # leaves with leading dim = capacity
     sampler_state: Any
@@ -134,11 +164,19 @@ class ReplayBuffer:
         ``add_batch`` then takes exactly ``num_envs`` rows per call.
       gamma: discount of the n-step return.
       num_envs: env-stream width the accumulator is sized for.
+      frame_store: switch to frame-deduplicated uint8 pixel storage.  It
+        needs ``n_step == 1`` here (the n-step return is aggregated at
+        sample time from ``FrameStore.n_step``) and a schema holding at
+        least ``frame`` (uint8, ``frame_shape``), ``action``, ``reward``
+        and ``done``.  Frame chaining needs ring adjacency: the row
+        ``stride`` slots before a row is the same env's previous step,
+        which stamp differences check at gather time.
     """
 
     def __init__(self, capacity: int, sampler, alpha: float = 0.6,
                  beta: float = 0.4, eps: float = 1e-2, n_step: int = 1,
-                 gamma: float = 0.99, num_envs: int = 1):
+                 gamma: float = 0.99, num_envs: int = 1,
+                 frame_store: FrameStore | None = None):
         self.capacity = capacity
         self.sampler = sampler
         self.device = sampler.device
@@ -147,6 +185,23 @@ class ReplayBuffer:
         self.eps = eps
         self.n_step = n_step
         self.num_envs = num_envs
+        self.frame_store = frame_store
+        if frame_store is not None:
+            if n_step != 1:
+                raise ValueError(
+                    "frame-store buffers aggregate n-step returns at sample "
+                    "time: construct with n_step=1 and set "
+                    f"FrameStore(n_step={n_step}) instead")
+            if (frame_store.history_len < 1 or frame_store.n_step < 1
+                    or frame_store.stride < 1):
+                raise ValueError(f"invalid FrameStore config: {frame_store}")
+            window = ((frame_store.history_len + frame_store.n_step)
+                      * frame_store.stride)
+            if window >= capacity:
+                raise ValueError(
+                    f"capacity {capacity} too small for FrameStore window "
+                    f"span {window} (stack + n-step would always cross the "
+                    "write head)")
         self.accumulator = (NStepAccumulator(n_step, gamma)
                             if n_step > 1 else None)
 
@@ -158,6 +213,20 @@ class ReplayBuffer:
     def init(self, example: dict) -> ReplayState:
         """Empty buffer for transitions shaped like ``example`` (a dict of
         per-transition tensors)."""
+        if self.frame_store is not None:
+            missing = [k for k in _FRAME_KEYS if k not in example]
+            if missing:
+                raise ValueError(f"frame-store schema missing keys {missing}: "
+                                 f"needs at least {list(_FRAME_KEYS)}")
+            frame = torch.as_tensor(example["frame"])
+            if frame.dtype != torch.uint8:
+                raise ValueError(
+                    f"frame leaf must be uint8, got {frame.dtype}")
+            if tuple(frame.shape) != tuple(self.frame_store.frame_shape):
+                raise ValueError(
+                    f"frame leaf shape {tuple(frame.shape)} != "
+                    f"FrameStore.frame_shape "
+                    f"{tuple(self.frame_store.frame_shape)}")
         storage = {k: torch.zeros((self.capacity,) + tuple(v.shape),
                                   dtype=v.dtype, device=self.device)
                    for k, v in example.items()}
@@ -239,14 +308,91 @@ class ReplayBuffer:
                 for k, v in block.items()}
         return self._write_arc(state, flat)
 
+    def _stack_frames(self, state: ReplayState, slot0: torch.Tensor,
+                      ref: torch.Tensor, base_ok: torch.Tensor
+                      ) -> torch.Tensor:
+        """``history_len``-stacks ending at ``slot0`` (int64 [B]), float32
+        ``[B, *frame_shape, history_len]``, oldest frame first.
+
+        Frame ``j`` sits ``j * stride`` slots back.  Its link holds when
+        its stamp is exactly ``j * stride`` adds older than ``ref`` (an
+        int32 difference that wraps as the stamps do, so a recycled or
+        foreign slot fails), it is a written slot, and it closes no
+        episode; a broken link zeroes that frame and every older one, the
+        zero padding a float buffer records at episode starts and
+        warm-up.  All shapes are static: no host sync.
+        """
+        fs = self.frame_store
+        st, lo = state.storage, state.write_stamp
+        back = torch.arange(fs.history_len, device=slot0.device) * fs.stride
+        slots = (slot0[:, None] - back) % self.capacity          # [B, K]
+        links = ((lo[slots] - ref[:, None] == -back.to(torch.int32))
+                 & (slots < state.size) & (st["done"][slots] < 0.5))
+        links[:, 0] = base_ok
+        ok = links.to(torch.int32).cumprod(1).to(torch.float32)
+        mask = ok.reshape(ok.shape + (1,) * len(fs.frame_shape))
+        frames = st["frame"][slots].to(torch.float32) * fs.scale * mask
+        return frames.flip(1).movedim(1, -1)
+
+    def materialize(self, state: ReplayState, idx: torch.Tensor) -> dict:
+        """Frame mode: the float batch a flat buffer would hold at ``idx``.
+
+        For each anchor slot: the stacked ``obs`` ending at its frame, the
+        sample-time n-step return, and the stacked ``next_obs`` ending
+        ``n_step * stride`` slots later.  A window cut by an episode end,
+        the write head or unwritten slots is terminal (``terminated = 1``,
+        ``next_obs = 0``): the TD target reduces to the observed return.
+        """
+        fs = self.frame_store
+        st, lo = state.storage, state.write_stamp
+        anchor = idx.to(torch.int64) % self.capacity
+        ref = lo[anchor]
+        written = anchor < state.size
+        obs = self._stack_frames(state, anchor, ref, written)
+        # The forward arc of the n-step return: step k counts while the
+        # window is still in the anchor's episode and backed by in-sequence
+        # rows (products of 0/1 flags, exact in any order).
+        fwd = torch.arange(fs.n_step, device=anchor.device) * fs.stride
+        slots = (anchor[:, None] + fwd) % self.capacity          # [B, N]
+        avail = ((lo[slots] - ref[:, None] == fwd.to(torch.int32))
+                 & (slots < state.size)).to(torch.float32)
+        carry = torch.cumprod(avail * (1.0 - st["done"][slots]), 1)
+        carry = written.to(torch.float32)[:, None] * carry     # enter k + 1
+        enter = torch.cat([written.to(torch.float32)[:, None],
+                           carry[:, :-1]], 1)
+        use = enter * avail
+        rew = st["reward"][slots]
+        # sum_k use_k * gamma^k * r_k in the jitted reference's float32
+        # order: XLA drops the add to zero and the multiply by 1 of step 0,
+        # and from step 2 on LLVM fuses each multiply-add.
+        reward = use[:, 0] * rew[:, 0]
+        for k in range(1, fs.n_step):
+            term = use[:, k] * float(fs.gamma ** k)
+            reward = (reward + term * rew[:, k] if k == 1
+                      else fma32(term, rew[:, k], reward))
+        boot = (anchor + fs.n_step * fs.stride) % self.capacity
+        has_boot = ((carry[:, -1] > 0.5)
+                    & (lo[boot] - ref == fs.n_step * fs.stride)
+                    & (boot < state.size))
+        next_obs = self._stack_frames(state, boot, lo[boot], has_boot)
+        term = 1.0 - has_boot.to(torch.float32)
+        return {"obs": obs, "action": st["action"][anchor],
+                "reward": reward, "next_obs": next_obs,
+                "done": term, "terminated": term}
+
     def sample(self, state: ReplayState, key: torch.Tensor, batch: int,
                beta=None):
         """Returns ``(indices, transitions, is_weights)``; ``beta``
-        overrides the constructor's IS exponent for this draw."""
+        overrides the constructor's IS exponent for this draw.  In frame
+        mode ``transitions`` is the materialized float batch
+        (:meth:`materialize`); the uint8 frames never leave the buffer."""
         with span("replay_sample"):
             idx = self.sampler.sample(state.sampler_state, key, batch)
         idx_l = idx.to(torch.int64)
-        batch_tree = {k: buf[idx_l] for k, buf in state.storage.items()}
+        if self.frame_store is not None:
+            batch_tree = self.materialize(state, idx_l)
+        else:
+            batch_tree = {k: buf[idx_l] for k, buf in state.storage.items()}
         prios = self.sampler.priorities(state.sampler_state)
         w = importance_from_selected(prios[idx_l], prios.sum(),
                                      max(state.size, 1),

@@ -74,7 +74,9 @@ def agent_state_from_jax(st, device="cuda", sampler=None) -> AgentState:
     """A reference DQN ``AgentState`` (numpy leaves) as the port's:
     params, target, Adam moments, replay buffer with sampler state, env
     state, observations and counters.  Pass the port agent's sampler
-    (``dqn.replay.sampler``) when it is a sharded one."""
+    (``dqn.replay.sampler``) when it is a sharded one.  A pixel agent's
+    uint8 frame stack and its frame store's uint8 frames keep their
+    dtype, and its conv kernels their HWIO layout."""
     return AgentState(
         params=params_from_jax(st.params, device),
         target_params=params_from_jax(st.target_params, device),

@@ -127,6 +127,13 @@ def uniform(k: torch.Tensor, shape=(), minval=0.0, maxval=1.0,
     return out if device is None else out.to(device)
 
 
+def bernoulli(k: torch.Tensor, p=0.5, shape=(), device=None) -> torch.Tensor:
+    """``jax.random.bernoulli`` for a float32 ``p``: ``uniform(key, shape)
+    < p``, bit for bit (batched keys as in :func:`uniform`)."""
+    out = uniform(k, shape) < torch.tensor(p, dtype=torch.float32)
+    return out if device is None else out.to(device)
+
+
 def normal(k: torch.Tensor, shape=(), device=None) -> torch.Tensor:
     """``jax.random.normal`` for float32: ``sqrt(2) * erfinv(u)`` with
     ``u ~ U(nextafter(-1, 0), 1)``.  ``erfinv`` is torch's, so values

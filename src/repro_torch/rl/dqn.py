@@ -1,10 +1,21 @@
 """DQN agent family with pluggable experience replay, on tensors.
 
-Counterpart of ``repro/rl/dqn.py`` for the vector envs: epsilon-greedy
-actors over a :class:`~repro_torch.rl.envs.VectorEnv`, a ring replay
-buffer with any registered sampler (uniform, PER, AMPER-k, AMPER-fr),
-the MLP or dueling Q-head, vanilla or Double-DQN targets, n-step
-returns, hard target sync and the reference's hand-written Adam.
+Counterpart of ``repro/rl/dqn.py``: epsilon-greedy actors over a
+:class:`~repro_torch.rl.envs.VectorEnv`, a ring replay buffer with any
+registered sampler (uniform, PER, AMPER-k, AMPER-fr), the MLP or dueling
+Q-head, vanilla or Double-DQN targets, n-step returns, hard target sync
+and the reference's hand-written Adam.
+
+Pixel envs (``len(obs_shape) > 1``) promote the head to its conv
+counterpart and switch the buffer to the frame store
+(:class:`~repro_torch.core.replay_buffer.FrameStore`): each step stores
+the one uint8 frame the policy just acted on, and the buffer
+materializes ``history_len``-stacked float batches (and the n-step
+return) at sample time.  The actor keeps the same uint8 stack as its
+``obs`` and converts it with the buffer's ``frame.float() * scale``, so
+the materialized batches equal what the policy saw bit for bit.  The
+frame store keeps no pre-reset observation, so there ``terminated``
+collapses to ``done``.
 
 The reference runs the whole loop as one ``lax.scan``; here ``train`` is
 a Python loop over :func:`agent_step`, and the reference's ``lax.cond``
@@ -35,7 +46,7 @@ import torch
 
 from repro_torch import prng, resolve_device
 from repro_torch.core.per import beta_schedule
-from repro_torch.core.replay_buffer import ReplayBuffer
+from repro_torch.core.replay_buffer import FrameStore, ReplayBuffer
 from repro_torch.core.samplers import make_sampler
 from repro_torch.models.qhead import make_qhead, tree_leaves, tree_map
 from repro_torch.rl import envs as envs_mod
@@ -43,13 +54,16 @@ from repro_torch.xla_float import fma32
 
 RETURN_RING = 64  # completed-episode returns kept for the train metric
 
-# agent name -> (Q-head kind, use Double-DQN targets)
+# agent name -> (Q-head kind, use Double-DQN targets); pixel envs promote
+# the head kind to its conv counterpart.
 AGENTS = {
     "dqn": ("mlp", False),
     "double": ("mlp", True),
     "dueling": ("dueling", False),
     "double-dueling": ("dueling", True),
 }
+
+_CONV_PROMOTION = {"mlp": "conv", "dueling": "conv-dueling"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +76,7 @@ class DQNConfig:
     replay_size: int = 2000
     batch: int = 64
     hidden: int = 128
+    history_len: int = 4           # frames per stacked pixel observation
     gamma: float = 0.99
     lr: float = 1e-3
     eps_start: float = 1.0
@@ -88,7 +103,9 @@ class AgentState(NamedTuple):
     opt_v: Any
     buffer: Any                  # ReplayState
     env_state: Any               # EnvState, leaves lead with [num_envs]
-    obs: torch.Tensor            # float32[num_envs, obs_dim]
+    obs: torch.Tensor            # policy input: float32[num_envs, obs_dim],
+    #                              or uint8[num_envs, H, W, history_len]
+    #                              (the actor's frame stack) for pixels
     step: int
     episode_return: torch.Tensor  # float32[num_envs]
     last_returns: torch.Tensor   # ring of completed episode returns
@@ -116,6 +133,7 @@ class DQN(NamedTuple):
     beta_at: Callable
     q_apply: Callable
     example_transition: dict
+    init_obs: Callable       # (venv env_state) -> initial policy input
 
 
 def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
@@ -126,9 +144,8 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
     dev = resolve_device(device)
     env = envs_mod.make_env(cfg.env)
     venv = envs_mod.VectorEnv(env, cfg.num_envs, dev)
-    if len(venv.obs_shape) != 1:
-        raise ValueError(f"env {cfg.env!r} has pixel observations, which "
-                         "the port does not support yet")
+    obs_shape = venv.obs_shape
+    pixel = len(obs_shape) > 1
     try:
         head_kind, double = AGENTS[cfg.agent]
     except KeyError:
@@ -136,7 +153,12 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
                          f"(available: {sorted(AGENTS)})") from None
     if cfg.n_step < 1:
         raise ValueError(f"n_step must be >= 1, got {cfg.n_step}")
-    qhead = make_qhead(head_kind, venv.obs_shape, cfg.hidden, env.n_actions,
+    if pixel:
+        head_kind = _CONV_PROMOTION[head_kind]
+        net_shape = obs_shape + (cfg.history_len,)
+    else:
+        net_shape = obs_shape
+    qhead = make_qhead(head_kind, net_shape, cfg.hidden, env.n_actions,
                        device=dev)
     q_apply = qhead.apply
     gamma_n = cfg.gamma ** cfg.n_step
@@ -152,14 +174,56 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
         raise ValueError(f"the sampler's (lead) device {sampler.device} is "
                          f"not the agent's device {dev}")
     is_per = cfg.sampler.startswith("per")
+    frame_store = (FrameStore(history_len=cfg.history_len,
+                              frame_shape=obs_shape, stride=cfg.num_envs,
+                              n_step=cfg.n_step, gamma=cfg.gamma)
+                   if pixel else None)
     rb = ReplayBuffer(cfg.replay_size, sampler, alpha=cfg.alpha,
-                      beta=cfg.beta, n_step=cfg.n_step, gamma=cfg.gamma,
-                      num_envs=cfg.num_envs)
-    obs0 = torch.zeros(venv.obs_shape)
-    example_transition = {
-        "obs": obs0, "action": torch.tensor(0, dtype=torch.int32),
-        "reward": torch.tensor(0.0), "next_obs": obs0,
-        "done": torch.tensor(0.0), "terminated": torch.tensor(0.0)}
+                      beta=cfg.beta, n_step=1 if pixel else cfg.n_step,
+                      gamma=cfg.gamma, num_envs=cfg.num_envs,
+                      frame_store=frame_store)
+    action0, zero = torch.tensor(0, dtype=torch.int32), torch.tensor(0.0)
+    if pixel:
+        # One uint8 frame a transition; the buffer stacks obs / next_obs.
+        example_transition = {
+            "frame": torch.zeros(obs_shape, dtype=torch.uint8),
+            "action": action0, "reward": zero, "done": zero,
+            "terminated": zero}
+    else:
+        obs0 = torch.zeros(obs_shape)
+        example_transition = {
+            "obs": obs0, "action": action0, "reward": zero,
+            "next_obs": obs0, "done": zero, "terminated": zero}
+
+    def stack_init(frames: torch.Tensor) -> torch.Tensor:
+        """A history stack from one uint8 frame batch: zeros but the
+        newest plane, the padding the frame store materializes for an
+        episode's first observation."""
+        z = torch.zeros(frames.shape + (cfg.history_len,), dtype=torch.uint8,
+                        device=frames.device)
+        z[..., -1] = frames
+        return z
+
+    def stack_push(stack: torch.Tensor, frames: torch.Tensor,
+                   done: torch.Tensor) -> torch.Tensor:
+        """Shift one frame in; restart from zero padding where ``done``."""
+        shifted = torch.cat([stack[..., 1:], frames[..., None]], -1)
+        d = done.reshape(done.shape + (1,) * (shifted.ndim - done.ndim))
+        return torch.where(d, stack_init(frames), shifted)
+
+    if pixel:
+        def q_in(obs: torch.Tensor) -> torch.Tensor:
+            # The one uint8 -> float expression the frame store uses too.
+            return obs.to(torch.float32) * frame_store.scale
+
+        def init_obs(env_state):
+            return stack_init(venv.obs(env_state))
+    else:
+        def q_in(obs: torch.Tensor) -> torch.Tensor:
+            return obs
+
+        def init_obs(env_state):
+            return venv.obs(env_state)
 
     def init(key: torch.Tensor) -> AgentState:
         k1, k2 = prng.split(key)
@@ -170,7 +234,7 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
             opt_m=tree_map(torch.zeros_like, params),
             opt_v=tree_map(torch.zeros_like, params),
             buffer=rb.init(example_transition), env_state=env_state,
-            obs=venv.obs(env_state), step=0,
+            obs=init_obs(env_state), step=0,
             episode_return=torch.zeros(cfg.num_envs, device=dev),
             last_returns=torch.zeros(ring, device=dev),
             n_episodes=torch.tensor(0, dtype=torch.int32, device=dev))
@@ -219,16 +283,26 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
         return torch.clamp(e, cfg.eps_end, cfg.eps_start)
 
     def act(params, env_state, obs, step: int, key: torch.Tensor):
-        """One vectorized epsilon-greedy env step (the actor piece)."""
+        """One vectorized epsilon-greedy env step (the actor piece).
+        Returns the post-reset policy input of the next step and the rows
+        to store: flat envs keep the pre-reset ``next_obs``, pixel envs
+        only the frame the action was taken on."""
         k_coin, k_rand, k_env = prng.split(key, 3)
         with torch.no_grad():
-            greedy = q_apply(params, obs).argmax(-1)
+            greedy = q_apply(params, q_in(obs)).argmax(-1)
         explore = prng.uniform(k_coin, (cfg.num_envs,)) < epsilon(step)
         randa = prng.randint(k_rand, (cfg.num_envs,), 0, env.n_actions)
         action = torch.where(explore.to(dev), randa.to(dev),
                              greedy).to(torch.int32)
         env_state, next_obs, reward, done, terminated = venv.step(
             env_state, action, k_env)
+        if pixel:
+            transitions = {
+                "frame": obs[..., -1], "action": action, "reward": reward,
+                "done": done.to(torch.float32),
+                "terminated": terminated.to(torch.float32)}
+            return (env_state, stack_push(obs, venv.obs(env_state), done),
+                    transitions)
         transitions = {
             "obs": obs, "action": action, "reward": reward,
             "next_obs": next_obs, "done": done.to(torch.float32),
@@ -343,16 +417,19 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
         pair = prng.split(keys)                      # [E, 2, 2]
         env_state = env.reset(pair[:, 0], dev)
         keys = pair[:, 1]
-        obs = env.obs(env_state)
+        obs = (stack_init(env.obs(env_state)) if pixel
+               else env.obs(env_state))
         ret = torch.zeros(n_episodes, device=dev)
         over = torch.zeros(n_episodes, device=dev)
         with torch.no_grad():
             for t in range(env.max_steps):
                 pair = prng.split(keys)
                 keys, k = pair[:, 0], pair[:, 1]
-                action = q_apply(params, obs).argmax(-1).to(torch.int32)
+                action = q_apply(params, q_in(obs)).argmax(-1).to(
+                    torch.int32)
                 env_state, _, r, d, _ = env.step(env_state, action, k)
-                obs = env.obs(env_state)
+                obs = (stack_push(obs, env.obs(env_state), d) if pixel
+                       else env.obs(env_state))
                 ret = ret + r * (1 - over)
                 over = torch.maximum(over, d.to(torch.float32))
                 if t % 50 == 49 and bool(over.min() > 0):
@@ -372,7 +449,8 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
                train_many=train_many, evaluate=evaluate,
                evaluate_many=evaluate_many, act=act, learn=learn, cfg=cfg,
                env=env, venv=venv, replay=rb, beta_at=beta_at,
-               q_apply=q_apply, example_transition=example_transition)
+               q_apply=q_apply, example_transition=example_transition,
+               init_obs=init_obs)
 
 
 def _unflatten(tree, leaves):

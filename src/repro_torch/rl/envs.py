@@ -1,14 +1,14 @@
-"""Environments on tensors: gym's classic-control envs, batched.
+"""Environments on tensors: classic control and two pixel games, batched.
 
-Counterpart of ``repro/rl/envs.py`` for the flat envs: CartPole-v1
-(Euler), Acrobot-v1 (RK4, wrapped angles) and MountainCar-v0 (Euler,
-clipped, with the left-wall stop).  The pixel envs wait for a later
-slice of the port.
+Counterpart of ``repro/rl/envs.py``: CartPole-v1 (Euler), Acrobot-v1
+(RK4, wrapped angles) and MountainCar-v0 (Euler, clipped, with the
+left-wall stop), and the two MinAtar-style 10x10 pixel games, Breakout
+and Freeway, whose observations are ``uint8[..., 10, 10]`` frames.
 
 An env works on a batch of states (leading dims of its tensors) and
 exposes::
 
-    obs_shape, n_actions
+    obs_shape, n_actions   ((obs_dim,) for the flat envs, (H, W) for pixels)
     reset(keys, device) -> state         (one key per env: keys [..., 2])
     obs(state) -> observation
     step(state, action, keys) -> (next_state, obs, reward, done, terminated)
@@ -67,6 +67,14 @@ class EnvState(NamedTuple):
     t: torch.Tensor  # int32[...] steps in the current episode
 
 
+def _auto_reset(env, new: EnvState, done: torch.Tensor, keys) -> EnvState:
+    """``new`` where not ``done``, else a fresh episode from ``keys`` (one
+    reset drawn for every env, as the reference's ``jnp.where``)."""
+    fresh = env.reset(keys, device=new.x.device)
+    return EnvState(x=torch.where(done[..., None], fresh.x, new.x),
+                    t=torch.where(done, fresh.t, new.t))
+
+
 @register_env("cartpole")
 class CartPole:
     """CartPole-v1: keep the pole upright; +1 per step; 500-step cap.
@@ -107,10 +115,8 @@ class CartPole:
         terminated = (new[..., 0].abs() > 2.4) | (new[..., 2].abs() > 0.2095)
         done = terminated | (t >= self.max_steps)
         reward = torch.ones_like(t, dtype=torch.float32)
-        fresh = self.reset(keys, device=new.device)
-        next_state = EnvState(x=torch.where(done[..., None], fresh.x, new),
-                              t=torch.where(done, fresh.t, t))
-        return next_state, new, reward, done, terminated
+        return (_auto_reset(self, EnvState(x=new, t=t), done, keys), new,
+                reward, done, terminated)
 
 
 @register_env("acrobot")
@@ -199,11 +205,9 @@ class Acrobot:
                       - torch.cos(new[..., 1] + new[..., 0])) > 1.0
         done = terminated | (t >= self.max_steps)
         reward = torch.where(terminated, 0.0, -1.0)
-        fresh = self.reset(keys, device=new.device)
-        next_state = EnvState(x=torch.where(done[..., None], fresh.x, new),
-                              t=torch.where(done, fresh.t, t))
-        pre_reset = self.obs(EnvState(x=new, t=t))
-        return next_state, pre_reset, reward, done, terminated
+        pre = EnvState(x=new, t=t)
+        return (_auto_reset(self, pre, done, keys), self.obs(pre), reward,
+                done, terminated)
 
 
 @register_env("mountaincar")
@@ -246,10 +250,178 @@ class MountainCar:
         done = terminated | (t >= self.max_steps)
         reward = torch.full_like(pos, -1.0)
         new = torch.stack([pos, vel], -1)
-        fresh = self.reset(keys, device=new.device)
-        next_state = EnvState(x=torch.where(done[..., None], fresh.x, new),
-                              t=torch.where(done, fresh.t, t))
-        return next_state, new, reward, done, terminated
+        return (_auto_reset(self, EnvState(x=new, t=t), done, keys), new,
+                reward, done, terminated)
+
+
+# --- MinAtar-style pixel environments ----------------------------------------
+#
+# One uint8 plane of 10x10 cells; object classes are intensities.  A state
+# of any leading shape is flattened to [N, ...] for the gathers and
+# scatters, and the results take that shape back.
+
+BRICK, CAR = 90, 128          # background object intensities
+PADDLE, CHICKEN = 180, 255    # player intensities (drawn over background)
+BALL = 255
+
+
+def _flat(state: EnvState) -> tuple:
+    """(x [N, D], t [N], leading shape) of a state of any leading dims."""
+    lead = tuple(state.t.shape)
+    return state.x.reshape(-1, state.x.shape[-1]), state.t.reshape(-1), lead
+
+
+@register_env("breakout")
+class Breakout:
+    """MinAtar-style Breakout: 10x10 grid, 3 brick rows, diagonal ball.
+
+    State ``x`` (float32[..., 35]): ``[ball_y, ball_x, dy, dx, paddle_x,
+    bricks(3x10 flattened)]``.  Actions: 0 = noop, 1 = left, 2 = right.
+    The ball reflects off the side walls and ceiling, clears a brick it
+    would enter (+1, bouncing back without entering), bounces off the
+    paddle on the bottom row or is lost (terminated).  A cleared wall
+    respawns; ``max_steps`` truncates.
+    """
+
+    obs_shape = (10, 10)
+    n_actions = 3
+    max_steps = 300
+
+    def reset(self, keys: torch.Tensor, device=None) -> EnvState:
+        pair = prng.split(keys)                           # [..., 2, 2]
+        k_x, k_d = pair[..., 0, :], pair[..., 1, :]
+        ball_x = prng.randint(k_x, (), 0, 10).to(torch.float32)
+        dx = torch.where(prng.bernoulli(k_d), 1.0, -1.0)
+        four = torch.full_like(ball_x, 4.0)
+        head = torch.stack([four, ball_x, torch.ones_like(ball_x), dx, four],
+                           -1)
+        x = torch.cat([head, torch.ones(head.shape[:-1] + (30,))], -1)
+        x = x if device is None else x.to(device)
+        return EnvState(x=x, t=torch.zeros(x.shape[:-1], dtype=torch.int32,
+                                           device=x.device))
+
+    def obs(self, state: EnvState) -> torch.Tensor:
+        x, _, lead = _flat(state)
+        n = x.shape[0]
+        rows = torch.arange(n, device=x.device)
+        by, bx, px = (x[:, i].to(torch.int32).long() for i in (0, 1, 4))
+        bricks = x[:, 5:].reshape(n, 3, 10) > 0.5
+        g = torch.zeros((n, 10, 10), dtype=torch.uint8, device=x.device)
+        # Drawn in the reference's order: bricks, paddle, then the ball
+        # over either.
+        g[:, 1:4] = torch.where(bricks, BRICK, 0).to(torch.uint8)
+        g[rows, 9, px] = PADDLE
+        g[rows, by, bx] = BALL
+        return g.reshape(lead + self.obs_shape)
+
+    def step(self, state: EnvState, action: torch.Tensor, keys: torch.Tensor):
+        x, t, lead = _flat(state)
+        action = action.reshape(-1)
+        by, bx, dy, dx, px = x[:, :5].unbind(-1)
+        bricks = x[:, 5:]
+        px = (px + (action == 2).to(torch.float32)
+              - (action == 1).to(torch.float32)).clamp(0.0, 9.0)
+        ny, nx = by + dy, bx + dx
+        # side walls / ceiling: reflect position and flip direction
+        dx = torch.where((nx < 0) | (nx > 9), -dx, dx)
+        nx = torch.where(nx < 0, -nx, torch.where(nx > 9, 18.0 - nx, nx))
+        dy = torch.where(ny < 0, -dy, dy)
+        ny = torch.where(ny < 0, -ny, ny)
+        # brick hit: clear it, +1, bounce back without entering the cell
+        in_wall = (ny >= 1) & (ny <= 3)
+        bidx = ((ny - 1) * 10 + nx).clamp(0, 29).to(torch.int32).long()
+        bidx = bidx[:, None]
+        brick = bricks.gather(1, bidx)[:, 0]
+        hit = in_wall & (brick > 0.5)
+        reward = hit.to(torch.float32)
+        bricks = bricks.scatter(
+            1, bidx, torch.where(hit, torch.zeros_like(brick), brick)[:, None])
+        dy = torch.where(hit, -dy, dy)
+        ny = torch.where(hit, by, ny)
+        nx = torch.where(hit, bx, nx)
+        # bottom row: paddle bounce or ball lost
+        at_bottom = ny >= 9
+        caught = at_bottom & (nx == px)
+        dy = torch.where(caught, -1.0, dy)
+        terminated = at_bottom & ~caught
+        # cleared wall respawns
+        bricks = torch.where(bricks.sum(-1, keepdim=True) < 0.5,
+                             torch.ones_like(bricks), bricks)
+        t = t + 1
+        done = terminated | (t >= self.max_steps)
+        new = EnvState(x=torch.cat([torch.stack([ny, nx, dy, dx, px], -1),
+                                    bricks], -1).reshape(lead + (35,)),
+                       t=t.reshape(lead))
+        done, terminated = done.reshape(lead), terminated.reshape(lead)
+        return (_auto_reset(self, new, done, keys), self.obs(new),
+                reward.reshape(lead), done, terminated)
+
+
+@register_env("freeway")
+class Freeway:
+    """MinAtar-style Freeway: cross 8 lanes of traffic, +1 per crossing.
+
+    State ``x`` (float32[..., 9]): ``[chicken_y, car_x(8 lanes)]``.  The
+    chicken lives in column 4 and moves with 0 = noop, 1 = up, 2 = down.
+    Lane ``l`` (grid row ``l + 1``) carries one car advancing one cell
+    every ``PERIOD[l]`` steps in direction ``DIRECTION[l]`` (wrapping).
+    A collision sends the chicken back to the bottom row; the top row
+    scores and restarts the crossing.  Freeway never terminates:
+    episodes end only by truncation at ``max_steps``.
+    """
+
+    obs_shape = (10, 10)
+    n_actions = 3
+    max_steps = 250
+
+    PERIOD = (1, 2, 3, 4, 4, 3, 2, 1)
+    DIRECTION = (1, -1, 1, -1, 1, -1, 1, -1)
+    COL = 4  # the chicken's fixed column
+
+    def reset(self, keys: torch.Tensor, device=None) -> EnvState:
+        cars = prng.randint(keys, (8,), 0, 10).to(torch.float32)
+        x = torch.cat([torch.full(cars.shape[:-1] + (1,), 9.0), cars], -1)
+        x = x if device is None else x.to(device)
+        return EnvState(x=x, t=torch.zeros(x.shape[:-1], dtype=torch.int32,
+                                           device=x.device))
+
+    def obs(self, state: EnvState) -> torch.Tensor:
+        x, _, lead = _flat(state)
+        n = x.shape[0]
+        y = x[:, 0].to(torch.int32).long()
+        cars = x[:, 1:].to(torch.int32).long()
+        g = torch.zeros((n, 10, 10), dtype=torch.uint8, device=x.device)
+        lanes = torch.arange(1, 9, device=x.device)
+        g[torch.arange(n, device=x.device)[:, None], lanes, cars] = CAR
+        g[torch.arange(n, device=x.device), y, self.COL] = CHICKEN
+        return g.reshape(lead + self.obs_shape)
+
+    def step(self, state: EnvState, action: torch.Tensor, keys: torch.Tensor):
+        x, t, lead = _flat(state)
+        action = action.reshape(-1)
+        y, cars = x[:, 0], x[:, 1:]
+        t = t + 1
+        y = (y - (action == 1).to(torch.float32)
+             + (action == 2).to(torch.float32)).clamp(0.0, 9.0)
+        period = torch.tensor(self.PERIOD, dtype=torch.int32, device=x.device)
+        direction = torch.tensor(self.DIRECTION, dtype=torch.float32,
+                                 device=x.device)
+        moves = (t[:, None] % period == 0).to(torch.float32)
+        cars = (cars + moves * direction) % 10.0        # floor mod, as jnp
+        # collision: the chicken's row holds a car in its column
+        lane = (y.to(torch.int32) - 1).clamp(0, 7).long()[:, None]
+        in_traffic = (y >= 1) & (y <= 8)
+        hit = in_traffic & (cars.gather(1, lane)[:, 0] == float(self.COL))
+        y = torch.where(hit, 9.0, y)
+        scored = y <= 0
+        reward = scored.to(torch.float32)
+        y = torch.where(scored, 9.0, y)
+        done = (t >= self.max_steps).reshape(lead)
+        new = EnvState(
+            x=torch.cat([y[:, None], cars], -1).reshape(lead + (9,)),
+            t=t.reshape(lead))
+        return (_auto_reset(self, new, done, keys), self.obs(new),
+                reward.reshape(lead), done, torch.zeros_like(done))
 
 
 class VectorEnv:

@@ -94,3 +94,22 @@ def test_xla_float_helpers_match_jit():
     x = rng.standard_normal(4096).astype(np.float32)
     got = jax.jit(lambda x: x / 20)(jnp.asarray(x))
     assert _same_bits(got, div_const(torch.from_numpy(x), 20))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("p", [0.5, 0.1, 0.9])
+def test_bernoulli_single_and_batched_keys(seed, p):
+    """``bernoulli`` is ``jax.random.bernoulli`` bit for bit, for one key
+    and for a batch of keys (each drawing what it draws alone, as
+    ``jax.vmap`` over the keys does: Breakout's reset)."""
+    k, kt = jax.random.key(seed), prng.key(seed)
+    for i, shape in enumerate(((), (7,), (3, 5))):
+        assert _same_bits(jax.random.bernoulli(jax.random.fold_in(k, i), p,
+                                               shape),
+                          prng.bernoulli(prng.fold_in(kt, i), p, shape))
+    keys = jax.random.split(jax.random.key(seed), 6)
+    want = jax.vmap(lambda kk: jax.random.bernoulli(kk, p))(keys)
+    got = prng.bernoulli(prng.split(kt, 6), p)
+    assert got.dtype == torch.bool and _same_bits(want, got)
+    want = jax.vmap(lambda kk: jax.random.bernoulli(kk, p, (4,)))(keys)
+    assert _same_bits(want, prng.bernoulli(prng.split(kt, 6), p, (4,)))

@@ -22,7 +22,7 @@ from repro.rl import dqn as jd
 from repro_torch import interop, prng
 from repro_torch.models.qhead import tree_leaves
 from repro_torch.rl import dqn as td
-from test_torch_dqn import _close, _close_trees, _jax_peek
+from test_torch_dqn import ATOL, RTOL, _close, _close_trees, _jax_peek
 
 SEEDS = (0, 1)
 STEPS = 30
@@ -52,7 +52,9 @@ def _reference_rows(jdq, key, batch):
     ("mountaincar", "amper-fr", "dqn", 1),
 ])
 def test_train_many_and_evaluate_many_match_reference(env, sampler, agent,
-                                                      n_step):
+                                                      n_step, param_atol=ATOL):
+    """``param_atol`` is the absolute tolerance of the parameters and Adam
+    moments (the module's 1e-6 unless a caller states another)."""
     kw = dict(env=env, sampler=sampler, agent=agent, n_step=n_step,
               num_envs=4, replay_size=256, batch=16, hidden=32,
               learn_start=8, target_sync=10)
@@ -94,7 +96,8 @@ def test_train_many_and_evaluate_many_match_reference(env, sampler, agent,
         for a, b in ((c.params, t.params), (c.target_params, t.target_params),
                      (c.opt_m, t.opt_m), (c.opt_v, t.opt_v)):
             for x, y in zip(tree_leaves(a), tree_leaves(b)):
-                _close(x.numpy(), y)
+                np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=RTOL,
+                                           atol=param_atol)
         _close(c.obs.numpy(), t.obs)
     for name in ("return_mean", "beta"):
         assert tm[name].shape == (len(SEEDS), STEPS)
