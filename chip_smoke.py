@@ -22,7 +22,13 @@ Freeway: the conv Q-heads on uint8 frame stacks, a 1M-transition uint8
 frame store materializing the stacked batches at sample time) through
 all three replay kernels, through ``train`` and ``train_many``, holding
 the card's materialized batches against the CPU's bit for bit and the
-conv heads' Q-values within a stated tolerance, runs the m group
+conv heads' Q-values within a stated tolerance, checkpoints and
+resumes training on the card (``train_ckpt`` killed at its first save
+and resumed equal to the uninterrupted run and to ``train`` bit for bit,
+on CartPole and on the pixel path; a 4-shard table restored onto 2 and
+1 shards and learning on 2; full and delta saves timed and restored
+exactly; the same run with telemetry on, and the replay-health probe
+equal to the production draw), runs the m group
 queries of a draw as single TCAM searches, holds the two attention
 kernels against their
 plain versions at the serving path's shapes and the reference's sweep
@@ -39,8 +45,8 @@ non-zero without that line.  There is no fallback to the CPU: without a
 CUDA device the script exits with code 2.
 
 ``--phases`` picks a subset (device,match,sample,rank,graph,tcam,flash,
-decode,fused,kernel,sharded,table1,pixel,serve) for debugging; every
-phase runs by default.
+decode,fused,kernel,sharded,table1,pixel,resume,serve) for debugging;
+every phase runs by default.
 ``--profile`` adds a torch.profiler window after each training phase and
 over decode steps of the serve phase (device busy and idle share per
 step, launches per step, top kernels; the chrome trace goes to
@@ -52,6 +58,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -66,7 +73,8 @@ BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 SHARDS = 4                   # logical shards of the sharded phase, on one card
 PHASES = ("device", "match", "sample", "rank", "graph", "tcam", "flash",
-          "decode", "fused", "kernel", "sharded", "table1", "pixel", "serve")
+          "decode", "fused", "kernel", "sharded", "table1", "pixel",
+          "resume", "serve")
 ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
 # The reference's kernel sweep (tests/test_kernels.py) and GQA group 4 at
@@ -1677,6 +1685,430 @@ def phase_pixel(state: dict, trace_dir: str | None) -> None:
     pixel_train_many(state, PIXEL_RUNS[-1], trace_dir)
 
 
+# The resume phase: checkpoints and telemetry on the card.  (a) CartPole
+# DQN + fused AMPER-fr through ``train_ckpt`` at the ``fused`` phase's
+# width (1M replay), uninterrupted, killed at its first save and resumed,
+# and ``train``; (b) a 4-shard Breakout frame store restored onto 2 shards
+# and onto 1, then learning on 2; (c) a Breakout kill and resume with full
+# and delta saves; (d) (a) again with telemetry on, and the replay health
+# probe against the production draw.  Steps and save interval of (a), (b)
+# and (c); (b) stops at its first save and resumes for its last 20 steps.
+RESUME_A = (600, 200)
+RESUME_B = (170, 150)
+RESUME_C = (240, 120)
+RESUME_DELTA_STEPS = (200, 30)   # steps between a full save and its delta
+RESUME_TIMED_SAVES = 3
+RESUME_STEADY = 100              # steady steps a turn, telemetry off / on
+
+
+def learn_steps_between(cfg, a: int, b: int) -> int:
+    return sum(1 for t in range(a, b)
+               if t >= cfg.learn_start and t % cfg.train_every == 0)
+
+
+def same_state(a, b) -> bool:
+    """Every leaf of two checkpointable trees (an ``AgentState``) equal:
+    names, dtypes, shapes and bits of the tensors, the host counters."""
+    from repro_torch.train import checkpoint as ck
+
+    na, la = ck._flatten_with_names(a)
+    nb, lb = ck._flatten_with_names(b)
+    return na == nb and all(
+        same_bits(x, y) if isinstance(x, torch.Tensor)
+        else type(x) is type(y) and x == y for x, y in zip(la, lb))
+
+
+def fs_type(path: str) -> str:
+    out = subprocess.run(["stat", "-f", "-c", "%T", path],
+                         capture_output=True, text=True, timeout=30)
+    return out.stdout.strip() or "unknown"
+
+
+def resume_cfg(**kw):
+    from repro_torch.rl.dqn import DQNConfig
+
+    base = dict(env="cartpole", num_envs=16, replay_size=N_ROWS, batch=64,
+                hidden=128, v_max=8.0, learn_start=100, sampler="amper-fr",
+                amper_fr_mode="fused")
+    base.update(kw)
+    return DQNConfig(**base)
+
+
+def counted(phase: str, want: dict, fn):
+    """``fn()`` with the kernels' counts zeroed just before and read just
+    after; the phase fails unless they equal ``want`` (absent = 0)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(ops.launches)
+    if got != {k: want.get(k, 0) for k in got}:
+        fail(phase, f"launches {got}, want {want}")
+    return out, got
+
+
+def add_launches(state: dict, got: dict) -> None:
+    for k, n in got.items():
+        state["launches"][k] = state["launches"].get(k, 0) + n
+
+
+def kill_and_resume(phase: str, dqn, key, n: int, interval: int,
+                    directory: str, want_first: dict, want_rest: dict):
+    """Preempt ``train_ckpt`` at its first save, resume it from a fresh
+    manager to ``n``; the launches of each part counted exactly.
+    Returns (state, resume seconds, launches)."""
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(directory, save_interval=interval)
+    mgr.request_preemption()
+    (_, _, done), first = counted(phase, want_first,
+                                  lambda: dqn.train_ckpt(key, n, mgr))
+    if done != interval:
+        fail(phase, f"preempted run stopped at {done}, not {interval}")
+    t0 = time.perf_counter()
+    (st, _, done), rest = counted(phase, want_rest, lambda: dqn.train_ckpt(
+        key, n, CheckpointManager(directory, save_interval=interval)))
+    resume_s = time.perf_counter() - t0
+    if done != n:
+        fail(phase, f"resumed run stopped at {done}, not {n}")
+    return st, resume_s, {k: first[k] + rest[k] for k in first}
+
+
+def save_and_delta(phase: str, dqn, st, directory: str, step: int,
+                   extra: int) -> tuple:
+    """On a trained state checkpointed at ``step`` in ``directory``: time
+    ``RESUME_TIMED_SAVES`` full saves (elsewhere) and the restore, hold
+    the restore against the state (and, for a frame store, the
+    materialized batch of one draw), then run ``extra`` more steps and
+    save, time and restore one ``replay_dirty`` delta against ``step``.
+    Returns (the state after the extra steps, numbers)."""
+    from repro_torch import prng
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import replay_checkpoint as rck
+
+    rb = dqn.replay
+
+    def view(s):
+        return s._replace(buffer=rck.dense_view(rb, s.buffer))
+
+    full_path = ck._file_path(directory, step)
+    save_ms = []
+    timing = ck.CheckpointManager(directory + "_timing", keep=1)
+    for i in range(RESUME_TIMED_SAVES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timing.save(step + i, view(st))
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    shutil.rmtree(directory + "_timing")
+    restore_ms = []
+    for _ in range(RESUME_TIMED_SAVES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = dqn.load_ckpt(directory, step)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+    if not same_state(back, st):
+        fail(phase, f"the full checkpoint at {step} restores another state")
+    out = {"full_save_bytes": os.path.getsize(full_path),
+           "full_save_ms_median": float(np.median(save_ms)),
+           "full_save_ms": save_ms,
+           "restore_ms_median": float(np.median(restore_ms)),
+           "restore_ms": restore_ms}
+    if rb.frame_store is not None:
+        k = prng.key(SEED + 7)
+        idx = rb.sampler.sample(st.buffer.sampler_state, k, dqn.cfg.batch)
+        got = rb.materialize(back.buffer, idx.long())
+        want = rb.materialize(st.buffer, idx.long())
+        if not all(same_bits(got[f], want[f]) for f in want):
+            fail(phase, "materialize after the restore != before it")
+        out["materialize_equal_after_restore"] = True
+    del back
+    marks = rck.replay_marks(st.buffer)
+    rows = []
+    for key in prng.split(prng.key(SEED + 8), extra):
+        st, m = dqn.agent_step(st, key)
+        if m["idx"] is not None:
+            rows.append(m["idx"])
+    touched = torch.cat(rows).cpu().tolist() if rows else []
+    dirty = ck.dirty_like(view(st), True)._replace(
+        buffer=rck.replay_dirty(rb, st.buffer, marks, touched))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ck.save_incremental(directory, step + extra, view(st),
+                               base_step=step, dirty=dirty,
+                               meta={"step": step + extra})
+    delta_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = dqn.load_ckpt(directory, step + extra)
+    torch.cuda.synchronize()
+    delta_restore_ms = (time.perf_counter() - t0) * 1e3
+    if not same_state(back, st):
+        fail(phase, f"the delta at {step + extra} restores another state")
+    out.update({"delta_steps": extra, "delta_bytes": os.path.getsize(path),
+                "delta_save_ms": delta_ms,
+                "delta_restore_ms": delta_restore_ms,
+                "delta_rows_touched": len(set(touched))})
+    return st, out
+
+
+def steady_rate(dqn, st, steps: int, seed: int):
+    from repro_torch import prng
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in prng.split(prng.key(seed), steps):
+        st, _ = dqn.agent_step(st, k)
+    torch.cuda.synchronize()
+    return st, steps / (time.perf_counter() - t0)
+
+
+def resume_flat(state: dict, root: str) -> dict:
+    """(a) and (d): CartPole fused AMPER-fr at 1M rows."""
+    from repro_torch import obs, prng
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.rl.dqn import make_dqn
+
+    cfg = resume_cfg()
+    n, interval = RESUME_A
+    dqn = make_dqn(cfg, device="cuda")
+    key = prng.key(SEED)
+
+    def draws(a, b):
+        return {"amper_sample": learn_steps_between(cfg, a, b)}
+
+    t0 = time.perf_counter()
+    (st_a, _, done), got = counted("resume_a", draws(0, n), lambda: dqn.
+                                   train_ckpt(key, n, CheckpointManager(
+                                       f"{root}/a", save_interval=interval)))
+    run_s = time.perf_counter() - t0
+    add_launches(state, got)
+    st_b, resume_s, got = kill_and_resume(
+        "resume_a", dqn, key, n, interval, f"{root}/b", draws(0, interval),
+        draws(interval, n))
+    add_launches(state, got)
+    (st_t, _), got = counted("resume_a", draws(0, n),
+                             lambda: dqn.train(key, n))
+    add_launches(state, got)
+    if not (same_state(st_a, st_b) and same_state(st_a, st_t)):
+        fail("resume_a", "uninterrupted, resumed and train states differ")
+    del st_b, st_t
+    shutil.rmtree(f"{root}/b")
+    # (d) telemetry: run A again with a registry and a JSONL log.
+    reg = obs.Registry()
+    log = f"{root}/telemetry.jsonl"
+    exporter = obs.JsonlExporter(log)
+    prev = obs.set_registry(reg)
+    try:
+        t0 = time.perf_counter()
+        (st_d, _, _), got_d = counted(
+            "resume_d", draws(0, n), lambda: dqn.train_ckpt(
+                key, n, CheckpointManager(f"{root}/d",
+                                          save_interval=interval)))
+        run_d_s = time.perf_counter() - t0
+        exporter.write_snapshot(reg.snapshot(), extra={"step": n})
+    finally:
+        obs.set_registry(prev)
+        exporter.close()
+    add_launches(state, got_d)
+    metrics = [r for r in obs.read_jsonl(log)
+               if r["kind"] == "snapshot"][-1]["metrics"]
+    spans = {name: metrics[f"span_{name}_ms"]["count"]
+             for name in ("replay_sample", "checkpoint_save")}
+    if spans != {"replay_sample": learn_steps_between(cfg, 0, n),
+                 "checkpoint_save": n // interval}:
+        fail("resume_d", f"span counts {spans}")
+    if not same_state(st_a, st_d):
+        fail("resume_d", "the run with telemetry ended in another state")
+    del st_d
+    shutil.rmtree(f"{root}/d")
+    st_a, saves = save_and_delta("resume_a", dqn, st_a, f"{root}/a", n,
+                                 RESUME_DELTA_STEPS[0])
+    shutil.rmtree(f"{root}/a")
+    # Steady steps/s in turns: off, on, on, off.
+    rates = {"off": [], "on": []}
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        prev = obs.set_registry(obs.Registry() if mode == "on" else None)
+        try:
+            st_a, rate = steady_rate(dqn, st_a, RESUME_STEADY, SEED + 10 + i)
+        finally:
+            obs.set_registry(prev)
+        rates[mode].append(rate)
+    health = resume_health(state, dqn, st_a, reg)
+    return {"a": {"steps": n, "save_interval": interval,
+                  "learn_steps": learn_steps_between(cfg, 0, n),
+                  "launches_per_run": draws(0, n), "run_s": run_s,
+                  "resume_s": resume_s,
+                  "equal_resumed_uninterrupted_train": True, **saves},
+            "d": {"launches": got_d, "run_s": run_d_s,
+                  "span_counts": spans,
+                  "span_checkpoint_save_ms": metrics[
+                      "span_checkpoint_save_ms"],
+                  "span_replay_sample_ms_mean": metrics[
+                      "span_replay_sample_ms"]["mean"],
+                  "checkpoint_full_bytes": metrics[
+                      "checkpoint_full_bytes"]["value"],
+                  "steady_steps": RESUME_STEADY,
+                  "steady_steps_per_s_off": rates["off"],
+                  "steady_steps_per_s_on": rates["on"],
+                  "log_records": len(obs.read_jsonl(log)),
+                  "equal_state_with_telemetry": True, **health}}
+
+
+def resume_health(state: dict, dqn, st, reg) -> dict:
+    """``ReplayHealth`` and the probe on the trained 1M table with the key
+    of a production draw, for the agent's fused sampler and a ``kernel``
+    twin: the probe's sampled priorities equal the draw's, bit for bit,
+    and the KL gauge is finite."""
+    from repro_torch import obs, prng
+
+    smp = dqn.replay.sampler
+    ss = st.buffer.sampler_state
+    _, k_sample = prng.split(prng.key(SEED + 9))
+    batch, v_max = dqn.cfg.batch, smp.cfg.v_max
+    out = {}
+    for mode, sampler in (("fused", smp), ("kernel",
+                                             plain_twin(smp, "kernel"))):
+        draw = sampler.sample(ss, k_sample, batch)
+        want = sampler.priorities(ss)[draw.long()] / v_max
+        p_sel = obs.make_replay_probe(sampler, batch)(ss, k_sample)[4]
+        if not same_bits(p_sel, want):
+            fail("resume_d", f"the {mode} probe's draw != the production "
+                 "draw")
+        health = obs.ReplayHealth(reg, sampler, batch)
+        read, got = counted("resume_d", {"multi_query_match": 1},
+                            lambda: health.update(ss, k_sample))
+        add_launches(state, got)
+        if not np.isfinite(read["kl_nats"]):
+            fail("resume_d", f"KL gauge {read['kl_nats']}")
+        out[f"health_{mode}"] = {**read, "probe_launches": got}
+    return out
+
+
+def resume_pixel(state: dict, root: str) -> dict:
+    """(b) the sharded elastic restore and (c) the pixel kill and resume,
+    on Breakout with the 1M uint8 frame store."""
+    from repro_torch import prng
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.rl.dqn import make_dqn
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    key = prng.key(SEED)
+    # (b): 4 shards, preempted at its first save.
+    cfg = resume_cfg(env="breakout", sampler="amper-fr-sharded",
+                     history_len=4)
+    n, interval = RESUME_B
+    cuda = torch.device("cuda", 0)
+
+    def sharded(s, a, b):
+        k = learn_steps_between(cfg, a, b) * s
+        return {"multi_query_match": k, "rank_select": k}
+
+    dqn4 = make_dqn(cfg, device="cuda", mesh=Mesh([cuda] * SHARDS))
+    mgr = CheckpointManager(f"{root}/b", save_interval=interval)
+    mgr.request_preemption()
+    (st4, _, done), got = counted(
+        "resume_b", sharded(SHARDS, 0, interval),
+        lambda: dqn4.train_ckpt(key, n, mgr))
+    add_launches(state, got)
+    if done != interval:
+        fail("resume_b", f"preempted run stopped at {done}")
+    rb4 = dqn4.replay
+    table = rb4.sampler.to_dense(st4.buffer.sampler_state)
+    member = rb4.sampler.membership(st4.buffer.sampler_state,
+                                    prng.key(42))
+    anchors = torch.arange(0, 3 * dqn4.cfg.num_envs * interval,
+                           device=rb4.device) % N_ROWS
+    batch4 = rb4.materialize(st4.buffer, anchors)
+    restore = {}
+    for s in (2, 1):
+        dqn = make_dqn(cfg, device="cuda", mesh=Mesh([cuda] * s))
+        times = []
+        for _ in range(2):  # the first restore after the save, and again
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = dqn.load_ckpt(f"{root}/b", interval)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        restore[f"restore_onto_{s}_ms"] = times
+        dense = dqn.replay.sampler.to_dense(st.buffer.sampler_state)
+        got_b = dqn.replay.materialize(st.buffer, anchors)
+        if not (len(st.buffer.sampler_state.pq) == s
+                and same_state(table, dense)
+                and torch.equal(member, dqn.replay.sampler.membership(
+                    st.buffer.sampler_state, prng.key(42)))
+                and all(same_bits(got_b[f], batch4[f]) for f in batch4)):
+            fail("resume_b", f"the restore onto {s} shards differs")
+        del st, dense
+        if s == 2:
+            (st2, _, done), got = counted(
+                "resume_b", sharded(2, interval, n),
+                lambda: dqn.train_ckpt(key, n, CheckpointManager(
+                    f"{root}/b", save_interval=interval)))
+            add_launches(state, got)
+            if done != n or st2.step != n:
+                fail("resume_b", f"the 2-shard resume stopped at {done}")
+            learn2 = got
+            del st2
+    b = {"steps": n, "save_interval": interval, "shards_saved": SHARDS,
+         "full_save_bytes": os.path.getsize(f"{root}/b/step_{interval:010d}"
+                                            ".ckpt"),
+         "anchors": int(anchors.numel()), **restore,
+         "learn_steps_on_2_shards": learn_steps_between(cfg, interval, n),
+         "launches_on_2_shards": learn2,
+         "equal_tables_membership_materialize": True}
+    del dqn4, st4
+    shutil.rmtree(f"{root}/b")
+    # (c): one card, fused.
+    cfg = resume_cfg(env="breakout", history_len=4)
+    n, interval = RESUME_C
+    dqn = make_dqn(cfg, device="cuda")
+
+    def draws(a, c):
+        return {"amper_sample": learn_steps_between(cfg, a, c)}
+
+    (st_a, _, _), got = counted("resume_c", draws(0, n), lambda: dqn.
+                                train_ckpt(key, n, CheckpointManager(
+                                    f"{root}/c", save_interval=interval)))
+    add_launches(state, got)
+    st_b, resume_s, got = kill_and_resume(
+        "resume_c", dqn, key, n, interval, f"{root}/c_kill",
+        draws(0, interval), draws(interval, n))
+    add_launches(state, got)
+    if not same_state(st_a, st_b):
+        fail("resume_c", "the resumed pixel run != the uninterrupted one")
+    del st_b
+    shutil.rmtree(f"{root}/c_kill")
+    st_a, saves = save_and_delta("resume_c", dqn, st_a, f"{root}/c", n,
+                                 RESUME_DELTA_STEPS[1])
+    shutil.rmtree(f"{root}/c")
+    return {"b": b, "c": {"steps": n, "save_interval": interval,
+                          "launches_per_run": draws(0, n),
+                          "resume_s": resume_s,
+                          "equal_resumed_uninterrupted": True, **saves}}
+
+
+def phase_resume(state: dict) -> None:
+    """Checkpoints and telemetry on the card: (a)-(d) above.  The card's
+    float work runs under ``cudnn.deterministic`` (TF32 off), as the
+    pixel phase's bit-for-bit check of ``train_many`` against ``train``."""
+    root = os.path.join(ROOT, "build", "resume_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        out = resume_flat(state, root)
+        out.update(resume_pixel(state, root))
+        out["phase_s"] = time.perf_counter() - t0
+        out["filesystem"] = fs_type(root)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "resume", "ok": True, "replay": N_ROWS, **out})
+
+
 # Decode vs prefill in float32, relative to max |logit|.  Both paths are
 # float32 throughout (TF32 off) and differ only in the order of their sums
 # (GEMM vs GEMV, the flash vs the decode kernel).  Sound runs on the H100
@@ -1866,6 +2298,8 @@ def main(argv=None) -> int:
         phase_table1(state)
     if "pixel" in phases:
         phase_pixel(state, trace_dir)
+    if "resume" in phases:
+        phase_resume(state)
     if "serve" in phases:
         phase_serve(state, trace_dir)
     rows = []

@@ -20,6 +20,7 @@ besides).
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, Protocol, runtime_checkable
 
 import torch
@@ -65,6 +66,28 @@ def masked_update(sampler: Sampler, state: Any, idx: torch.Tensor,
                         priority.to(torch.float32)[winner.clamp(min=0)],
                         prios[idx])
     return sampler.update(state, idx, value)
+
+
+def on_meta(sampler: Sampler) -> Sampler:
+    """A copy of ``sampler`` whose state lives on the meta device (every
+    shard of a sharded one): its ``init()`` allocates no memory."""
+    meta = torch.device("meta")
+    twin = copy.copy(sampler)
+    twin.device = meta
+    if hasattr(twin, "devices"):
+        twin.devices = [meta] * len(twin.devices)
+    return twin
+
+
+def abstract_state(sampler: Sampler) -> Any:
+    """``sampler.init()`` on the meta device: the state's names, shapes
+    and dtypes, with no memory.  It is the checkpoint-restore target for
+    any registry kind (:mod:`repro_torch.train.replay_checkpoint`).  A
+    sharded sampler's is its dense view (``to_dense``), the one global
+    table a checkpoint holds."""
+    twin = on_meta(sampler)
+    state = twin.init()
+    return twin.to_dense(state) if hasattr(twin, "to_dense") else state
 
 
 _REGISTRY: dict[str, Callable[..., Sampler]] = {}

@@ -45,9 +45,9 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import quantize as qz
-from repro_torch.core.amper import (FR_MODES, AmperConfig, fr_intervals,
-                                    fr_match, group_representatives,
-                                    last_writer)
+from repro_torch.core.amper import (FR_MODES, AmperConfig, AmperState,
+                                    fr_intervals, fr_match,
+                                    group_representatives, last_writer)
 from repro_torch.distributed.collectives import all_gather, psum
 from repro_torch.distributed.sharding import Mesh
 from repro_torch.kernels import ops
@@ -305,6 +305,13 @@ class ShardedAmperSampler(_Shards):
         """A global (pq, valid) table split over this sampler's shards."""
         return ShardedAmperState(pq=self._split(pq), valid=self._split(valid))
 
+    def to_dense(self, state: ShardedAmperState) -> AmperState:
+        """The global (pq, valid) table on the lead device: the inverse of
+        :meth:`from_dense`, and the form a checkpoint stores (the
+        reference's sharded state is one global ``AmperState``)."""
+        return AmperState(pq=self._gather(state.pq),
+                          valid=self._gather(state.valid))
+
     def priorities(self, state: ShardedAmperState) -> torch.Tensor:
         return self._gather(
             qz.dequantize(pq, self.cfg.v_max, self.cfg.frac_bits) * valid
@@ -365,6 +372,11 @@ class ShardedPERSampler(_Shards):
 
     def from_dense(self, priorities: torch.Tensor) -> ShardedPERState:
         return ShardedPERState(priorities=self._split(priorities))
+
+    def to_dense(self, state: ShardedPERState) -> ShardedPERState:
+        """The global priority table on the lead device (the inverse of
+        :meth:`from_dense`), as the reference's ``ShardedPERState``."""
+        return ShardedPERState(priorities=self._gather(state.priorities))
 
     def total(self, state: ShardedPERState) -> torch.Tensor:
         return self._sum(state.priorities)

@@ -1,9 +1,14 @@
-"""Carry weights and agent state over from the JAX reference.
+"""Carry weights and agent state between the JAX reference and the port.
 
-The port imports nothing of the reference package.  These functions take
-the reference's objects as plain numpy pytrees (``jax.tree.map(np.asarray,
-state)``) and read them by field name, so a test can start both packages
-from one state and step them side by side.
+The port imports nothing of the reference package.  The ``*_from_jax``
+functions take the reference's objects as plain numpy pytrees
+(``jax.tree.map(np.asarray, state)``) and read them by field name, so a
+test can start both packages from one state and step them side by side.
+The reverse direction, :func:`agent_state_to_numpy` and
+:func:`replay_state_to_numpy`, gives the port's states in the reference's
+numpy layout: the same NamedTuple fields in the same order (so
+``jax.tree.leaves`` of either lists the same leaves), a sharded sampler's
+table dense, and the port's host counters as 0-d int32 arrays.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from repro_torch.core.replay_buffer import NStepState, ReplayState
 from repro_torch.models.qhead import tree_map
 from repro_torch.rl.dqn import AgentState
 from repro_torch.rl.envs import EnvState
+from repro_torch.train import checkpoint as ck
 
 
 def to_tensor(x, device="cuda") -> torch.Tensor:
@@ -90,6 +96,36 @@ def agent_state_from_jax(st, device="cuda", sampler=None) -> AgentState:
         episode_return=to_tensor(st.episode_return, device),
         last_returns=to_tensor(st.last_returns, device),
         n_episodes=to_tensor(st.n_episodes, device))
+
+
+def _numpy_leaf(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x, dtype=ck._scalar_dtype(x))  # a host counter
+
+
+def _to_numpy(tree):
+    return ck._unflatten(tree, [_numpy_leaf(x)
+                                for x in ck._flatten_with_names(tree)[1]])
+
+
+def _dense(rs: ReplayState, sampler) -> ReplayState:
+    if sampler is not None and hasattr(sampler, "to_dense"):
+        return rs._replace(sampler_state=sampler.to_dense(rs.sampler_state))
+    return rs
+
+
+def replay_state_to_numpy(rs: ReplayState, sampler=None) -> ReplayState:
+    """The port's ``ReplayState`` in the reference's numpy layout; pass
+    the buffer's ``sampler`` when it is a sharded one, whose per-shard
+    table becomes the reference's one global table."""
+    return _to_numpy(_dense(rs, sampler))
+
+
+def agent_state_to_numpy(st: AgentState, sampler=None) -> AgentState:
+    """The port's DQN ``AgentState`` in the reference's numpy layout (see
+    :func:`replay_state_to_numpy` for ``sampler``)."""
+    return _to_numpy(st._replace(buffer=_dense(st.buffer, sampler)))
 
 
 def _take(tree, s: int):

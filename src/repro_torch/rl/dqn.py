@@ -23,6 +23,11 @@ on the step counter is a host-side ``if`` (the counter is a host int).
 The reference's ``train_many`` vmaps that scan over S seeds; here the S
 seeds run in lockstep (step t of every seed before step t + 1 of any),
 each with its own state, and ``train`` is ``train_many`` of one seed.
+``train_ckpt`` is ``train`` in ``save_interval`` segments with a
+checkpoint of the whole :class:`AgentState` between them, in the
+reference's on-disk format (:mod:`repro_torch.train.checkpoint`): it
+runs the very steps ``train`` runs, so a killed and resumed run ends in
+``train``'s state bit for bit.
 PRNG keys are host tensors (:mod:`repro_torch.prng`) consumed exactly as
 the reference consumes its keys, so the two packages take the same
 actions and draw the same replay indices from the same state.
@@ -50,6 +55,8 @@ from repro_torch.core.replay_buffer import FrameStore, ReplayBuffer
 from repro_torch.core.samplers import make_sampler
 from repro_torch.models.qhead import make_qhead, tree_leaves, tree_map
 from repro_torch.rl import envs as envs_mod
+from repro_torch.train import checkpoint as ckpt_mod
+from repro_torch.train import replay_checkpoint as rck
 from repro_torch.xla_float import fma32
 
 RETURN_RING = 64  # completed-episode returns kept for the train metric
@@ -122,6 +129,9 @@ class DQN(NamedTuple):
     #                          metrics [S, n_steps])
     evaluate: Callable       # (params | AgentState, key, n_episodes) -> return
     evaluate_many: Callable  # ([S] states, keys [S, 2], n_episodes) -> [S]
+    train_ckpt: Callable     # (key, n_steps, CheckpointManager)
+    #                          -> (AgentState, metrics, done_steps)
+    load_ckpt: Callable      # (directory, step) -> AgentState
     act: Callable            # (params, env_state, obs, step, key)
     #                          -> (env_state, next_obs, transitions)
     learn: Callable          # (params, target, m, v, step, batch, weights)
@@ -225,7 +235,7 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
         def init_obs(env_state):
             return venv.obs(env_state)
 
-    def init(key: torch.Tensor) -> AgentState:
+    def fresh(key: torch.Tensor, buffer) -> AgentState:
         k1, k2 = prng.split(key)
         params = qhead.init(k1)
         env_state = venv.reset(k2)
@@ -233,11 +243,14 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
             params=params, target_params=params,
             opt_m=tree_map(torch.zeros_like, params),
             opt_v=tree_map(torch.zeros_like, params),
-            buffer=rb.init(example_transition), env_state=env_state,
+            buffer=buffer, env_state=env_state,
             obs=init_obs(env_state), step=0,
             episode_return=torch.zeros(cfg.num_envs, device=dev),
             last_returns=torch.zeros(ring, device=dev),
             n_episodes=torch.tensor(0, dtype=torch.int32, device=dev))
+
+    def init(key: torch.Tensor) -> AgentState:
+        return fresh(key, rb.init(example_transition))
 
     def td_loss(params, target_params, batch, weights):
         q = q_apply(params, batch["obs"])
@@ -409,6 +422,66 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
         return states, {name: torch.stack([stack(m[name]) for m in metrics])
                         for name in metrics[0]}
 
+    def load_ckpt(directory: str, step: int) -> AgentState:
+        """The :class:`AgentState` checkpointed at ``step``, on this
+        agent's device and replay shards (a checkpoint holds a sharded
+        table dense, so it restores onto any shard count)."""
+        target = fresh(prng.key(0), rck.replay_target(rb, example_transition))
+        state = ckpt_mod.restore(directory, step, target, device=dev)
+        return state._replace(buffer=rck.from_dense_view(rb, state.buffer))
+
+    def train_ckpt(key: torch.Tensor, n_steps: int,
+                   manager: ckpt_mod.CheckpointManager):
+        """``train`` with periodic checkpoints and exact resume.
+
+        The step keys are derived once for the whole run
+        (``split(fold_in(key, 1), n_steps)``, as ``train``), and the
+        steps run in ``manager.save_interval`` segments with a full
+        checkpoint of the :class:`AgentState` (params, Adam moments,
+        replay buffer and sampler state, env state, episode accounting
+        and the host counters) after each.  A run resumed from the latest
+        checkpoint runs the same steps on the same state as ``train``,
+        so it ends in ``train``'s final state bit for bit.
+
+        The manifest records ``n_steps``: resuming with another one
+        would change every step key, and raises.  Relaunching a finished
+        run returns its final state and empty metrics.
+
+        Returns ``(state, metrics, done_steps)``: ``metrics`` as
+        ``train``'s, over the steps THIS call ran, and ``done_steps <
+        n_steps`` iff the manager was preempted (after a checkpoint).
+        """
+        key = prng.key_data(key)
+        keys = prng.split(prng.fold_in(key, 1), n_steps)
+        state, start = None, 0
+        latest = manager.latest_step()
+        if latest is not None:
+            saved = ckpt_mod.load_meta(manager.directory, latest)
+            if saved.get("n_steps", n_steps) != n_steps:
+                raise ValueError(
+                    f"resume with n_steps={n_steps} but checkpoint was "
+                    f"written by an n_steps={saved['n_steps']} run; the "
+                    f"step-key derivation depends on n_steps, so this "
+                    f"would not be an exact resume")
+            state, start = load_ckpt(manager.directory, latest), latest
+        if state is None:  # no checkpoint: only now pay for a fresh init
+            state = init(key)
+        metrics = {"return_mean": [], "beta": [], "loss": []}
+        t = start
+        while t < n_steps:
+            for k in keys[t:t + min(n_steps - t, manager.save_interval)]:
+                state, mt = agent_step(state, k)
+                t += 1
+                for name, seq in metrics.items():
+                    seq.append(mt[name])
+            if manager.should_save(t) or t == n_steps:
+                manager.save(t, state._replace(
+                    buffer=rck.dense_view(rb, state.buffer)),
+                    meta={"n_steps": n_steps, "step": t})
+            if manager.preempted and t < n_steps:
+                break
+        return state, metrics, t
+
     def evaluate(state, key: torch.Tensor, n_episodes: int = 10) -> float:
         """Greedy-policy average return over ``n_episodes`` episodes run
         in lockstep, each on its own key as the reference's ``vmap``."""
@@ -447,7 +520,8 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
 
     return DQN(init=init, agent_step=agent_step, train=train,
                train_many=train_many, evaluate=evaluate,
-               evaluate_many=evaluate_many, act=act, learn=learn, cfg=cfg,
+               evaluate_many=evaluate_many, train_ckpt=train_ckpt,
+               load_ckpt=load_ckpt, act=act, learn=learn, cfg=cfg,
                env=env, venv=venv, replay=rb, beta_at=beta_at,
                q_apply=q_apply, example_transition=example_transition,
                init_obs=init_obs)
