@@ -28,7 +28,11 @@ and resumed equal to the uninterrupted run and to ``train`` bit for bit,
 on CartPole and on the pixel path; a 4-shard table restored onto 2 and
 1 shards and learning on 2; full and delta saves timed and restored
 exactly; the same run with telemetry on, and the replay-health probe
-equal to the production draw), runs the m group
+equal to the production draw), runs the async replay runtime (actors,
+prefetch, learner and replay thread on threads and CUDA streams at 1M
+rows: sync equal to ``train``, every slab draw held against the plain
+draw under the replay-state lock, kill and resume, the probe, the frame
+store), runs the m group
 queries of a draw as single TCAM searches, holds the two attention
 kernels against their
 plain versions at the serving path's shapes and the reference's sweep
@@ -45,8 +49,10 @@ non-zero without that line.  There is no fallback to the CPU: without a
 CUDA device the script exits with code 2.
 
 ``--phases`` picks a subset (device,match,sample,rank,graph,tcam,flash,
-decode,fused,kernel,sharded,table1,pixel,resume,serve) for debugging;
-every phase runs by default.
+decode,fused,kernel,sharded,table1,pixel,resume,runtime,serve) for
+debugging; every phase runs by default.  ``runtime_split`` (named in
+``--phases`` only) splits the runtime's time: each stage alone, then the
+service in five settings.
 ``--profile`` adds a torch.profiler window after each training phase and
 over decode steps of the serve phase (device busy and idle share per
 step, launches per step, top kernels; the chrome trace goes to
@@ -74,7 +80,7 @@ SEED = 0
 SHARDS = 4                   # logical shards of the sharded phase, on one card
 PHASES = ("device", "match", "sample", "rank", "graph", "tcam", "flash",
           "decode", "fused", "kernel", "sharded", "table1", "pixel",
-          "resume", "serve")
+          "resume", "runtime", "serve")
 ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
 # The reference's kernel sweep (tests/test_kernels.py) and GQA group 4 at
@@ -285,6 +291,7 @@ def custom_ranges(kind: str, device):
 
 
 BACK_TO_BACK = 1000  # calls queued with no sync, each checked
+SLAB_ROWS = 256      # the runtime's slab draw: batch 64 x slab 4
 
 
 def phase_match(state: dict) -> None:
@@ -402,6 +409,9 @@ def sample_cases(pq, valid, shard_pq, shard_valid, lo, hi, device):
              torch.tensor([2 ** 31 - 1], dtype=torch.int32, device=device))
     cases = [("n1e6_b64", *full, 4242, 64, 150_000),
              ("shard_250k_b64", *shard, 4242, 64, 37_500),
+             # the runtime's slab draw: batch 64 x slab 4 rows at once
+             ("n1e6_b256", *full, 4242, SLAB_ROWS, 150_000),
+             ("shard_250k_b256", *shard, 4242, SLAB_ROWS, 37_500),
              ("shift_0", *full, 0, 64, 150_000),
              ("shift_last_b300", *full, n - 1, 300, 150_000),
              ("shift_tile_boundary", *full, 1024 * 500, 64, 150_000),
@@ -502,6 +512,15 @@ def phase_sample(state: dict) -> None:
     ms_shard = device_time_ms(lambda: ops.amper_sample(
         shard_pq, shard_valid, lo, hi, 4242, k, batch=64,
         csp_capacity=37_500))
+    # and at the runtime's slab shape (256 rows a draw)
+    ms_slab = device_time_ms(lambda: ops.amper_sample(
+        pq, valid, lo, hi, 4242, k, batch=SLAB_ROWS, csp_capacity=150_000))
+    ms_shard_slab = device_time_ms(lambda: ops.amper_sample(
+        shard_pq, shard_valid, lo, hi, 4242, k, batch=SLAB_ROWS,
+        csp_capacity=37_500))
+    plain_slab_ms = device_time_ms(lambda: amper_sample_ref(
+        pq, valid, lo, hi, 4242, k, batch=SLAB_ROWS, csp_capacity=150_000),
+        calls=5, reps=3)
     plain_ms = device_time_ms(lambda: amper_sample_ref(
         pq, valid, lo, hi, 4242, k, batch=64, csp_capacity=150_000),
         calls=5, reps=3)
@@ -512,6 +531,11 @@ def phase_sample(state: dict) -> None:
         / HBM_BYTES_PER_S * 1e3
     bound_shard = (nbytes(shard_pq, shard_valid, lo, hi, idx, stats) + 16) \
         / HBM_BYTES_PER_S * 1e3
+    idx_slab = torch.empty(SLAB_ROWS, dtype=torch.int32, device=dev)
+    bound_slab = (nbytes(pq, valid, lo, hi, idx_slab, stats) + 16) \
+        / HBM_BYTES_PER_S * 1e3
+    bound_shard_slab = (nbytes(shard_pq, shard_valid, lo, hi, idx_slab,
+                               stats) + 16) / HBM_BYTES_PER_S * 1e3
     state["kernels"]["amper_sample"] = {
         "name": "amper_sample", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/amper_sample.cu",
@@ -523,6 +547,10 @@ def phase_sample(state: dict) -> None:
           "max_rows": am.max_rows(dev), "kernel_ms": ms,
           "plain_ms": plain_ms, "bound_ms": bound_ms,
           "kernel_ms_shard_250k": ms_shard, "bound_ms_shard_250k": bound_shard,
+          "slab_rows": SLAB_ROWS, "kernel_ms_b256": ms_slab,
+          "plain_ms_b256": plain_slab_ms, "bound_ms_b256": bound_slab,
+          "kernel_ms_shard_250k_b256": ms_shard_slab,
+          "bound_ms_shard_250k_b256": bound_shard_slab,
           "ops_per_call_and_us": split})
 
 
@@ -637,6 +665,26 @@ def phase_rank(state: dict) -> None:
                                                      rank_full))
     bound_full = nbytes(pq, valid, lo, hi, rank_full, idx, cnt) \
         / HBM_BYTES_PER_S * 1e3
+    # the runtime's slab draw on a shard: 256 ranks, held and timed
+    slab = {}
+    for name, p, v, members in (("shard_250k", shard_pq, shard_valid,
+                                 results[1]["members"]),
+                                ("n1e6", pq, valid, results[0]["members"])):
+        rank = rank_cases(members, SLAB_ROWS, seed=5)
+        got = ops.rank_select(p, v, lo, hi, rank)
+        want = rank_select_ref(p, v, lo, hi, rank)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            fail("rank", f"{name} b{SLAB_ROWS}: kernel != plain")
+        err = max(err, max_abs_diff(got[0], want[0]))
+        slab[f"kernel_ms_{name}_b256"] = device_time_ms(
+            lambda: ops.rank_select(p, v, lo, hi, rank))
+        slab[f"bound_ms_{name}_b256"] = nbytes(
+            p, v, lo, hi, rank, got[0], got[1]) / HBM_BYTES_PER_S * 1e3
+    slab["plain_ms_shard_250k_b256"] = device_time_ms(
+        lambda: rank_select_ref(shard_pq, shard_valid, lo, hi, rank_cases(
+            results[1]["members"], SLAB_ROWS, seed=5)), calls=10, reps=3)
     state["kernels"]["rank_select"] = {
         "name": "rank_select", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rank_select.cu",
@@ -648,7 +696,7 @@ def phase_rank(state: dict) -> None:
           "timed": {"n": shard_pq.shape[0], "batch": 64},
           "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
           "kernel_ms_n1e6": ms_full, "bound_ms_n1e6": bound_full,
-          "ops_per_call_and_us": split})
+          "slab_rows": SLAB_ROWS, **slab, "ops_per_call_and_us": split})
 
 
 GRAPH_REPLAYS = 20
@@ -2109,6 +2157,456 @@ def phase_resume(state: dict) -> None:
     emit({"phase": "resume", "ok": True, "replay": N_ROWS, **out})
 
 
+
+RUNTIME_SYNC = 300        # (a) trainer iterations
+RUNTIME_ASYNC = 400       # (b) and (f) learner steps
+RUNTIME_SHORT = 200       # (c) and (d)
+RUNTIME_CKPT = (400, 100, 200)   # (e): target, save interval, preempt at
+RUNTIME_PIXEL = 150       # (g)
+RUNTIME_PROBE_EVERY = 8   # (f): one slab draw in 8 probed
+RUNTIME_RATIO = 1         # the actors' cap, in env steps a learner step:
+#                           the sync trainer's one, so (b) and (a) learn
+#                           from as many frames a step
+# The stages' spans, whose host ms each run reports (each includes its
+# waits for the GIL and the card).
+RUNTIME_SPANS = ("learn", "rollout", "slab_draw", "add_block",
+                 "apply_feedback")
+# The reference's RunResult.metrics keys of an async run
+# (repro/runtime/service.py), the optional "health" aside.
+RUNTIME_KEYS = {"mode", "learner_steps", "total_learner_steps",
+                "learner_steps_per_sec", "wall_time", "frames",
+                "total_frames", "frames_per_sec", "blocks", "return_mean",
+                "recent_returns", "beta", "feedback_seqs", "staleness",
+                "queue_depth", "losses", "resumed_from", "preempted_at",
+                "snapshot", "checkpoint"}
+
+
+def runtime_service(cfg, num_actors: int = 2, mesh=None,
+                    ratio: int = RUNTIME_RATIO, **kw):
+    """The phase's async service: chunk 32, slab 4, prefetch depth 2, the
+    actors capped at ``ratio`` env steps a learner step."""
+    from repro_torch.runtime import ReplayService
+
+    return ReplayService(cfg, num_actors=num_actors, chunk_len=32, slab=4,
+                         prefetch_depth=2, feedback_log=True, device="cuda",
+                         mesh=mesh, max_replay_ratio=ratio * cfg.num_envs,
+                         **kw)
+
+
+def checked_draws(svc) -> dict:
+    """Wrap ``svc._sample`` to count the slab draws and hold each against
+    the plain draw: while the prefetcher still holds the replay-state
+    lock, the same sampler with the broadcast match (no kernel) draws on
+    the same state and key, and must give the same rows in the slab's
+    flat order.  A mismatch raises in the prefetch thread, which fails
+    the run.  Keeps the last draw's key and row priorities for the
+    probe's check."""
+    sampler = svc.dqn.replay.sampler
+    plain = plain_twin(sampler)
+    rows = svc.cfg.batch * svc.slab
+    sample = svc._sample
+    seen = {"draws": 0}
+
+    def checked(st, key, beta):
+        out = sample(st, key, beta)
+        flat = out[0].transpose(0, 1).reshape(-1)
+        want = plain.sample(st.sampler_state, key, rows)
+        if not torch.equal(flat, want):
+            raise AssertionError(
+                f"slab draw {seen['draws']}: kernel rows != plain rows "
+                f"({int((flat != want).sum())} of {rows} differ)")
+        seen["draws"] += 1
+        seen["key"] = key
+        seen["prio"] = sampler.priorities(st.sampler_state)[flat.long()]
+        return out
+
+    svc._sample = checked
+    return seen
+
+
+def runtime_run(phase: str, svc, key, n: int, per_draw: dict,
+                manager=None, seen: dict | None = None):
+    """``svc.run`` with the kernels' counts zeroed just before and read
+    just after.  The phase fails if a stage failed (``run`` re-raises
+    it), unless the feedback is gapless and in order, the reference's
+    metric keys are there and the params finite, and unless each kernel
+    launched ``per_draw`` times a slab draw (and the match once more a
+    health probe).  ``seen``: the counters of a ``checked_draws`` wrap
+    already in place.  The run records into a registry of its own, whose
+    span means (``RUNTIME_SPANS``) join the counters.  Returns (result,
+    draw counters, launches)."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.models.qhead import tree_leaves
+
+    if seen is None:
+        seen = checked_draws(svc)
+    reg = obs.Registry()
+    svc.telemetry = (svc.telemetry or obs.Telemetry(probe_every=0)
+                     )._replace(registry=reg)
+    ops.reset_launches()
+    try:
+        res = svc.run(key, n, manager=manager)
+    except Exception as e:  # a stage's error, re-raised by run()
+        fail(phase, f"{type(e).__name__}: {e} (from {e.__cause__!r})")
+    torch.cuda.synchronize()
+    got = dict(ops.launches)
+    m = res.metrics
+    probes = int(m.get("health", {}).get("probe_draws", 0))
+    want = {k: per_draw.get(k, 0) * seen["draws"] for k in got}
+    want["multi_query_match"] += probes
+    if got != want:
+        fail(phase, f"launches {got} for {seen['draws']} slab draws and "
+             f"{probes} probes, want {want}")
+    start = m["resumed_from"] or 0
+    if m["feedback_seqs"] != list(range(start, start + m["learner_steps"])):
+        fail(phase, "priority feedback not gapless and in order")
+    if not set(m) >= RUNTIME_KEYS:
+        fail(phase, f"metric keys missing: {sorted(RUNTIME_KEYS - set(m))}")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(res.params)):
+        fail(phase, "non-finite params")
+    snap = reg.snapshot()
+    seen["host_ms"] = {}
+    for span in RUNTIME_SPANS:
+        st = obs.hist_stats(snap.data[f"span_{span}_ms"],
+                            snap.meta[f"span_{span}_ms"]["bounds"])
+        seen["host_ms"][span] = {"count": st["count"], "mean": st["mean"],
+                                 "p95": st["p95"]}
+    return res, seen, got
+
+
+def runtime_summary(res, seen: dict, got: dict) -> dict:
+    m = res.metrics
+    return {"learner_steps": m["learner_steps"],
+            "learner_steps_per_s": m["learner_steps_per_sec"],
+            "frames": m["frames"], "frames_per_s": m["frames_per_sec"],
+            "wall_s": m["wall_time"], "staleness": m["staleness"],
+            "queue_depth": m["queue_depth"], "slab_draws": seen["draws"],
+            "draws_held_against_plain": seen["draws"], "launches": got,
+            "host_ms": seen["host_ms"],
+            "replay_rows": int(res.buffer.size),
+            "return_mean": m["return_mean"]}
+
+
+def runtime_sync(state: dict) -> dict:
+    """(a) sync mode, fused: the final agent state equals ``train``'s
+    (params, target, Adam moments, ring and sampler state) bit for bit."""
+    from repro_torch import prng
+    from repro_torch.runtime import ReplayService
+
+    cfg = resume_cfg()
+    svc = ReplayService(cfg, sync=True, num_actors=1, device="cuda")
+    step, last = svc._agent_step, {}
+
+    def keeping(st, k):
+        st, mt = step(st, k)
+        last["state"] = st
+        return st, mt
+
+    svc._agent_step = keeping
+    key = prng.key(SEED)
+    want = {"amper_sample": learn_steps_between(cfg, 0, RUNTIME_SYNC)}
+    res, got = counted("runtime_a", want, lambda: svc.run(key, RUNTIME_SYNC))
+    add_launches(state, got)
+    (st_t, _), got_t = counted("runtime_a", want,
+                               lambda: svc.dqn.train(key, RUNTIME_SYNC))
+    add_launches(state, got_t)
+    if not same_agent_state(last["state"], st_t):
+        fail("runtime_a", "the sync service's state != train's")
+    m = res.metrics
+    return {"steps": RUNTIME_SYNC, "learner_steps": m["learner_steps"],
+            "learner_steps_per_s": m["learner_steps_per_sec"],
+            "frames_per_s": m["frames_per_sec"], "launches": got,
+            "equal_train": True}
+
+
+def runtime_ckpt(state: dict, root: str) -> dict:
+    """(e) async with a ``CheckpointManager``: a save every 100 learner
+    steps, preemption asked for as the first save at or after step 200
+    returns, and a fresh service resuming to 400 with gapless feedback."""
+    from repro_torch import prng
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    n, interval, kill_at = RUNTIME_CKPT
+
+    class Preempting(CheckpointManager):
+        def save(self, step, *args, **kwargs):
+            out = super().save(step, *args, **kwargs)
+            if step >= kill_at:
+                self.request_preemption()
+            return out
+
+    cfg = resume_cfg()
+    key = prng.key(SEED + 5)
+    draw = {"amper_sample": 1}
+    mgr = Preempting(root, save_interval=interval)
+    r1, s1, got1 = runtime_run("runtime_e", runtime_service(cfg), key, n,
+                               draw, manager=mgr)
+    add_launches(state, got1)
+    m1 = r1.metrics
+    cut = m1["preempted_at"]
+    if cut is None or not kill_at <= cut < n:
+        fail("runtime_e", f"preempted at {cut}, not in [{kill_at}, {n})")
+    if m1["snapshot"]["saved"] < 2 or m1["snapshot"]["drain_cycles"] != 0:
+        fail("runtime_e", f"snapshots {m1['snapshot']}")
+    r2, s2, got2 = runtime_run(
+        "runtime_e", runtime_service(cfg), key, n, draw,
+        manager=CheckpointManager(root, save_interval=interval))
+    add_launches(state, got2)
+    m2 = r2.metrics
+    if m2["resumed_from"] != cut or m2["total_learner_steps"] != n:
+        fail("runtime_e", f"resumed from {m2['resumed_from']} to "
+             f"{m2['total_learner_steps']}, want {cut} to {n}")
+    if m1["feedback_seqs"] + m2["feedback_seqs"] != list(range(n)):
+        fail("runtime_e", "feedback across the two runs not gapless")
+    return {"target": n, "save_interval": interval, "preempted_at": cut,
+            "snapshot": m1["snapshot"], "checkpoint": m1["checkpoint"],
+            "resumed_snapshot": m2["snapshot"],
+            "resumed_checkpoint": m2["checkpoint"],
+            "first": runtime_summary(r1, s1, got1),
+            "resumed": runtime_summary(r2, s2, got2)}
+
+
+def runtime_probe(state: dict) -> dict:
+    """(f) (b) with telemetry on: every probe re-derives the production
+    slab draw it follows (the same key, the same row priorities), and
+    the health gauges are finite."""
+    from repro_torch import obs, prng
+    from repro_torch.obs import probes
+
+    svc = runtime_service(resume_cfg(), telemetry=obs.Telemetry(
+        probe_every=RUNTIME_PROBE_EVERY))
+    seen = checked_draws(svc)   # keeps each draw's key and priorities
+    make_probe = probes.make_replay_probe
+    checked = []
+
+    def checking(sampler, batch):
+        probe = make_probe(sampler, batch)
+
+        def run(st, key):
+            out = probe(st, key)
+            if not (torch.equal(key, seen["key"]) and torch.equal(
+                    out[4], seen["prio"] / sampler.cfg.v_max)):
+                raise AssertionError("the probe's draw != the production "
+                                     "draw it follows")
+            checked.append(True)
+            return out
+
+        return run
+
+    probes.make_replay_probe = checking
+    try:
+        res, s, got = runtime_run("runtime_f", svc, prng.key(SEED + 6),
+                                  RUNTIME_ASYNC, {"amper_sample": 1},
+                                  seen=seen)
+    finally:
+        probes.make_replay_probe = make_probe
+    add_launches(state, got)
+    health = res.metrics["health"]
+    if not (checked and len(checked) == health["probe_draws"]
+            and all(np.isfinite(v) for v in health.values())):
+        fail("runtime_f", f"{len(checked)} probes checked, health {health}")
+    return {**runtime_summary(res, s, got), "probes_equal_draw":
+            len(checked), "health": health}
+
+
+def runtime_pixel(state: dict) -> dict:
+    """(g) Breakout on the uint8 frame store: one actor, fused; two
+    actors are refused."""
+    from repro_torch import prng
+
+    cfg = resume_cfg(env="breakout", history_len=4)
+    try:
+        runtime_service(cfg, num_actors=2)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("runtime_g", "a frame store accepted two actors")
+    svc = runtime_service(cfg, num_actors=1)
+    res, s, got = runtime_run("runtime_g", svc, prng.key(SEED + 7),
+                              RUNTIME_PIXEL, {"amper_sample": 1})
+    add_launches(state, got)
+    if res.buffer.storage["frame"].dtype != torch.uint8:
+        fail("runtime_g", "the frame store is not uint8")
+    return {**runtime_summary(res, s, got), "two_actors_refused": refused}
+
+
+SPLIT_STEPS = 200   # learner steps a service setting of runtime_split
+
+
+def split_wall_ms(fn, calls: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def split_alone() -> dict:
+    """Each stage's work alone on the main thread and the default stream,
+    synchronized (host wall ms a call, mean), on a buffer filled by 150
+    ``train`` steps: one ``act`` step, one rollout chunk, one slab of 4
+    ``learn`` steps, one slab draw of 256 rows, one ``add_block`` of a
+    chunk and one feedback apply."""
+    from repro_torch import prng
+    from repro_torch.rl.dqn import make_dqn
+    from repro_torch.runtime.actor import make_rollout
+    from repro_torch.runtime.learner import make_slab_learner
+    from repro_torch.runtime.pipeline import make_slab_sampler
+
+    cfg = resume_cfg()
+    dqn = make_dqn(cfg, device="cuda")
+    st, _ = dqn.train(prng.key(SEED), 150)
+    rb = dqn.replay
+    sample = make_slab_sampler(rb, cfg.batch, 4)
+    key = prng.key(7)
+    idx, batch, w, stamp = sample(st.buffer, key, 0.4)
+    learn = make_slab_learner(dqn)
+    roll = make_rollout(dqn, 32)
+    ep = torch.zeros(cfg.num_envs, device="cuda")
+    block = roll(st.params, st.env_state, st.obs, 0, ep, None, key)[4]
+    td = torch.rand(idx.shape, device="cuda")
+    buf = {"state": st.buffer}
+
+    def add():
+        buf["state"] = rb.add_block(buf["state"], block, aggregated=True)
+
+    def apply():
+        buf["state"] = rb.update_priorities(
+            buf["state"], idx.reshape(-1), td.reshape(-1),
+            stamp=stamp.reshape(-1, 2))
+
+    return {"act_ms": split_wall_ms(lambda: dqn.act(
+                st.params, st.env_state, st.obs, 0, key), 64),
+            "rollout_chunk_ms": split_wall_ms(lambda: roll(
+                st.params, st.env_state, st.obs, 0, ep, None, key), 3),
+            "learn_slab_ms": split_wall_ms(lambda: learn(
+                st.params, st.target_params, st.opt_m, st.opt_v, 0, batch,
+                w), 10),
+            "slab_draw_ms": split_wall_ms(
+                lambda: sample(st.buffer, key, 0.4), 20),
+            "add_block_ms": split_wall_ms(add, 10),
+            "apply_feedback_ms": split_wall_ms(apply, 10)}
+
+
+def split_service(actors: int, ratio: int, threads: int | None,
+                  switch: float | None, profile: bool) -> dict:
+    """The async service for ``SPLIT_STEPS`` learner steps (no plain
+    check): learner steps/s and the stages' span means, with PyTorch's
+    intra-op threads at ``threads`` and the interpreter's switch interval
+    at ``switch`` when given (restored after); with ``profile`` also the
+    card's busy share (every kernel's and copy's device time over the
+    run's wall time, torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from repro_torch import obs, prng
+
+    reg = obs.Registry()
+    svc = runtime_service(resume_cfg(), num_actors=actors, ratio=ratio,
+                          telemetry=obs.Telemetry(registry=reg,
+                                                  probe_every=0))
+    old, old_switch = torch.get_num_threads(), sys.getswitchinterval()
+    if threads is not None:
+        torch.set_num_threads(threads)
+    if switch is not None:
+        sys.setswitchinterval(switch)
+    try:
+        if profile:
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = svc.run(prng.key(SEED + 1), SPLIT_STEPS)
+                wall = time.perf_counter() - t0
+            busy_us = sum(e.self_device_time_total
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA)
+        else:
+            res = svc.run(prng.key(SEED + 1), SPLIT_STEPS)
+    finally:
+        torch.set_num_threads(old)
+        sys.setswitchinterval(old_switch)
+    snap = reg.snapshot()
+    spans = {}
+    for name in RUNTIME_SPANS:
+        st = obs.hist_stats(snap.data[f"span_{name}_ms"],
+                            snap.meta[f"span_{name}_ms"]["bounds"])
+        spans[name] = {"count": st["count"], "mean_ms": st["mean"]}
+    m = res.metrics
+    out = {"actors": actors, "env_steps_per_learner_step": ratio,
+           "intra_op_threads": threads or old,
+           "switch_interval_s": switch or old_switch,
+           "learner_steps_per_s": m["learner_steps_per_sec"],
+           "frames_per_s": m["frames_per_sec"],
+           "queue_depth": m["queue_depth"], "host_ms": spans}
+    if profile:
+        out["device_busy_share"] = busy_us / 1e6 / wall
+    return out
+
+
+def phase_runtime_split(state: dict) -> None:
+    """Where the runtime's time goes: each stage alone (``split_alone``),
+    then the service in five settings, in turns, the actors capped at
+    the phase's one env step a learner step unless said: one actor; two
+    actors (with the card's busy share); two capped at 4 env steps (the
+    cap of ``examples/torch_async_dqn.py``); two with one intra-op CPU
+    thread; two with the switch interval at 0.2 ms (1/25 of the
+    interpreter's 5 ms)."""
+    out = {"alone": split_alone(), "service": [
+        split_service(actors, ratio, threads, switch, profile)
+        for actors, ratio, threads, switch, profile in (
+            (1, RUNTIME_RATIO, None, None, False),
+            (2, RUNTIME_RATIO, None, None, True),
+            (2, 4, None, None, False),
+            (2, RUNTIME_RATIO, 1, None, False),
+            (2, RUNTIME_RATIO, None, 2e-4, False))]}
+    emit({"phase": "runtime_split", "ok": True, "steps": SPLIT_STEPS,
+          "nvidia_smi": state["smi"], **out})
+
+
+def phase_runtime(state: dict) -> None:
+    """The async replay runtime on the card, (a)-(g): CartPole, 16 envs
+    an actor, batch 64, hidden 128, a 1M-row replay, AMPER-fr (m 20,
+    lambda' 2.0, CSP ratio 0.15, v_max 8), chunk 32, slab 4, prefetch
+    depth 2, learn_start 100.  Every slab draw of (b)-(g) is held
+    against the plain draw while the lock is held, launch counts are
+    exact, and each run reports its stages' host ms from its spans.
+    ``runtime_split`` splits the time further."""
+    from repro_torch import prng
+    from repro_torch.distributed.sharding import Mesh
+
+    root = os.path.join(ROOT, "build", "runtime_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = {"a": runtime_sync(state)}
+    for name, n, cfg, per_draw, mesh in (
+            ("b", RUNTIME_ASYNC, resume_cfg(), {"amper_sample": 1}, None),
+            ("c", RUNTIME_SHORT, resume_cfg(amper_fr_mode="kernel"),
+             {"multi_query_match": 1}, None),
+            ("d", RUNTIME_SHORT, resume_cfg(sampler="amper-fr-sharded"),
+             {"multi_query_match": SHARDS, "rank_select": SHARDS},
+             Mesh([torch.device("cuda", 0)] * SHARDS))):
+        res, seen, got = runtime_run(
+            f"runtime_{name}", runtime_service(cfg, mesh=mesh),
+            prng.key(SEED + len(out)), n, per_draw)
+        add_launches(state, got)
+        out[name] = runtime_summary(res, seen, got)
+    try:
+        out["e"] = runtime_ckpt(state, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["f"] = runtime_probe(state)
+    out["g"] = runtime_pixel(state)
+    sync_rate = out["a"]["learner_steps_per_s"]
+    emit({"phase": "runtime", "ok": True, "replay": N_ROWS,
+          "actors": 2, "chunk": 32, "slab": 4, "prefetch_depth": 2,
+          "max_replay_ratio": RUNTIME_RATIO * 16,
+          "async_over_sync": out["b"]["learner_steps_per_s"] / sync_rate,
+          "phase_s": time.perf_counter() - t0, "nvidia_smi": state["smi"],
+          **out})
+
 # Decode vs prefill in float32, relative to max |logit|.  Both paths are
 # float32 throughout (TF32 off) and differ only in the order of their sums
 # (GEMM vs GEMV, the flash vs the decode kernel).  Sound runs on the H100
@@ -2300,6 +2798,10 @@ def main(argv=None) -> int:
         phase_pixel(state, trace_dir)
     if "resume" in phases:
         phase_resume(state)
+    if "runtime" in phases:
+        phase_runtime(state)
+    if "runtime_split" in phases:
+        phase_runtime_split(state)
     if "serve" in phases:
         phase_serve(state, trace_dir)
     rows = []

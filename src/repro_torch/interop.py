@@ -57,14 +57,20 @@ def _sampler_state(s, device, sampler=None):
     raise TypeError(f"no port of sampler state {type(s).__name__}")
 
 
+def nstep_state_from_jax(ns, device="cuda") -> NStepState | None:
+    """A reference n-step window (``NStepState``, numpy leaves; the
+    buffer's or an actor's own) as the port's, or None for None."""
+    if ns is None:
+        return None
+    return NStepState(
+        ring={k: to_tensor(v, device) for k, v in ns.ring.items()},
+        count=int(ns.count), pos=int(ns.pos))
+
+
 def replay_state_from_jax(rs, device="cuda", sampler=None) -> ReplayState:
     """A reference ``ReplayState`` (numpy leaves) as the port's; pass the
     port's ``sampler`` for a sharded sampler state."""
-    nstep = None
-    if rs.nstep is not None:
-        nstep = NStepState(
-            ring={k: to_tensor(v, device) for k, v in rs.nstep.ring.items()},
-            count=int(rs.nstep.count), pos=int(rs.nstep.pos))
+    nstep = nstep_state_from_jax(rs.nstep, device)
     return ReplayState(
         storage={k: to_tensor(v, device) for k, v in rs.storage.items()},
         sampler_state=_sampler_state(rs.sampler_state, device, sampler),

@@ -18,6 +18,7 @@ import threading
 import time
 from typing import Any
 
+from repro_torch.analysis.locks import make_lock
 from repro_torch.obs.metrics import Registry, Snapshot
 
 SCHEMA_VERSION = 1
@@ -45,7 +46,7 @@ class JsonlExporter:
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.jsonl_exporter")
         self._f = open(path, "a", buffering=1)
         self.lines_written = 0
 

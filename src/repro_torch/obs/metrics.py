@@ -9,7 +9,8 @@ percentiles from equal observations.  All of it runs on the host.
 * Every instrument keeps one *cell* per writer thread; a thread only
   ever mutates its own cell, so the write path is a plain attribute
   update under the GIL (no lock, no cross-thread cache traffic).
-* The registry's ``threading.Lock`` is taken only when a thread touches
+* The registry's lock (tracked as ``obs.registry`` by
+  :mod:`repro_torch.analysis.locks`) is taken only when a thread touches
   an instrument for the first time (cell creation) and when a reader
   snapshots: reads merge all cells into one immutable :class:`Snapshot`,
   so a half-updated cell is at worst one event stale, never torn.
@@ -24,6 +25,8 @@ import math
 import threading
 import time
 from typing import Any, Iterable
+
+from repro_torch.analysis.locks import make_lock
 
 # Default wall-time buckets for span histograms: 10us .. ~5.6s in
 # quarter-decade steps (spans record milliseconds; slower outliers land
@@ -297,7 +300,7 @@ class Registry:
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.registry")
         self._instruments: dict[str, Instrument] = {}
 
     def _get(self, name: str, factory) -> Any:

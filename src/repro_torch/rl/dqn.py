@@ -132,6 +132,8 @@ class DQN(NamedTuple):
     train_ckpt: Callable     # (key, n_steps, CheckpointManager)
     #                          -> (AgentState, metrics, done_steps)
     load_ckpt: Callable      # (directory, step) -> AgentState
+    ckpt_target: Callable    # () -> AgentState restore target (buffer on
+    #                          the meta device, in its saved form)
     act: Callable            # (params, env_state, obs, step, key)
     #                          -> (env_state, next_obs, transitions)
     learn: Callable          # (params, target, m, v, step, batch, weights)
@@ -422,12 +424,18 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
         return states, {name: torch.stack([stack(m[name]) for m in metrics])
                         for name in metrics[0]}
 
+    def ckpt_target() -> AgentState:
+        """The restore target of a checkpointed :class:`AgentState`:
+        ``init``'s small leaves (params, moments, env state, counters) on
+        the device, and the buffer's saved form on the meta device (no
+        replay memory allocated)."""
+        return fresh(prng.key(0), rck.replay_target(rb, example_transition))
+
     def load_ckpt(directory: str, step: int) -> AgentState:
         """The :class:`AgentState` checkpointed at ``step``, on this
         agent's device and replay shards (a checkpoint holds a sharded
         table dense, so it restores onto any shard count)."""
-        target = fresh(prng.key(0), rck.replay_target(rb, example_transition))
-        state = ckpt_mod.restore(directory, step, target, device=dev)
+        state = ckpt_mod.restore(directory, step, ckpt_target(), device=dev)
         return state._replace(buffer=rck.from_dense_view(rb, state.buffer))
 
     def train_ckpt(key: torch.Tensor, n_steps: int,
@@ -521,8 +529,9 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
     return DQN(init=init, agent_step=agent_step, train=train,
                train_many=train_many, evaluate=evaluate,
                evaluate_many=evaluate_many, train_ckpt=train_ckpt,
-               load_ckpt=load_ckpt, act=act, learn=learn, cfg=cfg,
-               env=env, venv=venv, replay=rb, beta_at=beta_at,
+               load_ckpt=load_ckpt, ckpt_target=ckpt_target, act=act,
+               learn=learn, cfg=cfg, env=env, venv=venv, replay=rb,
+               beta_at=beta_at,
                q_apply=q_apply, example_transition=example_transition,
                init_obs=init_obs)
 
