@@ -9,11 +9,21 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each kernel against its plain PyTorch version at the main path's shapes
 (n = 1,000,000 replay rows, or one 250,000-row shard of them), captures
 the two draw kernels in one CUDA graph and holds its replays, and the
-eager calls after them, against the plain versions, trains
-the DQN + AMPER-fr agent on CartPole through the fused draw kernel,
+eager calls after them, against the plain versions, holds the PRNG
+kernel (jax.random's threefry on keys on the card) against its plain
+version bit for bit, trains
+the DQN + AMPER-fr agent on CartPole through the fused draw kernel
+with its step keys and schedules on the card and its steady step
+captured in a CUDA graph (held bit for bit against the eager run on host
+keys, and timed beside it),
 through the match kernel, and through the sharded draw (4 shards on the
 card: the match and rank-select kernels on every shard) with the
-standard 1M-transition replay memory, trains the paper's learning path
+standard 1M-transition replay memory, measures Fig. 9 on the card (the
+port's sum-tree and cumsum PER per batch at 5k-1M rows beside the AM
+latency model's modeled numbers), counts the kernel launches of a
+fused draw and of a captured step against the committed launch budget
+(``python -m repro_torch.analysis --launch-budget``), trains the paper's
+learning path
 (AMPER-k on Acrobot and AMPER-fr through the draw kernel on MountainCar,
 two seeds in lockstep through ``train_many``, each held bit for bit
 against ``train`` of one seed) and holds AMPER-k's three kNN modes on
@@ -48,9 +58,11 @@ line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero without that line.  There is no fallback to the CPU: without a
 CUDA device the script exits with code 2.
 
-``--phases`` picks a subset (device,match,sample,rank,graph,tcam,flash,
-decode,fused,kernel,sharded,table1,pixel,resume,runtime,serve) for
-debugging; every phase runs by default.  ``runtime_split`` (named in
+``--phases`` picks a subset (device,match,sample,rank,graph,prng,tcam,
+flash,decode,fused,kernel,sharded,fig9,launch_budget,table1,pixel,resume,
+runtime,serve) for debugging; every phase runs by default.  Each
+training phase's line says whether its steps were captured
+(``"captured"``).  ``runtime_split`` (named in
 ``--phases`` only) splits the runtime's time: each stage alone, then the
 service in five settings.
 ``--profile`` adds a torch.profiler window after each training phase and
@@ -78,9 +90,9 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 SHARDS = 4                   # logical shards of the sharded phase, on one card
-PHASES = ("device", "match", "sample", "rank", "graph", "tcam", "flash",
-          "decode", "fused", "kernel", "sharded", "table1", "pixel",
-          "resume", "runtime", "serve")
+PHASES = ("device", "match", "sample", "rank", "graph", "prng", "tcam",
+          "flash", "decode", "fused", "kernel", "sharded", "fig9",
+          "launch_budget", "table1", "pixel", "resume", "runtime", "serve")
 ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
 # The reference's kernel sweep (tests/test_kernels.py) and GQA group 4 at
@@ -807,6 +819,122 @@ def phase_graph(state: dict) -> None:
           "replay_ms": replay_ms, "eager_ms": eager_ms, "refused": refused})
 
 
+# The prng phase's cases: key seeds (words (0, 0), (0, 1), (2^32 - 1,
+# 2^32 - 1), (0, 2^32 - 1)), split counts, draw shapes, fold_in data and
+# randint bounds (spans 1, 2, 10, 2^31, 2^32 - 1, and an empty range).
+PRNG_SEEDS = (0, 1, 2 ** 64 - 1, 2 ** 32 - 1)
+PRNG_SPLITS = (2, 3, 4, 500, 1_000_000)
+PRNG_SHAPES = ((), (16,), (64,), (1_000_000,))
+PRNG_FOLDS = (0, 1, 12345, 2 ** 32 - 1)
+PRNG_BOUNDS = ((0, 1), (0, 2), (0, 10), (-2 ** 31, 0),
+               (-2 ** 31, 2 ** 31 - 1), (7, 7))
+PRNG_ENVS = 16  # the training step's env split: its call shape
+
+
+def phase_prng(state: dict) -> None:
+    """The ``prng`` kernel (``csrc/prng.cu``: jax.random's threefry on
+    keys on the card) held bit for bit against its plain int64 version
+    on the same keys on the card: split at n = 2 .. 1e6, fold_in,
+    bits, uniform (two ranges) and randint at shapes () to (1e6,), with
+    host bounds and with int32 / int64 bounds on the card, batched keys
+    (a contiguous and a strided batch) and edge keys; the small shapes
+    also against the host's numpy path.  One call is one launch; one call
+    at the training step's shape is timed beside the plain version."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import prng as kp
+
+    dev = torch.device("cuda")
+    cases = []
+
+    def check(case, got, want, host=None):
+        got_w = got.view(torch.int32) if got.dtype == torch.float32 else got
+        for name, w in (("plain", want), ("host", host)):
+            if w is None:
+                continue
+            w = w.to(dev)
+            w = w.view(torch.int32) if w.dtype == torch.float32 else w
+            if got.shape != w.shape or not torch.equal(got_w, w):
+                fail("prng", f"{case}: kernel != {name} version")
+        cases.append(case)
+
+    for seed in PRNG_SEEDS:
+        kh = prng.key(seed)
+        k = kh.to(dev)
+        for n in PRNG_SPLITS:
+            check(f"split {seed} {n}", ops.prng_split(k, (n,)),
+                  kp.split_ref(k, (n,)), prng.split(kh, n) if n <= 500
+                  else None)
+        for d in PRNG_FOLDS:
+            check(f"fold_in {seed} {d}", ops.prng_fold_in(k, d),
+                  kp.fold_in_ref(k, d), prng.fold_in(kh, d))
+        for shape in PRNG_SHAPES:
+            small = len(shape) == 0 or shape[0] <= 64
+            check(f"bits {seed} {shape}", ops.prng_bits(k, shape),
+                  kp.bits_ref(k, shape), prng.bits(kh, shape) if small
+                  else None)
+            for lo, hi in ((0.0, 1.0), (-0.05, 0.05)):
+                check(f"uniform {seed} {shape} {lo} {hi}",
+                      ops.prng_uniform(k, shape, lo, hi),
+                      kp.uniform_ref(k, shape, lo, hi),
+                      prng.uniform(kh, shape, lo, hi) if small else None)
+            for lo, hi in PRNG_BOUNDS:
+                want = kp.randint_ref(k, shape, lo, hi)
+                host = prng.randint(kh, shape, lo, hi) if small else None
+                check(f"randint {seed} {shape} [{lo}, {hi})",
+                      ops.prng_randint(k, shape, lo, hi), want, host)
+                check(f"randint card bounds {seed} {shape} [{lo}, {hi})",
+                      ops.prng_randint(
+                          k, shape, torch.tensor(lo, device=dev),
+                          torch.tensor(hi, dtype=torch.int32, device=dev)),
+                      want, host)
+    batch = prng.split(prng.key(7), PRNG_ENVS).to(dev)   # contiguous
+    strided = prng.split(batch)[:, 1]                   # stride 4
+    for name, kb in (("batch", batch), ("strided batch", strided)):
+        kb_h = kb.cpu()
+        check(f"{name} split", ops.prng_split(kb, (3,)),
+              kp.split_ref(kb, (3,)), prng.split(kb_h, 3))
+        check(f"{name} fold_in", ops.prng_fold_in(kb, 9),
+              kp.fold_in_ref(kb, 9), prng.fold_in(kb_h, 9))
+        check(f"{name} uniform", ops.prng_uniform(kb, (4,), -0.05, 0.05),
+              kp.uniform_ref(kb, (4,), -0.05, 0.05),
+              prng.uniform(kb_h, (4,), -0.05, 0.05))
+        check(f"{name} randint", ops.prng_randint(kb, (), 0, 10),
+              kp.randint_ref(kb, (), 0, 10), prng.randint(kb_h, (), 0, 10))
+        check(f"{name} bits", ops.prng_bits(kb, (64,)),
+              kp.bits_ref(kb, (64,)), prng.bits(kb_h, (64,)))
+    # the module's dispatch: a key on the card goes to the kernel
+    before = ops.launches["prng"]
+    k = prng.key(11).to(dev)
+    check("prng.split on a card key", prng.split(k, PRNG_ENVS),
+          kp.split_ref(k, (PRNG_ENVS,)))
+    if ops.launches["prng"] != before + 1:
+        fail("prng", "repro_torch.prng.split on a card key did not launch")
+    one = one_kernel("prng", lambda: ops.prng_split(k, (PRNG_ENVS,)),
+                     "prng_kernel")
+    out = ops.prng_split(k, (PRNG_ENVS,))
+    ms = device_time_ms(lambda: ops.prng_split(k, (PRNG_ENVS,)))
+    plain_ms = device_time_ms(lambda: kp.split_ref(k, (PRNG_ENVS,)))
+    bound_ms = nbytes(k, out) / HBM_BYTES_PER_S * 1e3
+    big = ops.prng_bits(k, (1_000_000,))
+    ms_1e6 = device_time_ms(lambda: ops.prng_bits(k, (1_000_000,)))
+    plain_1e6 = device_time_ms(lambda: kp.bits_ref(k, (1_000_000,)),
+                               calls=5, reps=3)
+    bound_1e6 = nbytes(k, big) / HBM_BYTES_PER_S * 1e3
+    state["kernels"]["prng"] = {
+        "name": "prng", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/prng.cu",
+        "replaces": "none: jax.random's threefry2x32, which XLA runs "
+                    "(no pallas_call)",
+        "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+    emit({"phase": "prng", "ok": True, "cases": len(cases),
+          "launches_per_call": one, "call": f"split(key, {PRNG_ENVS})",
+          "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "kernel_ms_bits_1e6": ms_1e6, "plain_ms_bits_1e6": plain_1e6,
+          "bound_ms_bits_1e6": bound_1e6})
+
+
 def tcam_path(pq: torch.Tensor, valid: torch.Tensor, seed: int = SEED):
     """The paper's per-group TCAM search: the m prefix queries of one
     AMPER-fr draw, one ternary query per launch, ORed and ANDed with
@@ -1117,11 +1245,13 @@ def profile_window(dqn, st, out_dir: str, phase: str,
                          ("replay_sample", "csp_rebuild", "sharded_sample"))
 
 
-def prng_window(dqn, st, steps: int = 50):
+def prng_window(dqn, st, steps: int = 50, advance=None):
     """Host time spent in the port's PRNG over ``steps`` agent steps: the
     public draws of ``repro_torch.prng`` (outermost calls only) are timed
     with perf_counter.  A draw that lands on the card includes its copy
-    there, which waits for the work queued before it."""
+    there, which waits for the work queued before it.  The steps are
+    ``agent_step``s on host keys, or ``advance(steps)`` (a runner's next
+    steps, whose state it returns) where given."""
     from repro_torch import prng
 
     names = ("split", "fold_in", "bits", "uniform", "normal", "randint")
@@ -1148,8 +1278,11 @@ def prng_window(dqn, st, steps: int = 50):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for k in keys:
-            st, _ = dqn.agent_step(st, k)
+        if advance is not None:
+            st = advance(steps)
+        else:
+            for k in keys:
+                st, _ = dqn.agent_step(st, k)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -1175,14 +1308,34 @@ def plain_twin(sampler, fr_mode: str = "broadcast"):
     return amper.AmperSampler(cfg, device=sampler.device)
 
 
+def steady_learn_steps(cfg, a: int, b: int) -> int:
+    """Learn steps in [a, b) that do not sync the target: the steps a
+    captured run replays (all but its first, the warm-up)."""
+    return sum(1 for t in range(a, b) if t >= cfg.learn_start
+               and t % cfg.train_every == 0 and t % cfg.target_sync)
+
+
+def runner_steps(runner, steps: int) -> float:
+    """Wall seconds of the runner's next ``steps`` steps, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.advance(runner.state.step + steps)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def train_phase(state: dict, phase: str, steps: int, kernels: dict,
                 trace_dir: str | None = None, steady_steps: int = 200,
                 mesh=None, **cfg_kw) -> None:
-    """Train DQN on CartPole with a 1M replay through ``dqn.train`` and
+    """Train DQN on CartPole with a 1M replay through the trainer's runner
+    (``train`` is ``runner(init(key), key, n).advance(n)``: step keys and
+    schedules on the card, the steady step captured where it can be) and
     check that the run launched each kernel ``kernels[name]`` times per
-    learn step; then time steady learn steps, the host PRNG and the
-    draw, and hold the draw on the trained buffer (indices and IS
-    weights) against the same sampler's plain broadcast match."""
+    learn step (a graph replay counts the launches it holds) and the PRNG
+    kernel; then time steady learn steps, the host PRNG and the draw,
+    and hold the draw on the trained buffer (indices and IS weights)
+    against the same sampler's plain broadcast match.  The ``fused``
+    phase adds the captured run's parity and report (``fused_capture``)."""
     from repro_torch import prng
     from repro_torch.core.replay_buffer import ReplayBuffer
     from repro_torch.kernels import ops
@@ -1203,25 +1356,37 @@ def train_phase(state: dict, phase: str, steps: int, kernels: dict,
     # The main path, through the trainer's entry point.
     ops.reset_launches()
     t0 = time.perf_counter()
-    st, metrics = dqn.train(key, steps)
+    runner = dqn.runner(dqn.init(key), key, steps)
+    st = runner.advance(steps)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = dict(ops.launches)
+    launches, info = dict(ops.launches), runner.info
+    captured = info["captured"]
     learn_steps = sum(1 for t in range(steps)
                       if t >= cfg.learn_start and t % cfg.train_every == 0)
+    if captured and info["graph_replays"] != steady_learn_steps(
+            cfg, 0, steps) - 1:
+        fail(phase, f"{info['graph_replays']} graph replays, not every "
+             f"steady learn step but the warm-up")
     for kernel, per_step in kernels.items():
         if launches[kernel] != per_step * learn_steps:
             fail(phase, f"{kernel} launched {launches[kernel]} times in "
-                 f"{learn_steps} learn steps, not {per_step} a step")
+                 f"{learn_steps} learn steps ({info['graph_replays']} "
+                 f"replayed), not {per_step} a learn step")
         state["launches"][kernel] = (state["launches"].get(kernel, 0)
                                      + launches[kernel])
+    if launches["prng"] < 1:
+        fail(phase, "the run's step keys never reached the prng kernel")
+    state["launches"]["prng"] = (state["launches"].get("prng", 0)
+                                 + launches["prng"])
     flat = tree_leaves(st.params)
     if not all(bool(torch.isfinite(t).all()) for t in flat):
         fail(phase, "non-finite params")
-    losses = torch.stack(metrics["loss"])[cfg.learn_start:]
+    losses = torch.stack(runner.metrics["loss"])[cfg.learn_start:]
     if not bool(torch.isfinite(losses).all()):
         fail(phase, "non-finite loss")
-    # Steady state: learn steps past learn_start and warm-up, timed alone.
+    # Steady state: learn steps past learn_start and warm-up, timed alone
+    # (agent_step on host keys, the eager path of every phase).
     keys = prng.split(prng.key(SEED + 4), steady_steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1248,15 +1413,146 @@ def train_phase(state: dict, phase: str, steps: int, kernels: dict,
         prof["draw_kernels"] = check_draw_kernels(phase, sequence,
                                                   dict(ops.launches))
         emit({"phase": f"{phase}_profile", "ok": True, **prof})
+    capture = (fused_capture(state, dqn, st, steps, steady_steps, trace_dir)
+               if captured else {})
     emit({"phase": phase, "ok": True, "sampler": cfg.sampler,
-          "fr_mode": cfg.amper_fr_mode,
+          "fr_mode": cfg.amper_fr_mode, "captured": captured,
           "shards": getattr(dqn.replay.sampler, "n_shards", 1),
           "steps": steps, "learn_steps": learn_steps, "launches": launches,
+          "graph_replays": info["graph_replays"],
+          "eager_steps": info["eager_steps"], "capture_s": info["capture_s"],
+          "replay_launches": info["replay_launches"],
           "init_s": init_s, "train_s": train_s,
           "steady_steps": steady_steps, "steps_per_s": 1e3 / step_ms,
           "step_ms": step_ms, "draw_ms": draw_ms,
           "draw_share": draw_ms / step_ms, **prng_stats,
-          "loss_last": float(losses[-1]), "replay_rows": int(buf.size)})
+          "loss_last": float(losses[-1]), "replay_rows": int(buf.size),
+          **capture})
+
+
+PARITY_STEADY = 200   # steady steps of the captured-vs-eager parity run
+PARITY_FLOAT_TOL = 0.0  # params and Adam moments: bit for bit
+
+
+def fused_parity(dqn) -> dict:
+    """The captured run against the eager one on host keys, from one
+    seed, over ``learn_start + PARITY_STEADY`` steps: every step's
+    sampled rows, and the whole final state (ring, priorities, stamps,
+    counters, env state, returns ring, params, target, Adam moments)
+    bit for bit."""
+    from repro_torch import prng
+    from repro_torch.models.qhead import tree_leaves
+
+    cfg = dqn.cfg
+    n = cfg.learn_start + PARITY_STEADY
+    key = prng.key(SEED + 6)
+    runner = dqn.runner(dqn.init(key), key, n, record_idx=True)
+    a = runner.advance(n)
+    if not runner.info["captured"]:
+        fail("fused", "the parity run was not captured")
+    b, idx_b = dqn.init(key), []
+    for k in prng.split(prng.fold_in(key, 1), n):
+        b, m = dqn.agent_step(b, k)
+        idx_b.append(m["idx"])
+    torch.cuda.synchronize()
+    for t, (x, y) in enumerate(zip(runner.idx, idx_b)):
+        if (x is None) != (y is None) or (x is not None
+                                          and not torch.equal(x, y)):
+            fail("fused", f"step {t}: the captured draw != the eager one")
+    ints = [(a.buffer.storage[f], b.buffer.storage[f])
+            for f in a.buffer.storage]
+    ints += list(zip(a.buffer.sampler_state, b.buffer.sampler_state))
+    ints += [(a.buffer.write_stamp, b.buffer.write_stamp),
+             (a.buffer.write_gen, b.buffer.write_gen),
+             (a.buffer.max_priority, b.buffer.max_priority),
+             (a.env_state.x, b.env_state.x), (a.env_state.t, b.env_state.t),
+             (a.obs, b.obs), (a.episode_return, b.episode_return),
+             (a.last_returns, b.last_returns),
+             (a.n_episodes, b.n_episodes)]
+    if not all(same_bits(x, y) for x, y in ints):
+        fail("fused", "captured ring, priorities, env or returns != eager")
+    counters = ("pos", "size", "total_adds", "add_gen")
+    if any(getattr(a.buffer, c) != getattr(b.buffer, c) for c in counters):
+        fail("fused", "captured ring counters != eager")
+    floats = [(x, y) for f in ("params", "target_params", "opt_m", "opt_v")
+              for x, y in zip(tree_leaves(getattr(a, f)),
+                              tree_leaves(getattr(b, f)))]
+    diff = max(float((x - y).abs().max()) for x, y in floats)
+    if diff > PARITY_FLOAT_TOL:
+        fail("fused", f"captured params / Adam moments != eager: max |diff| "
+             f"{diff}")
+    return {"parity_steps": n, "parity_steady_steps": PARITY_STEADY,
+            "parity_graph_replays": runner.info["graph_replays"],
+            "parity_idx_steps": sum(x is not None for x in idx_b),
+            "parity_int_state_bit_equal": True,
+            "parity_float_bit_equal": all(same_bits(x, y)
+                                          for x, y in floats),
+            "parity_float_tolerance": PARITY_FLOAT_TOL,
+            "parity_float_max_abs_diff": diff}
+
+
+def fused_capture(state: dict, dqn, st, steps: int, steady_steps: int,
+                  trace_dir: str | None) -> dict:
+    """The ``fused`` phase's capture report: parity (``fused_parity``),
+    then steady steps/s, host PRNG ms a step, device operations a step
+    and the idle share, captured (the trainer's runner continued past
+    the main run) and eager (the same runner with ``capture=False``: keys
+    on the card; and ``agent_step`` on host keys), each profiled over a
+    20-step window whose draw launches are checked."""
+    from repro_torch import prng
+    from repro_torch.analysis.launches import graph_nodes
+    from repro_torch.kernels import ops
+
+    out = fused_parity(dqn)
+    cfg = dqn.cfg
+    span_names = ("replay_sample", "csp_rebuild", "sharded_sample")
+    base = st.step
+    n = base + 10 + steady_steps + 50 + 20
+    cap = dqn.runner(st, prng.key(SEED + 4), n)
+    cap.advance(base + 10)  # warm-up and capture
+    cap_s = runner_steps(cap, steady_steps)
+    _, cap_prng = prng_window(dqn, None, 50, lambda k: cap.advance(
+        cap.state.step + k))
+    t_end = cap.state.step + 20
+    window_learn = sum(1 for t in range(cap.state.step, t_end)
+                       if t >= cfg.learn_start)
+    ops.reset_launches()
+    cap_prof = profile_steps(lambda: cap.advance(cap.state.step + 1), 20,
+                             trace_dir or os.path.join(ROOT, "profile_out"),
+                             "fused_captured_steps", span_names)
+    got = dict(ops.launches)  # a replay counts the launches it holds
+    if got["amper_sample"] != window_learn:
+        fail("fused", f"{got['amper_sample']} amper_sample launches in a "
+             f"window of {window_learn} learn steps")
+    cap_prof["draw_kernels"] = check_draw_kernels(
+        "fused", cap_prof.pop("kernel_sequence"), got)
+    base = cap.state.step
+    eag = dqn.runner(cap.state, prng.key(SEED + 5),
+                     base + 10 + steady_steps + 50, capture=False)
+    eag.advance(base + 10)
+    eag_s = runner_steps(eag, steady_steps)
+    st, eag_prng = prng_window(dqn, None, 50, lambda k: eag.advance(
+        eag.state.step + k))
+    ops.reset_launches()
+    host_prof = profile_window(dqn, st, trace_dir or os.path.join(
+        ROOT, "profile_out"), "fused_host_keys")
+    host_prof["draw_kernels"] = check_draw_kernels(
+        "fused", host_prof.pop("kernel_sequence"), dict(ops.launches))
+    if trace_dir is None:
+        shutil.rmtree(os.path.join(ROOT, "profile_out"), ignore_errors=True)
+    keep = ("wall_ms_per_step", "device_busy_ms_per_step",
+            "device_idle_share", "kernel_launches_per_step")
+    return {**out, "capture_steps_per_s": steady_steps / cap_s,
+            "capture_step_ms": cap_s / steady_steps * 1e3,
+            "capture_prng_host_ms_per_step": cap_prng["prng_host_ms_per_step"],
+            "capture_prng_calls_per_step": cap_prng["prng_calls_per_step"],
+            "capture_profile": {k: cap_prof[k] for k in keep},
+            "capture_graph_nodes": graph_nodes(cap.graph),
+            "capture_replay_launches": cap.info["replay_launches"],
+            "eager_card_keys_steps_per_s": steady_steps / eag_s,
+            "eager_card_keys_prng_host_ms_per_step":
+                eag_prng["prng_host_ms_per_step"],
+            "eager_host_keys_profile": {k: host_prof[k] for k in keep}}
 
 
 def per_sharded_run(mesh, steps: int = 100) -> None:
@@ -1281,10 +1577,158 @@ def per_sharded_run(mesh, steps: int = 100) -> None:
             and all(bool(torch.isfinite(t).all())
                     for t in tree_leaves(st.params))):
         fail("sharded", "per-sharded run: non-finite returns, loss or params")
-    emit({"phase": "sharded_per", "ok": True, "sampler": cfg.sampler,
+    emit({"phase": "sharded_per", "ok": True, "captured": False,
+          "sampler": cfg.sampler,
           "shards": dqn.replay.sampler.n_shards, "steps": steps,
           "train_s": train_s, "return_mean_last": float(returns[-1]),
           "loss_last": float(losses[-1])})
+
+
+# Fig. 9: the paper's replay sizes (benchmarks/fig9_hw_latency.py) and
+# DQN's, at the paper's m, CSP ratio and batch.
+FIG9_SIZES = (5_000, 10_000, 20_000, 1_000_000)
+FIG9_M, FIG9_CSP_RATIO, FIG9_BATCH = 20, 0.15, 64
+FIG9_CALLS = 50
+FIG9_FILL = 8192  # rows a priority write while filling a table
+# the paper's headline bands against a GPU PER (x), Sec. 5.3
+FIG9_BANDS = {"k": (55, 170), "fr": (118, 270)}
+MODELED = ("the paper's 45 nm TCAM circuit model (Table 2 latencies, "
+           "repro_torch.core.hwmodel), not a measurement")
+
+
+def batch_times(fn, calls: int = FIG9_CALLS) -> tuple[float, float]:
+    """(host wall ms, device ms by CUDA events) of one synchronized
+    ``fn()`` call, each the median of ``calls``."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    wall, dev = [], []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return float(np.median(wall)), float(np.median(dev))
+
+
+def phase_fig9(state: dict) -> None:
+    """Fig. 9 against PER on this card: the per-batch time (a 64-row
+    ``sample`` and a 64-row priority ``update``, keys on the card) of the
+    port's ``per-sumtree`` and ``per-cumsum`` and of its AMPER-fr
+    ``fused`` draw, at 5k, 10k, 20k and 1M rows, host wall and CUDA
+    events, medians of ``FIG9_CALLS``; beside them the modeled AMPER-fr
+    and AMPER-k latencies and their speedups over the measured sum tree,
+    with the paper's bands.  The model is the paper's circuit model, not
+    a measurement, and every line says so."""
+    from repro_torch import prng
+    from repro_torch.core import hwmodel as hw
+    from repro_torch.core.samplers import make_sampler
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    for n in FIG9_SIZES:
+        row = {"phase": "fig9", "ok": True, "rows": n, "m": FIG9_M,
+               "csp_ratio": FIG9_CSP_RATIO, "batch": FIG9_BATCH,
+               "card": state["smi"], "calls": FIG9_CALLS}
+        fill = prng.uniform(prng.key(SEED).to(dev), (n,)) + 0.01
+        new_p = prng.uniform(prng.key(SEED + 1).to(dev),
+                             (FIG9_BATCH,)) + 0.01
+        for kind in ("per-sumtree", "per-cumsum", "amper-fr"):
+            sampler = make_sampler(kind, n, device=dev, m=FIG9_M,
+                                   lam_fr=2.0, csp_ratio=FIG9_CSP_RATIO,
+                                   v_max=1.1, min_csp=FIG9_BATCH,
+                                   fr_mode="fused")
+            st = sampler.init()
+            for lo in range(0, n, FIG9_FILL):  # unique rows a write
+                rows = torch.arange(lo, min(lo + FIG9_FILL, n), device=dev)
+                st = sampler.update(st, rows, fill[rows])
+            keys = iter(prng.split(prng.key(SEED + 2).to(dev),
+                                   FIG9_CALLS + 3))
+
+            def batch(sampler=sampler, st=st, keys=keys):
+                idx = sampler.sample(st, next(keys), FIG9_BATCH)
+                sampler.update(st, idx.long(), new_p)
+
+            wall, events = batch_times(batch)
+            row[f"{kind}_ms_wall"], row[f"{kind}_ms_events"] = wall, events
+        cfg = hw.HwConfig(er_size=n, m=FIG9_M, csp_ratio=FIG9_CSP_RATIO,
+                          batch=FIG9_BATCH)
+        gpu_us = row["per-sumtree_ms_wall"] * 1e3
+        gpu_dev_us = row["per-sumtree_ms_events"] * 1e3
+        row.update({
+            "modeled": MODELED,
+            "modeled_fr_ns": hw.latency_fr_ns(cfg),
+            "modeled_k_ns": hw.latency_k_ns(cfg),
+            "modeled_update_ns": hw.latency_update_ns(cfg),
+            "modeled_speedup_fr_vs_sumtree_wall":
+                hw.speedup_vs_gpu(cfg, gpu_us, "fr"),
+            "modeled_speedup_k_vs_sumtree_wall":
+                hw.speedup_vs_gpu(cfg, gpu_us, "k"),
+            "modeled_speedup_fr_vs_sumtree_events":
+                hw.speedup_vs_gpu(cfg, gpu_dev_us, "fr"),
+            "modeled_speedup_k_vs_sumtree_events":
+                hw.speedup_vs_gpu(cfg, gpu_dev_us, "k"),
+            "paper_band_fr": FIG9_BANDS["fr"],
+            "paper_band_k": FIG9_BANDS["k"]})
+        if not all(np.isfinite(v) and v > 0 for k, v in row.items()
+                   if k.endswith(("_wall", "_events", "_ns"))):
+            fail("fig9", f"non-finite or non-positive time at {n} rows")
+        emit(row)
+    emit({"phase": "fig9_done", "ok": True, "modeled": MODELED,
+          "phase_s": time.perf_counter() - t0})
+
+
+def phase_launch_budget(state: dict) -> None:
+    """``python -m repro_torch.analysis --launch-budget`` in a process of
+    its own: the kernel nodes of the fused draw's graph and of the
+    trainer's captured step against the committed budget; a finding
+    fails the run.  Then the same graphs built and profiled in this
+    process, after the run's other profiler sessions, and the kernel
+    names each reading missed or added against the fresh process's: the
+    profiler's losses, reported and not held (``analysis/launches.py``)."""
+    from collections import Counter
+
+    from repro_torch.analysis import launches
+
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--launch-budget",
+         "--format", "json"], capture_output=True, text=True, timeout=600,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    rc = out.returncode
+    try:
+        payload = json.loads(out.stdout)
+    except ValueError:
+        fail("launch_budget", f"exit {rc}, no findings payload: "
+             f"{out.stderr.strip()[-400:]}")
+    counts = payload.get("launch_counts", {})
+    if rc != 0:
+        fail("launch_budget", f"exit {rc}: {payload['findings']}; nodes "
+             f"{ {k: v['nodes'] for k, v in counts.items()} }")
+    draw, inputs = launches.captured_draw()
+    runner = launches.captured_step()
+    here = {}
+    for name, g in (("amper-fr-fused draw", draw),
+                    ("captured agent step", runner.graph)):
+        seen, names = launches.profiled_kernels(g.replay)
+        fresh = Counter(counts[name]["profiled_names"])
+        here[name] = {
+            "nodes": launches.graph_nodes(g), "profiled_kernels": seen,
+            "missed_vs_fresh": {k[:100]: v for k, v in (fresh - names)
+                                .items()},
+            "added_vs_fresh": {k[:100]: v for k, v in (names - fresh)
+                               .items()}}
+    del inputs, runner
+    emit({"phase": "launch_budget", "ok": True, "exit": rc,
+          "fresh_process": {k: {"nodes": v["nodes"],
+                                "profiled_kernels": v["profiled_kernels"]}
+                            for k, v in counts.items()},
+          "this_process": here, "budgets": launches.BUDGETS,
+          "budget_card": launches.BUDGET_CARD, "card": state["smi"]})
 
 
 def same_agent_state(a, b) -> bool:
@@ -1432,7 +1876,8 @@ def phase_table1(state: dict) -> None:
         if not torch.equal(idx, idx_b) or not torch.equal(w, w_b):
             fail("table1", f"the {mode} draw != the broadcast draw on the "
                  "trained buffer")
-    emit({"phase": "table1", "ok": True, "runs": out, "replay": N_ROWS,
+    emit({"phase": "table1", "ok": True, "captured": False, "runs": out,
+          "replay": N_ROWS,
           "knn_modes": knn, "knn_cpu_exact": True,
           "fr_modes_equal_broadcast": sorted(draws)})
 
@@ -1544,8 +1989,10 @@ def pixel_check(phase: str, dqn, st, key) -> dict:
 def pixel_launches(phase: str, launches: dict, per_step: dict,
                    learn_steps: int) -> None:
     """Fail unless the run launched each replay kernel ``per_step`` times a
-    learn step and no other kernel."""
+    learn step and no other kernel (the PRNG kernel aside: ``train``'s
+    keys live on the card)."""
     want = {k: per_step.get(k, 0) * learn_steps for k in launches}
+    want["prng"] = launches["prng"]
     if launches != want:
         fail(phase, f"launches {launches}, want {want} ({learn_steps} "
              "learn steps)")
@@ -1626,7 +2073,8 @@ def pixel_run(state: dict, run, trace_dir: str | None) -> None:
         sequence = prof.pop("kernel_sequence")
         prof["draw_kernels"] = check_draw_kernels(phase, sequence,
                                                   dict(ops.launches))
-    emit({"phase": "pixel", "run": name, "ok": True, "env": env,
+    emit({"phase": "pixel", "run": name, "ok": True, "captured": False,
+          "env": env,
           "sampler": sampler, "agent": agent, "n_step": n_step,
           "fr_mode": fr_mode,
           "shards": getattr(dqn.replay.sampler, "n_shards", 1),
@@ -1713,7 +2161,8 @@ def pixel_train_many(state: dict, run, trace_dir: str | None) -> None:
         sequence = prof.pop("kernel_sequence")
         prof["draw_kernels"] = check_draw_kernels(phase, sequence,
                                                   dict(ops.launches))
-    emit({"phase": "pixel", "run": name, "ok": True, "env": env,
+    emit({"phase": "pixel", "run": name, "ok": True, "captured": False,
+          "env": env,
           "sampler": sampler, "agent": agent, "n_step": n_step,
           "fr_mode": fr_mode, "seeds": PIXEL_SEEDS, "steps": steps,
           "learn_steps_per_seed": learn_steps, "launches": launches,
@@ -1784,14 +2233,16 @@ def resume_cfg(**kw):
 
 def counted(phase: str, want: dict, fn):
     """``fn()`` with the kernels' counts zeroed just before and read just
-    after; the phase fails unless they equal ``want`` (absent = 0)."""
+    after; the phase fails unless they equal ``want`` (absent = 0), the
+    PRNG kernel's aside (its count follows where the keys live)."""
     from repro_torch.kernels import ops
 
     ops.reset_launches()
     out = fn()
     torch.cuda.synchronize()
     got = dict(ops.launches)
-    if got != {k: want.get(k, 0) for k in got}:
+    if {k: v for k, v in got.items() if k != "prng"} != {
+            k: want.get(k, 0) for k in got if k != "prng"}:
         fail(phase, f"launches {got}, want {want}")
     return out, got
 
@@ -1915,14 +2366,14 @@ def resume_flat(state: dict, root: str) -> dict:
     """(a) and (d): CartPole fused AMPER-fr at 1M rows."""
     from repro_torch import obs, prng
     from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.rl.dqn import make_dqn
+    from repro_torch.rl.dqn import REPLAYED_DRAWS, make_dqn
 
     cfg = resume_cfg()
     n, interval = RESUME_A
     dqn = make_dqn(cfg, device="cuda")
     key = prng.key(SEED)
 
-    def draws(a, b):
+    def draws(a, b):  # one train / train_ckpt call over [a, b)
         return {"amper_sample": learn_steps_between(cfg, a, b)}
 
     t0 = time.perf_counter()
@@ -1963,9 +2414,14 @@ def resume_flat(state: dict, root: str) -> dict:
                if r["kind"] == "snapshot"][-1]["metrics"]
     spans = {name: metrics[f"span_{name}_ms"]["count"]
              for name in ("replay_sample", "checkpoint_save")}
-    if spans != {"replay_sample": learn_steps_between(cfg, 0, n),
-                 "checkpoint_save": n // interval}:
-        fail("resume_d", f"span counts {spans}")
+    # a replayed draw records no span but counts in REPLAYED_DRAWS: the
+    # eager learn steps and the warm-up record spans, the replays count
+    replayed = metrics[REPLAYED_DRAWS]["value"]
+    steady = steady_learn_steps(cfg, 0, n)
+    if spans != {"replay_sample": learn_steps_between(cfg, 0, n)
+                 - steady + 1, "checkpoint_save": n // interval} \
+            or replayed != steady - 1:
+        fail("resume_d", f"span counts {spans}, {replayed} replayed draws")
     if not same_state(st_a, st_d):
         fail("resume_d", "the run with telemetry ended in another state")
     del st_d
@@ -1989,7 +2445,7 @@ def resume_flat(state: dict, root: str) -> dict:
                   "resume_s": resume_s,
                   "equal_resumed_uninterrupted_train": True, **saves},
             "d": {"launches": got_d, "run_s": run_d_s,
-                  "span_counts": spans,
+                  "span_counts": spans, "replayed_draws": replayed,
                   "span_checkpoint_save_ms": metrics[
                       "span_checkpoint_save_ms"],
                   "span_replay_sample_ms_mean": metrics[
@@ -2154,7 +2610,11 @@ def phase_resume(state: dict) -> None:
     finally:
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(root, ignore_errors=True)
-    emit({"phase": "resume", "ok": True, "replay": N_ROWS, **out})
+    # (a) and (d) run train_ckpt on the captured step; (b) and (c) are
+    # pixel runs, eager
+    emit({"phase": "resume", "ok": True, "replay": N_ROWS,
+          "captured": {"a": True, "b": False, "c": False, "d": True},
+          **out})
 
 
 
@@ -2308,6 +2768,7 @@ def runtime_sync(state: dict) -> dict:
     want = {"amper_sample": learn_steps_between(cfg, 0, RUNTIME_SYNC)}
     res, got = counted("runtime_a", want, lambda: svc.run(key, RUNTIME_SYNC))
     add_launches(state, got)
+    # train captures its steady step: the replays count their launches
     (st_t, _), got_t = counted("runtime_a", want,
                                lambda: svc.dqn.train(key, RUNTIME_SYNC))
     add_launches(state, got_t)
@@ -2600,7 +3061,8 @@ def phase_runtime(state: dict) -> None:
     out["f"] = runtime_probe(state)
     out["g"] = runtime_pixel(state)
     sync_rate = out["a"]["learner_steps_per_s"]
-    emit({"phase": "runtime", "ok": True, "replay": N_ROWS,
+    emit({"phase": "runtime", "ok": True, "captured": False,
+          "replay": N_ROWS,
           "actors": 2, "chunk": 32, "slab": 4, "prefetch_depth": 2,
           "max_replay_ratio": RUNTIME_RATIO * 16,
           "async_over_sync": out["b"]["learner_steps_per_s"] / sync_rate,
@@ -2771,7 +3233,8 @@ def main(argv=None) -> int:
     state = {"smi": nvidia_smi_line(), "kernels": {}, "launches": {}}
     for name, fn in (("device", phase_device), ("match", phase_match),
                      ("sample", phase_sample), ("rank", phase_rank),
-                     ("graph", phase_graph), ("tcam", phase_tcam),
+                     ("graph", phase_graph), ("prng", phase_prng),
+                     ("tcam", phase_tcam),
                      ("flash", phase_flash),
                      ("decode", phase_decode)):
         if name in phases:
@@ -2792,6 +3255,10 @@ def main(argv=None) -> int:
                     trace_dir, mesh=mesh, sampler="amper-fr-sharded",
                     amper_fr_mode="fused")
         per_sharded_run(mesh)
+    if "fig9" in phases:
+        phase_fig9(state)
+    if "launch_budget" in phases:
+        phase_launch_budget(state)
     if "table1" in phases:
         phase_table1(state)
     if "pixel" in phases:

@@ -15,9 +15,11 @@ cycle in that digraph is a potential deadlock even if no run deadlocked.
   costs one global read more.
 * Tests call :func:`enable`, exercise the runtime, then assert
   ``not recorder.cycles()``.
-
-The reference's ``cycle_findings`` and offline ``check_log`` return its
-analysis ``Finding`` records and wait for that package's port.
+* :func:`cycle_findings` turns cycles into ``LOCK-ORDER`` findings, and
+  :func:`check_log` rebuilds the graph offline from a recorded JSONL
+  acquisition log (``python -m repro_torch.analysis --lock-log PATH``).
+  The log's format is the reference's, so either package reads a log
+  either wrote, with the same findings.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ import json
 import queue
 import threading
 from typing import Iterable
+
+from repro_torch.analysis.findings import Finding
 
 # Module-global recorder.  ``None`` means disabled: TrackedLock's hot
 # path is then a single global load + ``is None`` test.
@@ -230,3 +234,42 @@ def find_cycles(edges: Iterable[tuple[str, str]]) -> list[list[str]]:
         if state.get(node, 0) == 0:
             dfs(node)
     return cycles
+
+
+def cycle_findings(cycles: list[list[str]],
+                   source: str = "<lockdep>") -> list[Finding]:
+    out = []
+    for cyc in cycles:
+        ring = " -> ".join(cyc + [cyc[0]])
+        out.append(Finding(
+            rule="LOCK-ORDER", path=source, line=0,
+            message=f"lock acquisition cycle (potential deadlock): {ring}"))
+    return out
+
+
+def check_log(path: str) -> list[Finding]:
+    """Offline lockdep: rebuild the order graph from a recorded JSONL
+    acquisition log and report cycles.  Needs only the log — no runtime
+    import, so it works on logs shipped from another machine."""
+    edges: set[tuple[str, str]] = set()
+    findings: list[Finding] = []
+    with open(path) as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                findings.append(Finding(
+                    rule="LOCK-ORDER", path=path, line=lineno,
+                    message="unparseable lockdep log line"))
+                continue
+            if rec.get("ev") != "acquire":
+                continue
+            lock = rec["lock"]
+            for held in rec.get("held", ()):
+                if held != lock:
+                    edges.add((held, lock))
+    findings.extend(cycle_findings(find_cycles(edges), source=path))
+    return findings

@@ -17,8 +17,10 @@ Algorithm 1 and the uniform baseline.
 
 The m group representatives, their queries and the compaction rotation
 depend only on PRNG keys, never on the table, so they are computed on
-the host (:mod:`repro_torch.prng` keys live there) and only the m
-ranges travel to the table's device.  Everything that reads the table
+the key's device (:mod:`repro_torch.prng`): on the host for a host key,
+with only the m ranges travelling to the table's device, and on the card
+for a key there, where the fused draw takes its rotation and pick key
+as tensors and nothing returns to the host.  Everything that reads the table
 stays on its device with static shapes: ``jnp.nonzero(size=...)``
 becomes a cumsum plus scatter, so a draw never waits on the device.
 
@@ -99,11 +101,13 @@ def group_representatives(key: torch.Tensor, cfg: AmperConfig) -> torch.Tensor:
     """Line 3 of Algorithm 1: V(g_i) ~ U[V_max*i/m, V_max*(i+1)/m).
 
     Float arithmetic as XLA compiles the reference (see
-    :mod:`repro_torch.xla_float`).  Returns float32[m] on the host.
+    :mod:`repro_torch.xla_float`).  Returns float32[m] on the key's
+    device.
     """
-    i = torch.arange(cfg.m, dtype=torch.float32)
+    i = torch.arange(cfg.m, dtype=torch.float32, device=key.device)
     lo = div_const(cfg.v_max * i, cfg.m)
-    width = torch.full((cfg.m,), cfg.v_max / cfg.m, dtype=torch.float32)
+    width = torch.full((cfg.m,), cfg.v_max / cfg.m, dtype=torch.float32,
+                       device=key.device)
     return fma32(width, prng.uniform(key, (cfg.m,)), lo)
 
 
@@ -141,8 +145,11 @@ def _compact(selected: torch.Tensor, csp_capacity: int,
     """
     n = selected.shape[0]
     if key is not None:
-        shift = int(prng.randint(key, (), 0, n))
-        idx = nonzero_static(torch.roll(selected, -shift), csp_capacity)
+        # roll by a gather: the rotation stays a tensor where it was drawn
+        # (on the card for a key there), so nothing waits on the device
+        shift = prng.randint(key, (), 0, n).to(torch.int64)
+        order = (torch.arange(n, device=selected.device) + shift) % n
+        idx = nonzero_static(selected[order], csp_capacity)
         idx = torch.where(idx >= 0, (idx + shift) % n, idx)
     else:
         idx = nonzero_static(selected, csp_capacity)
@@ -464,7 +471,10 @@ class AmperSampler:
                       kpick: torch.Tensor, batch: int) -> torch.Tensor:
         """The whole draw in the ``amper_sample`` kernel, consuming the
         same key tree as the reference: kcsp -> (kv, kroll) for the
-        representatives and the rotation, kpick whole to the kernel."""
+        representatives and the rotation, kpick whole to the kernel.  A
+        key on the card gives the rotation as an int32 0-d tensor there,
+        and the kernel reads it and ``kpick`` on the card (the form a
+        CUDA graph captures); a host key gives a host int."""
         from repro_torch.kernels import ops
 
         cfg = self.cfg
@@ -473,7 +483,9 @@ class AmperSampler:
                 f"fr_mode='fused' needs frac_bits <= 24 (as the reference "
                 f"kernel), got {cfg.frac_bits}")
         lo, hi, kroll = _ranges(state.pq, kcsp, cfg)
-        shift = int(prng.randint(kroll, (), 0, cfg.capacity))
+        shift = prng.randint(kroll, (), 0, cfg.capacity)
+        if shift.device.type == "cpu":
+            shift = int(shift)
         idx, _stats = ops.amper_sample(
             state.pq, state.valid, lo, hi, shift, kpick,
             batch=batch, csp_capacity=cfg.csp_capacity)

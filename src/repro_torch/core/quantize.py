@@ -12,9 +12,6 @@ import torch
 
 DEFAULT_FRAC_BITS = 24
 
-# 2^0 .. 2^30: every positive int32 has its leading one at one of these.
-_POW2 = tuple(1 << b for b in range(31))
-
 
 def quantize(p: torch.Tensor, v_max: float,
              frac_bits: int = DEFAULT_FRAC_BITS) -> torch.Tensor:
@@ -42,10 +39,13 @@ def prefix_mask(delta: torch.Tensor) -> torch.Tensor:
 
     torch has no count-leading-zeros, so the leading-one position is the
     number of powers of two at or below ``delta``, minus one, counted
-    exactly in int64.  ``delta <= 0`` gives mask 0 (exact match).
+    exactly in int64.  ``delta <= 0`` gives mask 0 (exact match).  The
+    powers are made on ``delta``'s device (no copy from the host, so a
+    CUDA graph can capture it).
     """
     d = delta.to(torch.int64)
-    pow2 = torch.tensor(_POW2, dtype=torch.int64, device=d.device)
+    pow2 = torch.ones(31, dtype=torch.int64, device=d.device) << torch.arange(
+        31, device=d.device)
     p_pos = (d.clamp(min=0).unsqueeze(-1) >= pow2).sum(-1) - 1
     shifted = torch.where(p_pos >= 31, torch.full_like(d, -1),
                           (torch.ones_like(d) << (p_pos + 1)) - 1)

@@ -19,9 +19,12 @@ priority update can tell the slot it sampled from a recycled one across
 
 Counters that never depend on data (ring position, live size, the add
 counter and its generation) are host ints, so writing and sampling never
-wait on the device.  The large tensors (storage, stamps, sampler state)
-are updated in place: a method returns the state it was given, with new
-host counters, and the state passed in must not be used afterwards.
+wait on the device.  A training step captured in a CUDA graph carries
+them as int64 0-d tensors on the card instead (the graph advances them
+in place) while the host advances its ints beside it (:meth:`advance`).
+The large tensors (storage, stamps, sampler state) are updated in place:
+a method returns the state it was given, with new host counters, and
+the state passed in must not be used afterwards.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ _I32 = 2 ** 31
 
 
 def wrap_i32(x: int) -> int:
-    """Python int -> the int32 value with the same low 32 bits."""
+    """Python int (or int64 tensor) -> the int32 value with the same low
+    32 bits."""
     return (x + _I32) % (2 * _I32) - _I32
 
 
@@ -260,19 +264,33 @@ class ReplayBuffer:
             state.sampler_state, idx, state.max_priority.expand(b))
         # int32 stamps wrap; the generation words count signed rollovers.
         lo = state.total_adds
-        stamps = [wrap_i32(lo + i) for i in range(b)]
-        row_gen = [wrap_i32(state.add_gen + (s < lo)) for s in stamps]
+        if isinstance(lo, torch.Tensor):  # counters on the card
+            stamps = wrap_i32(lo + torch.arange(b, device=self.device))
+            row_gen = wrap_i32(state.add_gen + (stamps < lo).long())
+            state.write_stamp[idx] = stamps.to(torch.int32)
+            state.write_gen[idx] = row_gen.to(torch.int32)
+        else:
+            stamps = [wrap_i32(lo + i) for i in range(b)]
+            row_gen = [wrap_i32(state.add_gen + (s < lo)) for s in stamps]
+            state.write_stamp[idx] = torch.tensor(stamps, dtype=torch.int32,
+                                                  device=self.device)
+            state.write_gen[idx] = torch.tensor(row_gen, dtype=torch.int32,
+                                                device=self.device)
+        return self.advance(state._replace(sampler_state=sampler_state), b)
+
+    def advance(self, state: ReplayState, b: int) -> ReplayState:
+        """``state`` with its counters moved past a ``b``-row arc write
+        (host ints, or 0-d tensors on the card), nothing written."""
+        lo = state.total_adds
         new_total = wrap_i32(lo + b)
-        state.write_stamp[idx] = torch.tensor(stamps, dtype=torch.int32,
-                                              device=self.device)
-        state.write_gen[idx] = torch.tensor(row_gen, dtype=torch.int32,
-                                            device=self.device)
-        return state._replace(
-            sampler_state=sampler_state,
-            pos=(state.pos + b) % self.capacity,
-            size=min(state.size + b, self.capacity),
-            total_adds=new_total,
-            add_gen=wrap_i32(state.add_gen + (new_total < lo)))
+        if isinstance(lo, torch.Tensor):
+            size = torch.clamp(state.size + b, max=self.capacity)
+            rolled = (new_total < lo).long()
+        else:
+            size, rolled = min(state.size + b, self.capacity), new_total < lo
+        return state._replace(pos=(state.pos + b) % self.capacity,
+                              size=size, total_adds=new_total,
+                              add_gen=wrap_i32(state.add_gen + rolled))
 
     def add_batch(self, state: ReplayState, transitions: dict) -> ReplayState:
         """Store B transitions (leading dim B) as one contiguous ring arc.
@@ -394,8 +412,9 @@ class ReplayBuffer:
         else:
             batch_tree = {k: buf[idx_l] for k, buf in state.storage.items()}
         prios = self.sampler.priorities(state.sampler_state)
-        w = importance_from_selected(prios[idx_l], prios.sum(),
-                                     max(state.size, 1),
+        size = (state.size.clamp(min=1) if isinstance(state.size, torch.Tensor)
+                else max(state.size, 1))
+        w = importance_from_selected(prios[idx_l], prios.sum(), size,
                                      self.beta if beta is None else beta)
         return idx, batch_tree, w
 

@@ -75,11 +75,14 @@
 
 #include "common.cuh"
 #include "onepass.cuh"
+#include "threefry.cuh"
 
 namespace {
 
 using amper::kFull;
 using amper::kMaxRanges;
+using threefry::key_bits;
+using threefry::threefry2x32;
 
 constexpr int kThreads = 128;                 // a block's threads
 constexpr int kWarps = kThreads / 32;
@@ -110,39 +113,6 @@ struct Params {
   unsigned long long* status;          // a status word a tile
   int nblk, capacity;                  // tiles; status words of scratch
 };
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
-  return (x << d) | (x >> (32 - d));
-}
-
-// Threefry-2x32, 20 rounds: jax._src.prng.threefry_2x32 bit for bit.
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      x0 += x1;
-      x1 = rotl(x1, rot[i % 2][r]);
-      x1 ^= x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-}
-
-// bits(key)[j] = o0 ^ o1 of threefry(key, (0, j)); split(key)[j] is
-// (o0, o1) of the same call.
-__device__ __forceinline__ uint32_t key_bits(uint32_t k0, uint32_t k1,
-                                             int j) {
-  uint32_t a0 = 0, a1 = static_cast<uint32_t>(j);
-  threefry2x32(k0, k1, a0, a1);
-  return a0 ^ a1;
-}
 
 // Spins until *w is an inclusive word of this epoch; returns its count.
 __device__ __forceinline__ int wait_inclusive(const unsigned long long* w,

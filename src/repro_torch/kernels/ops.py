@@ -8,7 +8,9 @@ There is no fallback: a kernel that fails to build or launch raises.
 
 ``launches`` counts kernel launches per wrapper (never plain runs, nor
 calls that raise), so a run can show that its path really went through
-the kernels.
+the kernels.  A wrapper called while its stream is captured into a CUDA
+graph launches nothing: it adds to ``recorded`` instead, and whoever
+replays the graph counts the launches of each replay (``replayed``).
 """
 from __future__ import annotations
 
@@ -17,18 +19,40 @@ import torch
 from repro_torch.kernels import amper_sample as _as
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import prng as _pr
 from repro_torch.kernels import tcam_match as _tm
 from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
                                      multi_query_match_ref, rank_select_ref,
                                      tcam_match_ref)
 
 launches = {"multi_query_match": 0, "amper_sample": 0, "rank_select": 0,
-            "tcam_match": 0, "flash_attention": 0, "decode_attention": 0}
+            "tcam_match": 0, "flash_attention": 0, "decode_attention": 0,
+            "prng": 0}
+
+
+# launches recorded into CUDA graphs being captured, per wrapper
+recorded = dict.fromkeys(launches, 0)
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def _launched(name: str) -> None:
+    """One launch of ``name``'s kernel, or one recorded into a graph."""
+    if (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing()):
+        recorded[name] += 1
+    else:
+        launches[name] += 1
+
+
+def replayed(counts: dict) -> None:
+    """Count one replay of a graph that holds ``counts`` launches (a
+    ``recorded`` difference taken around its capture)."""
+    for name, n in counts.items():
+        launches[name] += n
 
 
 def _device_kind(fn: str, tensors, aligned: dict | None = None) -> str:
@@ -81,7 +105,7 @@ def multi_query_match(pq: torch.Tensor, valid: torch.Tensor,
     if _check_table("multi_query_match", pq, valid, lo, hi) == "cpu":
         return multi_query_match_ref(pq, valid, lo, hi)
     out = _tm.multi_query_match_cuda(pq, valid, lo, hi)
-    launches["multi_query_match"] += 1
+    _launched("multi_query_match")
     return out
 
 
@@ -134,7 +158,7 @@ def amper_sample(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
                                     batch=batch, csp_capacity=csp_capacity)
     out = _as.amper_sample_cuda(pq, valid, lo, hi, shift, key, batch=batch,
                                 csp_capacity=csp_capacity)
-    launches["amper_sample"] += 1
+    _launched("amper_sample")
     return out
 
 
@@ -162,7 +186,7 @@ def rank_select(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
     if kind == "cpu":
         return rank_select_ref(pq, valid, lo, hi, rank)
     out = _as.rank_select_cuda(pq, valid, lo, hi, rank)
-    launches["rank_select"] += 1
+    _launched("rank_select")
     return out
 
 
@@ -186,7 +210,7 @@ def tcam_match(pq: torch.Tensor, query, mask) -> torch.Tensor:
                     {"pq": (pq, 16)}) == "cpu":
         return tcam_match_ref(pq, query, mask)
     out = _tm.tcam_match_cuda(pq, query, mask)
-    launches["tcam_match"] += 1
+    _launched("tcam_match")
     return out
 
 
@@ -237,7 +261,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kind == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     out = _fa.flash_attention_cuda(q, k, v, causal, window)
-    launches["flash_attention"] += 1
+    _launched("flash_attention")
     return out
 
 
@@ -264,5 +288,86 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kind == "cpu":
         return decode_attention_ref(q, k, v, cur_len)
     out = _da.decode_attention_cuda(q, k, v, cur_len)
-    launches["decode_attention"] += 1
+    _launched("decode_attention")
     return out
+
+
+def _check_key(fn: str, key: torch.Tensor) -> str:
+    """Validate a key or batch of keys (int64 ``[..., 2]``); returns the
+    device type."""
+    if key.dtype != torch.int64 or key.ndim < 1 or key.shape[-1] != 2:
+        raise TypeError(f"{fn}: a key is an int64 [..., 2] tensor, got "
+                        f"{key.dtype} {tuple(key.shape)}")
+    kind = key.device.type
+    if kind not in ("cpu", "cuda"):
+        raise RuntimeError(f"{fn}: no kernel for device {key.device}")
+    return kind
+
+
+def _prng(fn: str, op: int, key: torch.Tensor, shape: tuple, ref,
+          **kw) -> torch.Tensor:
+    """Dispatch one PRNG call: the plain version for a key on the CPU,
+    one launch of ``csrc/prng.cu`` for a key on CUDA (none for an empty
+    output)."""
+    if _check_key(fn, key) == "cpu":
+        return ref()
+    if key.numel() == 0 or 0 in shape:
+        return _pr.prng_out(op, key, shape)  # nothing to draw: no launch
+    out = _pr.prng_cuda(op, key, shape, **kw)
+    _launched("prng")
+    return out
+
+
+def prng_split(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``jax.random.split(key, shape)``: int64 keys ``key.shape[:-1] +
+    shape + (2,)``."""
+    shape = tuple(shape)
+    return _prng("prng_split", _pr.CIPHER, key, shape,
+                 lambda: _pr.split_ref(key, shape))
+
+
+def prng_fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a uint32 ``data``."""
+    data = int(data) & _pr.MASK32
+    out = _prng("prng_fold_in", _pr.CIPHER, key, (1,),
+                lambda: _pr.fold_in_ref(key, data)[..., None, :],
+                offset=data)
+    return out[..., 0, :]
+
+
+def prng_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 in [0, 2^32)."""
+    shape = tuple(shape)
+    return _prng("prng_bits", _pr.BITS, key, shape,
+                 lambda: _pr.bits_ref(key, shape))
+
+
+def prng_uniform(key: torch.Tensor, shape: tuple, minval: float = 0.0,
+                 maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` for float32 (host bounds)."""
+    shape = tuple(shape)
+    minval, maxval = float(minval), float(maxval)
+    return _prng("prng_uniform", _pr.UNIFORM, key, shape,
+                 lambda: _pr.uniform_ref(key, shape, minval, maxval),
+                 minval=minval, maxval=maxval)
+
+
+def prng_randint(key: torch.Tensor, shape: tuple, minval=0,
+                 maxval=1) -> torch.Tensor:
+    """``jax.random.randint`` for int32.  ``minval`` and ``maxval`` are
+    ints, 0-d CPU tensors, or int32 / int64 0-d tensors on the key's
+    device, which the kernel reads there (no host sync)."""
+    shape = tuple(shape)
+    for name, b in (("minval", minval), ("maxval", maxval)):
+        if isinstance(b, torch.Tensor) and b.device != key.device and (
+                b.device.type != "cpu" or b.ndim):
+            raise ValueError(f"prng_randint: {name} on {b.device} for a key "
+                             f"on {key.device}")
+        if isinstance(b, torch.Tensor) and b.device.type == "cuda" and (
+                b.ndim or b.dtype not in (torch.int32, torch.int64)):
+            raise TypeError(f"prng_randint: a {name} on the card must be an "
+                            f"int32 or int64 scalar, got {b.dtype} "
+                            f"{tuple(b.shape)}")
+    return _prng("prng_randint", _pr.RANDINT, key, shape,
+                 lambda: _pr.randint_ref(key, shape, minval, maxval),
+                 minval=minval, maxval=maxval)

@@ -22,7 +22,9 @@ The instrument names are the reference's (its catalog in
 ``span_csp_rebuild_ms``, ``span_sharded_sample_ms``,
 ``span_checkpoint_save_ms``, ``checkpoint_full_bytes``,
 ``checkpoint_delta_bytes``, ``checkpoint_chain_len`` and the health
-gauges.  Instrumentation is host-side only: it adds no device launch,
+gauges, and one of its own: ``replay_sample_replayed_total``, the draws
+that a captured agent step ran in CUDA graph replays, where no span is
+recorded (:mod:`repro_torch.rl.dqn`).  Instrumentation is host-side only: it adds no device launch,
 enabled or not.
 """
 from typing import NamedTuple, Optional

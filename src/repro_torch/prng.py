@@ -11,14 +11,20 @@ layout (``jax_threefry_partitionable``, on by default since jax 0.5):
 * ``fold_in(key, d) = tf(key, (0, d))``.
 
 A key is an int64 tensor of shape ``(..., 2)`` holding two uint32 words.
-Keys are tiny and their derivation never depends on data, so they live
-on the host: every draw is computed on the key's device and callers move
-the result where they need it with ``device=``.  No function touches a
-global generator.
+Every function computes on its key's device:
 
-The cipher runs in numpy's wrapping uint32 arithmetic (torch's
-``uint32`` has no ``<<`` and no ``%`` on the CPU); keys and draws are
-handed out as int64 tensors holding the uint32 values.
+* a key on the CPU runs the cipher in numpy's wrapping uint32 arithmetic
+  (torch's ``uint32`` has no ``<<`` and no ``%`` on the CPU), and a draw
+  moves where the caller asks with ``device=``;
+* a key on the card goes to the ``csrc/prng.cu`` kernel through
+  :mod:`repro_torch.kernels.ops` (one launch a call, no copy of the key
+  or of the result to the host), so a training step whose keys live on
+  the card can be captured in a CUDA graph.
+
+Both give the same bits (the kernel's plain int64 versions are in
+:mod:`repro_torch.kernels.prng`).  Keys and draws are handed out as
+int64 tensors holding the uint32 values.  No function touches a global
+generator.
 """
 from __future__ import annotations
 
@@ -61,8 +67,26 @@ def key(seed: int) -> torch.Tensor:
 
 
 def key_data(k) -> torch.Tensor:
-    """Raw words of a key (an int64 ``(..., 2)`` tensor) or of jax key data."""
+    """Raw words of a key (an int64 ``(..., 2)`` tensor) or of jax key
+    data; a key on the card stays there."""
+    if _on_card(k):
+        return k if k.dtype == torch.int64 else k.to(torch.int64) & MASK32
     return torch.as_tensor(np.asarray(k, dtype=np.int64)) & MASK32
+
+
+def _on_card(k) -> bool:
+    return isinstance(k, torch.Tensor) and k.device.type == "cuda"
+
+
+def _ops():
+    # imported late: kernels.ops imports modules that import this one
+    from repro_torch.kernels import ops
+
+    return ops
+
+
+def _moved(x: torch.Tensor, device) -> torch.Tensor:
+    return x if device is None else x.to(device)
 
 
 def _words(k) -> np.ndarray:
@@ -91,12 +115,16 @@ def _shape(shape) -> tuple:
 
 def split(k: torch.Tensor, num=2) -> torch.Tensor:
     """``jax.random.split``: keys of shape ``k.shape[:-1] + num + (2,)``."""
+    if _on_card(k):
+        return _ops().prng_split(k, _shape(num))
     o0, o1 = _cipher(k, _shape(num))
     return _tensor(np.stack([o0, o1], axis=-1))
 
 
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a uint32 ``data``."""
+    if _on_card(k):
+        return _ops().prng_fold_in(k, data)
     w = _words(k)
     d = np.full(w.shape[:-1], int(data) & MASK32, dtype=np.uint32)
     with np.errstate(over="ignore"):
@@ -106,6 +134,8 @@ def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
 
 def bits(k: torch.Tensor, shape=(), device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 in ``[0, 2^32)``."""
+    if _on_card(k):
+        return _moved(_ops().prng_bits(k, _shape(shape)), device)
     o0, o1 = _cipher(k, _shape(shape))
     return _tensor(o0 ^ o1, device)
 
@@ -119,6 +149,9 @@ def uniform(k: torch.Tensor, shape=(), minval=0.0, maxval=1.0,
     by ``maxval - minval`` and shifted by ``minval`` (one fused
     multiply-add), then clamped below at ``minval``.
     """
+    if _on_card(k):
+        return _moved(_ops().prng_uniform(k, _shape(shape), float(minval),
+                                          float(maxval)), device)
     b = bits(k, shape)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32)
@@ -152,8 +185,13 @@ def randint(k: torch.Tensor, shape=(), minval=0, maxval=1,
     ``(hi % span) * (2^32 % span) + lo % span`` modulo ``span`` with
     uint32 wrap-around.  ``minval``/``maxval`` may be tensors on any
     device (a data-dependent bound stays where it is: the bits move to
-    it, the bound never moves to the host).
+    it, the bound never moves to the host).  With a key on the card the
+    bounds are ints or scalars (on the card, or 0-d on the CPU), and the
+    kernel reads a bound on the card there.
     """
+    if _on_card(k):
+        return _moved(_ops().prng_randint(k, _shape(shape), minval, maxval),
+                      device)
     k = key_data(k)
     k1, k2 = split(k).unbind(-2)
     shape = _shape(shape)

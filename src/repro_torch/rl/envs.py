@@ -295,7 +295,8 @@ class Breakout:
         four = torch.full_like(ball_x, 4.0)
         head = torch.stack([four, ball_x, torch.ones_like(ball_x), dx, four],
                            -1)
-        x = torch.cat([head, torch.ones(head.shape[:-1] + (30,))], -1)
+        x = torch.cat([head, torch.ones(head.shape[:-1] + (30,),
+                                        device=head.device)], -1)
         x = x if device is None else x.to(device)
         return EnvState(x=x, t=torch.zeros(x.shape[:-1], dtype=torch.int32,
                                            device=x.device))
@@ -380,7 +381,8 @@ class Freeway:
 
     def reset(self, keys: torch.Tensor, device=None) -> EnvState:
         cars = prng.randint(keys, (8,), 0, 10).to(torch.float32)
-        x = torch.cat([torch.full(cars.shape[:-1] + (1,), 9.0), cars], -1)
+        x = torch.cat([torch.full(cars.shape[:-1] + (1,), 9.0,
+                                  device=cars.device), cars], -1)
         x = x if device is None else x.to(device)
         return EnvState(x=x, t=torch.zeros(x.shape[:-1], dtype=torch.int32,
                                            device=x.device))

@@ -30,5 +30,7 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
 
 
 def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
-    """float32 ``x / c`` for a constant ``c``, as ``x * float32(1 / c)``."""
-    return x * torch.tensor(1.0 / c, dtype=torch.float32, device=x.device)
+    """float32 ``x / c`` for a constant ``c``, as ``x * float32(1 / c)``
+    (the factor a 0-d host tensor, which a CUDA op takes as a scalar
+    argument: no copy to the card, so a CUDA graph can capture it)."""
+    return x * torch.tensor(1.0 / c, dtype=torch.float32)

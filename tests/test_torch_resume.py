@@ -74,25 +74,6 @@ def kill_and_resume(dqn, key, n, directory, interval):
     return st
 
 
-@pytest.mark.parametrize("cfg", [
-    CFG, dataclasses.replace(CFG, amper_fr_mode="fused"),
-    dataclasses.replace(CFG, agent="double", n_step=3),
-    dataclasses.replace(CFG, sampler="per-sumtree")],
-    ids=["amper-fr", "fused", "double-3step", "per-sumtree"])
-def test_train_ckpt_kill_resume_bit_identical(tmp_path, cfg):
-    """Uninterrupted, killed-and-resumed and ``train`` end in one state."""
-    dqn = make_dqn(cfg, device="cpu")
-    key, n = prng.key(1), 70
-    st_a, m_a, done = dqn.train_ckpt(
-        key, n, CheckpointManager(str(tmp_path / "a"), save_interval=30))
-    assert done == n and len(m_a["loss"]) == n
-    st_b = kill_and_resume(dqn, key, n, tmp_path / "b", 30)
-    st_t, m_t = dqn.train(key, n)
-    assert_states_equal(st_a, st_b)
-    assert_states_equal(st_a, st_t)
-    assert torch.equal(torch.stack(m_a["loss"]), torch.stack(m_t["loss"]))
-
-
 def test_train_ckpt_relaunch_after_completion_is_idempotent(tmp_path):
     dqn = make_dqn(CFG, device="cpu")
     key, n = prng.key(2), 40
