@@ -50,7 +50,14 @@ plain versions at the serving path's shapes and the reference's sweep
 finds it, and in L2 beside it),
 serves stablelm-1.6b at full width (batch 4, 1024-token prompts, 64
 greedy tokens) through the engine, and checks that those runs launched
-the kernels and that decode agrees with prefill.  Steps per second are
+the kernels and that decode agrees with prefill; then trains
+stablelm-1.6b at full width for 30 steps through the LM launcher
+(``launch.train.main``: AMPER-fr sequence replay over 2,048 sequences,
+batch 8 x 128 tokens, the per-sequence loss through the flash kernel,
+24 launches a step), holds its first step and its per-sequence losses
+against the plain versions, kills and resumes a reduced run bit for
+bit, and trains and serves granite-34b and phi3-medium-14b at full
+width and two layers.  Steps per second are
 timed over steady learn steps after each run (set-up and warm-up are
 reported apart), with the host time spent in the PRNG beside them.  Each phase prints one JSON line; the line before
 the last lists the kernels with their timings and bounds, and the last
@@ -60,7 +67,7 @@ CUDA device the script exits with code 2.
 
 ``--phases`` picks a subset (device,match,sample,rank,graph,prng,tcam,
 flash,decode,fused,kernel,sharded,fig9,launch_budget,table1,pixel,resume,
-runtime,serve) for debugging; every phase runs by default.  Each
+runtime,serve,lm_train) for debugging; every phase runs by default.  Each
 training phase's line says whether its steps were captured
 (``"captured"``).  ``runtime_split`` (named in
 ``--phases`` only) splits the runtime's time: each stage alone, then the
@@ -77,12 +84,19 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
 
 import numpy as np
-import torch
+
+# cuBLAS reads its workspace layout once, at its first call; the LM
+# trainer (phase lm_train) runs deterministic algorithms, which need
+# this fixed layout, so it is set before torch touches the card.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROWS = 1_000_000           # DQN's standard replay memory (Mnih et al. 2015)
@@ -92,7 +106,8 @@ SEED = 0
 SHARDS = 4                   # logical shards of the sharded phase, on one card
 PHASES = ("device", "match", "sample", "rank", "graph", "prng", "tcam",
           "flash", "decode", "fused", "kernel", "sharded", "fig9",
-          "launch_budget", "table1", "pixel", "resume", "runtime", "serve")
+          "launch_budget", "table1", "pixel", "resume", "runtime", "serve",
+          "lm_train")
 ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
 # The reference's kernel sweep (tests/test_kernels.py) and GQA group 4 at
@@ -3206,6 +3221,327 @@ def phase_serve(state: dict, trace_dir: str | None) -> None:
           "decode_vs_prefill_f32": check, "profile": profile})
 
 
+# The LM trainer (``python -m repro_torch.launch.train``) at full width:
+# stablelm-1.6b, batch 8 x 128 tokens, AMPER-fr sequence replay over
+# 2,048 sequences; steady steps are 5-29.
+LM_STEPS, LM_STEADY = 30, 5
+LM_DEVICE = "cuda"
+LM_ARGS = ["--arch", ARCH, "--batch", "8", "--seq-len", "128",
+           "--n-seqs", "2048", "--sampler", "amper-fr", "--log-every", "10",
+           "--device", LM_DEVICE]
+# the reference's kill-and-resume test (tests/test_checkpoint.py)
+LM_RESUME_ARGS = ["--arch", ARCH, "--reduced", "--batch", "4", "--seq-len",
+                  "32", "--n-seqs", "64", "--sampler", "amper-fr",
+                  "--log-every", "100", "--ckpt-every", "100",
+                  "--device", LM_DEVICE]
+LM_STAGES = ("sample", "train_step", "per_seq_loss", "update")
+# per-sequence losses through the flash kernel against attention_ref, bf16,
+# as max |difference| over max |loss|: the attention outputs differ by
+# bf16 roundings (ATTN_TOL), which 24 layers carry into the logits
+LM_SEQ_TOL = 1e-2
+# the main run's first step against a step computed again from the same
+# seed and batch through chunked_attention and autograd alone: the same
+# computation, deterministic, so the loss and grad norm agree to rounding
+LM_STEP_TOL = 1e-6
+
+
+def lm_param_count(cfg) -> int:
+    from repro_torch.models import common
+    from repro_torch.models.model_api import Model
+
+    n = []
+    common.map_specs(lambda sp: n.append(int(np.prod(sp.shape))),
+                     Model.from_config(cfg).param_specs())
+    return sum(n)
+
+
+def lm_flash_at_train_shape(cfg, batch: int, seq: int) -> dict:
+    """The flash kernel at the per-sequence loss's shape, held against
+    attention_ref and timed beside it and SDPA."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = attention_inputs([(batch, H, seq, D), (batch, Hkv, seq, D),
+                                (batch, Hkv, seq, D)], torch.bfloat16, 7)
+    err = check_close("lm_train", "flash at the training shape",
+                      ops.flash_attention(q, k, v, causal=True),
+                      attention_ref(q, k, v, causal=True),
+                      ATTN_TOL[torch.bfloat16])
+    ms = device_time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    plain_ms = device_time_ms(lambda: attention_ref(q, k, v, causal=True),
+                              calls=10, reps=3)
+    library_ms = device_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    flops = 2 * 2 * seq * seq * D * batch * H / 2
+    bound_ms, bound_by = attention_bound(nbytes(q, k, v, q), flops)
+    return {"shape": [batch, H, Hkv, seq, D], "dtype": "bfloat16",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def lm_checks(first: dict) -> dict:
+    """(b): the first step against a chunked-only step from the same
+    seed and batch, the per-sequence losses through the flash kernel
+    against attention_ref, and the deterministic mode's cost in step
+    time (the steps alternate with it on and off)."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.qhead import tree_leaves
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import _unflatten_like
+
+    dev = torch.device(LM_DEVICE)
+    args = launch_train.parse_args(LM_ARGS + ["--steps", str(LM_STEPS)])
+    cfg, model, step_fn, data, st, dst = launch_train.build(args, dev)
+    _, batch = data.sample(dst, prng.fold_in(prng.key(args.seed), 0))
+    with launch_train.deterministic(dev), torch.enable_grad():
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(st.params)]
+        loss, _ = model.loss(_unflatten_like(st.params, leaves), batch)
+        gnorm = global_norm(torch.autograd.grad(loss, leaves))
+    del leaves
+    loss, gnorm = float(loss.detach()), float(gnorm)
+    step_err = {k: abs(x - first[k]) / abs(x)
+                for k, x in (("loss", loss), ("grad_norm", gnorm))}
+    if not max(step_err.values()) <= LM_STEP_TOL:
+        fail("lm_train", f"first step != chunked-only step: {step_err}")
+
+    flash_loss = launch_train.per_sequence_loss(model, st.params, batch)
+    real = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, causal=True, window=None: \
+        attention_ref(q, k, v, causal=causal, window=window)
+    try:
+        plain_loss = launch_train.per_sequence_loss(model, st.params, batch)
+    finally:
+        ops.flash_attention = real
+    seq_err = float((flash_loss - plain_loss).abs().max()
+                    / plain_loss.abs().max())
+    if not (bool(torch.isfinite(flash_loss).all())
+            and seq_err <= LM_SEQ_TOL):
+        fail("lm_train", f"per-sequence losses: flash vs attention_ref "
+             f"{seq_err} > {LM_SEQ_TOL}")
+
+    times = {"on": [], "off": []}
+    import contextlib
+    for i in range(10):
+        mode = "on" if i % 2 else "off"
+        ctx = (launch_train.deterministic(dev) if mode == "on"
+               else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx:
+            st, _ = step_fn(st, batch)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+    del st, dst
+    return {"first_step_vs_chunked_only": {
+                "loss": loss, "grad_norm": gnorm,
+                "rel_err": step_err, "tol": LM_STEP_TOL},
+            "seq_loss_flash_vs_plain": {
+                "max_rel_err": seq_err, "tol": LM_SEQ_TOL,
+                "flash": flash_loss.tolist(), "plain": plain_loss.tolist()},
+            "train_step_ms_deterministic": {
+                k: float(np.median(v)) for k, v in times.items()},
+            "train_step_ms_deterministic_all": times}
+
+
+def lm_kill_and_resume(root: str) -> dict:
+    """(c): 6 steps uninterrupted against 3, stop, resume to 6, reduced,
+    on the card; the final checkpoints' arrays bit for bit."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as launch_train
+
+    a, b = os.path.join(root, "a"), os.path.join(root, "b")
+    shutil.rmtree(root, ignore_errors=True)
+    out = io.StringIO()
+    sigterm = signal.getsignal(signal.SIGTERM)  # the launcher hooks it
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        for d, n in ((a, 6), (b, 3), (b, 6)):
+            if launch_train.main(LM_RESUME_ARGS + [
+                    "--steps", str(n), "--ckpt-dir", d]) != 0:
+                fail("lm_train", "the reduced launcher failed")
+    wall_s = time.perf_counter() - t0
+    signal.signal(signal.SIGTERM, sigterm)
+    if "resumed from step 3" not in out.getvalue():
+        fail("lm_train", "the second reduced run did not resume at step 3")
+    x = np.load(os.path.join(a, "step_0000000006.ckpt"))
+    y = np.load(os.path.join(b, "step_0000000006.ckpt"))
+    diff = sorted(f for f in set(x.files) | set(y.files)
+                  if f not in x.files or f not in y.files
+                  or not np.array_equal(x[f], y[f]))
+    n_arrays = len(x.files)
+    shutil.rmtree(root, ignore_errors=True)
+    if diff:
+        fail("lm_train", f"resumed checkpoint differs in {diff[:5]}")
+    return {"arrays": n_arrays, "bitwise_equal": True, "wall_s": wall_s}
+
+
+# (d): the other dense configs at full width, depth cut to fit one card
+# with AdamW (full depth: 544 GB and 224 GB)
+LM_OTHER, LM_OTHER_LAYERS, LM_OTHER_STEPS, LM_OTHER_GEN = (
+    ("granite-34b", "phi3-medium-14b"), 2, 3, 16)
+
+
+def lm_other_configs() -> dict:
+    """(d): granite-34b (MQA, head dim 128, untied head) and
+    phi3-medium-14b (GQA 40 / 10) at full width and 2 layers: a few train
+    steps through the sequence replay, the train step and the
+    per-sequence loss, then a greedy generate; the flash and decode
+    launches exact, losses and logits finite."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving import Engine
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import train_step as ts_mod
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+
+    dev = torch.device(LM_DEVICE)
+    out = {}
+    for arch in LM_OTHER:
+        cfg = dataclasses.replace(get_config(arch), n_layers=LM_OTHER_LAYERS)
+        model = Model.from_config(cfg)
+        opt = AdamW(cosine_schedule(3e-4, 20, 30))
+        step_fn = ts_mod.make_train_step(model, opt)
+        data = data_mod.PrioritizedSeqData(
+            data_mod.corpus_tokens(256, 129, cfg.vocab_size, SEED), 8,
+            device=dev)
+        ds = data.init()
+        st = ts_mod.init_train_state(
+            model, opt, torch.Generator(device=dev).manual_seed(SEED), dev)
+        ops.reset_launches()
+        losses, step_ms = [], []
+        for step in range(LM_OTHER_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            idx, batch = data.sample(ds, prng.fold_in(prng.key(SEED), step))
+            with launch_train.deterministic(dev):
+                st, met = step_fn(st, batch)
+                seq_loss = launch_train.per_sequence_loss(model, st.params,
+                                                          batch)
+            ds = data.update(ds, idx, seq_loss)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+        flash = ops.launches["flash_attention"]
+        if flash != LM_OTHER_STEPS * cfg.n_layers or not np.all(
+                np.isfinite(losses)):
+            fail("lm_train", f"{arch}: {flash} flash launches in "
+                 f"{LM_OTHER_STEPS} steps, losses {losses}")
+        engine = Engine(model, st.params)
+        ops.reset_launches()
+        res = engine.generate({"tokens": batch["tokens"][:4, :64]
+                               .contiguous()}, LM_OTHER_GEN)
+        gen = {k: ops.launches[k]
+               for k in ("flash_attention", "decode_attention")}
+        if gen != {"flash_attention": cfg.n_layers, "decode_attention":
+                   cfg.n_layers * (LM_OTHER_GEN - 1)} or not bool(
+                       torch.isfinite(res.logits_last).all()):
+            fail("lm_train", f"{arch}: generate launched {gen}")
+        out[arch] = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+                     "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+                     "losses": losses, "step_ms": step_ms,
+                     "train_launches": {"flash_attention": flash},
+                     "generate_launches": gen,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del st, ds, data, engine, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train(state: dict) -> None:
+    """The LM trainer's main path at full width (a), held against its
+    plain versions (b), killed and resumed at the reduced size (c), and
+    the other dense configs at full width and cut depth (d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_config(ARCH)
+    n_params = lm_param_count(cfg)
+    flash_train = lm_flash_at_train_shape(cfg, 8, 128)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the main path, through the launcher's entry point
+    records, flash_after = [], []
+
+    def on_step(rec):
+        records.append(rec)
+        flash_after.append(ops.launches["flash_attention"])
+
+    ops.reset_launches()
+    if launch_train.main(LM_ARGS + ["--steps", str(LM_STEPS)],
+                         on_step=on_step) != 0:
+        fail("lm_train", "the launcher returned non-zero")
+    launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = np.diff([0] + flash_after).tolist()
+    if per_step != [cfg.n_layers] * LM_STEPS:
+        fail("lm_train", f"flash launches a step {per_step}, not "
+             f"{cfg.n_layers} each")
+    losses = [float(r["metrics"]["loss"]) for r in records]
+    if not (np.all(np.isfinite(losses)) and all(
+            bool(torch.isfinite(r["seq_loss"]).all()) for r in records)):
+        fail("lm_train", f"non-finite losses: {losses}")
+    state["launches"]["flash_attention"] = (
+        state["launches"].get("flash_attention", 0)
+        + launches["flash_attention"])
+    steady = records[LM_STEADY:]
+    step_s = [sum(r[k] for k in LM_STAGES) for r in steady]
+    step_ms = float(np.median(step_s)) * 1e3
+    tokens = 8 * 128
+    shares = {k: sum(r[k] for r in steady) / sum(step_s) for k in LM_STAGES}
+    init_s = records[0]["elapsed"] - sum(records[0][k] for k in LM_STAGES)
+    first_step_s = sum(records[0][k] for k in LM_STAGES)
+    mfu = 6 * n_params * tokens / (step_ms / 1e3) / BF16_FLOPS
+    main_path = {
+        "arch": ARCH, "params": n_params, "batch": 8, "tokens_a_seq": 128,
+        "steps": LM_STEPS, "init_s": init_s, "first_step_s": first_step_s,
+        "step_ms_median_steady": step_ms,
+        "step_ms_steady_all": [x * 1e3 for x in step_s],
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "stage_share": shares,
+        "stage_ms_median": {k: float(np.median([r[k] for r in steady]))
+                            * 1e3 for k in LM_STAGES},
+        "peak_mem_gb": peak_gb,
+        "loss_first_last": [losses[0], losses[-1]],
+        "grad_norm_first_last": [float(records[0]["metrics"]["grad_norm"]),
+                                 float(records[-1]["metrics"]["grad_norm"])],
+        "model_flops_share": mfu,
+        "model_flops_share_def": "6 * params * tokens / step time / "
+                                 "989e12 (dense bf16)",
+        "launches": {k: v for k, v in launches.items() if v},
+        "flash_launches_a_step": cfg.n_layers}
+    del records, flash_after
+    torch.cuda.empty_cache()
+
+    # (b) against the plain versions; (c) kill and resume, reduced
+    checks = lm_checks({"loss": losses[0], "grad_norm":
+                        main_path["grad_norm_first_last"][0]})
+    torch.cuda.empty_cache()
+    resume = lm_kill_and_resume(os.path.join(ROOT, "build", "lm_train_ckpt"))
+    torch.cuda.reset_peak_memory_stats()
+    others = lm_other_configs()
+    emit({"phase": "lm_train", "ok": True, "card": state["smi"],
+          "main": main_path, "flash_at_train_shape": flash_train,
+          "checks": checks, "kill_and_resume": resume,
+          "other_configs": others})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3271,6 +3607,8 @@ def main(argv=None) -> int:
         phase_runtime_split(state)
     if "serve" in phases:
         phase_serve(state, trace_dir)
+    if "lm_train" in phases:
+        phase_lm_train(state)
     rows = []
     for name, row in state["kernels"].items():
         rows.append({**row, "launches": state["launches"].get(name, 0)})

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/configs/__init__.py``.  Every arch id of the
 reference is known; only those whose model path the port has (the dense
-attention block: ``stablelm-1.6b``) resolve, and the others raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+attention block: ``stablelm-1.6b``, ``granite-34b``, ``phi3-medium-14b``)
+resolve, and the others raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 
@@ -14,12 +15,12 @@ from repro_torch.configs.base import ArchConfig
 # arch id -> module name, for the ported ones
 _ARCH_MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
+    "granite-34b": "granite_34b",
+    "phi3-medium-14b": "phi3_medium_14b",
 }
 
 # arch id -> the ROADMAP item (queue A) that ports its path
 _NOT_PORTED = {
-    "granite-34b": "A17.1 (the other dense configs)",
-    "phi3-medium-14b": "A17.1 (the other dense configs)",
     "h2o-danube-3-4b": "A17.2 (sliding-window and prefix-LM masks at decode)",
     "deepseek-v2-lite-16b": "A17.3 (MLA)",
     "deepseek-moe-16b": "A17.4 (MoE)",

@@ -4,11 +4,14 @@ The port imports nothing of the reference package.  The ``*_from_jax``
 functions take the reference's objects as plain numpy pytrees
 (``jax.tree.map(np.asarray, state)``) and read them by field name, so a
 test can start both packages from one state and step them side by side.
-The reverse direction, :func:`agent_state_to_numpy` and
-:func:`replay_state_to_numpy`, gives the port's states in the reference's
-numpy layout: the same NamedTuple fields in the same order (so
-``jax.tree.leaves`` of either lists the same leaves), a sharded sampler's
-table dense, and the port's host counters as 0-d int32 arrays.
+The reverse direction, :func:`agent_state_to_numpy`,
+:func:`replay_state_to_numpy` and :func:`lm_train_state_to_numpy`, gives
+the port's states in the reference's numpy layout: the same NamedTuple
+fields in the same order (so ``jax.tree.leaves`` of either lists the
+same leaves), a sharded sampler's table dense, and the port's host
+counters as 0-d int32 arrays.  The LM trainer's states (``TrainState``
+with its ``AdamWState``, and the sequence replay's ``ReplayDataState``)
+go both ways too.
 """
 from __future__ import annotations
 
@@ -23,6 +26,9 @@ from repro_torch.models.qhead import tree_map
 from repro_torch.rl.dqn import AgentState
 from repro_torch.rl.envs import EnvState
 from repro_torch.train import checkpoint as ck
+from repro_torch.train.data import ReplayDataState
+from repro_torch.train.optimizer import AdamWState
+from repro_torch.train.train_step import TrainState
 
 
 def to_tensor(x, device="cuda") -> torch.Tensor:
@@ -106,6 +112,8 @@ def agent_state_from_jax(st, device="cuda", sampler=None) -> AgentState:
 
 def _numpy_leaf(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:  # numpy has no bfloat16: widen, exact
+            x = x.to(torch.float32)
         return x.detach().cpu().numpy()
     return np.asarray(x, dtype=ck._scalar_dtype(x))  # a host counter
 
@@ -181,3 +189,34 @@ def lm_cache_from_jax(cache, device="cuda") -> dict:
     return {"blocks": {k: _lm_leaf(v, device)
                        for k, v in cache["blocks"].items()},
             "len": _lm_leaf(np.asarray(cache["len"], np.int32), device)}
+
+
+def lm_train_state_from_jax(st, device="cuda") -> TrainState:
+    """The reference LM trainer's ``TrainState`` (numpy leaves: step,
+    params, ``AdamWState`` m, v, count and the optional master) as the
+    port's; the counters become int32 scalars on ``device``."""
+    o = st.opt_state
+    return TrainState(
+        step=_lm_leaf(np.asarray(st.step, np.int32), device),
+        params=lm_params_from_jax(st.params, device),
+        opt_state=AdamWState(
+            m=lm_params_from_jax(o.m, device),
+            v=lm_params_from_jax(o.v, device),
+            count=_lm_leaf(np.asarray(o.count, np.int32), device),
+            master=(None if o.master is None
+                    else lm_params_from_jax(o.master, device))))
+
+
+def replay_data_state_from_jax(ds, device="cuda") -> ReplayDataState:
+    """The reference's ``ReplayDataState`` (numpy leaves) as the port's:
+    sampler state, loss EMA and the seen counts."""
+    return ReplayDataState(
+        sampler_state=_sampler_state(ds.sampler_state, device),
+        loss_ema=to_tensor(ds.loss_ema, device),
+        seen=to_tensor(ds.seen, device))
+
+
+def lm_train_state_to_numpy(tree):
+    """A port ``TrainState``, ``ReplayDataState`` or a tuple of them in the
+    reference's numpy layout (bfloat16 leaves widened to float32)."""
+    return _to_numpy(tree)

@@ -246,7 +246,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, Hkv, S, D] with ``Hq % Hkv == 0`` (q head h reads kv head
     ``h // (Hq // Hkv)``), a causal mask and an optional sliding
     ``window`` (``qpos - kpos < window``).  Any S; float32 accumulation;
-    output [B, Hq, S, D] in q's dtype."""
+    output [B, Hq, S, D] in q's dtype.
+
+    A forward only: with grad mode on, inputs that require grad raise on
+    either device (the CUDA kernel's output has no ``grad_fn``, so a
+    training step routed here would lose every attention weight's
+    gradient; ``models.attention.chunked_attention`` is the
+    differentiable route)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: a forward-only kernel got "
+                           "inputs that require grad; differentiate "
+                           "through models.attention.chunked_attention")
     kind = _check_attention("flash_attention", q, k, v)
     if k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_attention: q and k differ in length: "

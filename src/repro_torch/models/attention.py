@@ -1,31 +1,157 @@
-"""GQA/MQA/MHA attention blocks, prefill and decode paths.
+"""GQA/MQA/MHA attention blocks: training, prefill and decode paths.
 
-Counterpart of ``repro/models/attention.py`` (its GQA block).  The
-attention core runs the port's two kernels, which compute the
-reference's functions (``tests/test_kernels.py`` holds the Pallas
-kernels equal to them):
+Counterpart of ``repro/models/attention.py`` (its GQA block and its
+differentiable ``chunked_attention``).  ``gqa_apply`` takes one of two
+routes, chosen by grad mode:
 
-* ``gqa_apply`` (prefill) calls :func:`repro_torch.kernels.ops.flash_attention`
-  where the reference calls its jnp ``chunked_attention``;
-* ``gqa_decode`` calls :func:`repro_torch.kernels.ops.decode_attention`
-  where the reference calls its jnp ``decode_attention``.
+* when autograd records (grad mode on and q, k or v requiring grad: a
+  training step), :func:`chunked_attention`, the reference's own jnp
+  training attention in plain PyTorch: online softmax over kv blocks,
+  each block step checkpointed so that backward recomputes its
+  probabilities instead of storing S^2 of them.  No Pallas kernel
+  computes it, and the reference has no backward kernel;
+* otherwise (prefill, the per-sequence loss of the LM replay),
+  :func:`repro_torch.kernels.ops.flash_attention`, the port's CUDA
+  kernel, which refuses inputs that require grad.
 
-The jnp ``chunked_attention`` is the reference's differentiable training
-path and waits for the training slice; MLA waits for its own.  The
-reference passes its mask as a position predicate (``make_mask_fn``);
-the kernels take the mask's static form, so the blocks here take
-``causal`` and an int ``window`` directly.  The prefix-LM mask waits for
-the VLM prefix (``transformer._check_ported`` refuses it), and a window
-at decode raises NotImplementedError: the decode kernel has none, as the
-TPU one has none.
+``gqa_decode`` calls :func:`repro_torch.kernels.ops.decode_attention`
+where the reference calls its jnp ``decode_attention``.  MLA waits for
+its own slice.  The chunked route takes the reference's position
+predicate (``make_mask_fn``); the kernels take the mask's static form,
+so the blocks take ``causal`` and an int ``window``.  The prefix-LM mask
+waits for the VLM prefix (``transformer._check_ported`` refuses it), and
+a window at decode raises NotImplementedError: the decode kernel has
+none, as the TPU one has none.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import common
 from repro_torch.models.common import ParamSpec
+
+NEG_INF = -1e30
+
+
+def records(*tensors) -> bool:
+    """True when autograd records an op on ``tensors``: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# Mask predicates
+# ---------------------------------------------------------------------------
+
+def make_mask_fn(causal: bool, window, prefix_len) -> Callable:
+    """Returns mask_fn(qpos, kpos) -> bool; ``window`` and ``prefix_len``
+    are None, ints or tensors."""
+
+    def mask_fn(qpos: torch.Tensor, kpos: torch.Tensor) -> torch.Tensor:
+        ok = torch.ones(torch.broadcast_shapes(qpos.shape, kpos.shape),
+                        dtype=torch.bool, device=qpos.device)
+        if causal:
+            ok &= qpos >= kpos
+        if window is not None:
+            ok &= (qpos - kpos) < window
+        if prefix_len is not None:
+            ok |= kpos < prefix_len  # bidirectional over the prefix
+            if causal:
+                ok &= kpos <= torch.clamp(qpos, min=prefix_len - 1)
+        return ok
+
+    return mask_fn
+
+
+# ---------------------------------------------------------------------------
+# Chunked (memory-efficient, differentiable) attention
+# ---------------------------------------------------------------------------
+
+def _kv_step(m_prev, l_prev, acc, qblk, kblk, vblk, mask):
+    """One kv block of the online softmax (the reference's ``kv_step``):
+    qblk [B, Hkv, g, bq, D] (scaled), kblk [B, Hkv, bkv, D], mask
+    [bq, bkv]; the carries in float32."""
+    s = torch.einsum("bkgqd,bkud->bkgqu", qblk.float(), kblk.float())
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m_prev, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m_prev - m_new)
+    l_new = alpha * l_prev + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum("bkgqu,bkud->bkgqd", p,
+                                                vblk.float())
+    return m_new, l_new, acc
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask_fn: Callable, *, bq: int, bkv: int,
+                      q_offset: int = 0,
+                      skip_info: Optional[tuple] = None) -> torch.Tensor:
+    """Online-softmax attention, differentiable.  q [B, Hq, S, D], k and
+    v [B, Hkv, Skv, D / Dv]; output [B, Hq, S, Dv] in q's dtype.
+
+    S and Skv are padded to the blocks ``bq`` and ``bkv``; GQA reshapes q
+    into (Hkv, group), so no key or value is broadcast.  When autograd
+    records, each kv step is checkpointed (the reference's ``jax.remat``):
+    backward keeps the (m, l, acc) carries and recomputes the block's
+    probabilities, never storing S x Skv of them.
+
+    ``skip_info=(causal, window)``, static: for self-attention with
+    ``q_offset`` 0, q block i visits only the kv blocks in its causal /
+    window reach.  The q blocks run one at a time in both sweeps, each
+    (q block, kv block) step with the same shapes, so the skip is bit
+    for bit the full sweep: a skipped block after the reach adds
+    exp(-1e30 - m) = 0 with alpha 1, and one before it is wiped by the
+    first visible block's alpha = exp(-1e30 - m) = 0.
+    """
+    B, Hq, S, D = q.shape
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    group = Hq // Hkv
+    scale = torch.tensor(1.0 / (D ** 0.5), dtype=q.dtype)  # in q's dtype
+
+    s_pad, skv_pad = -S % bq, -Skv % bkv
+    q = F.pad(q, (0, 0, 0, s_pad))
+    k = F.pad(k, (0, 0, 0, skv_pad))
+    v = F.pad(v, (0, 0, 0, skv_pad))
+    nq, nkv = (S + s_pad) // bq, (Skv + skv_pad) // bkv
+    dev = q.device
+
+    qs = q.reshape(B, Hkv, group, nq, bq, D).permute(3, 0, 1, 2, 4, 5) * scale
+    ks = k.reshape(B, Hkv, nkv, bkv, D).permute(2, 0, 1, 3, 4)
+    vs = v.reshape(B, Hkv, nkv, bkv, Dv).permute(2, 0, 1, 3, 4)
+    kpad = torch.arange(nkv * bkv, device=dev).reshape(nkv, bkv) >= Skv
+    remat = records(q, k, v)
+
+    can_skip = (skip_info is not None and skip_info[0] is True
+                and (skip_info[1] is None or isinstance(skip_info[1], int))
+                and q_offset == 0 and S == Skv)
+    window = skip_info[1] if can_skip else None
+    outs = []
+    for qi in range(nq):
+        if can_skip:
+            hi = min(-(-((qi + 1) * bq) // bkv), nkv)
+            lo = 0 if window is None else max(0, (qi * bq - window) // bkv)
+        else:
+            lo, hi = 0, nkv
+        qpos = q_offset + qi * bq + torch.arange(bq, device=dev)
+        carry = (torch.full((B, Hkv, group, bq), NEG_INF, device=dev),
+                 torch.zeros((B, Hkv, group, bq), device=dev),
+                 torch.zeros((B, Hkv, group, bq, Dv), device=dev))
+        for ki in range(lo, hi):
+            kpos = ki * bkv + torch.arange(bkv, device=dev)
+            mask = mask_fn(qpos[:, None], kpos[None, :]) & ~kpad[ki][None, :]
+            args = (*carry, qs[qi], ks[ki], vs[ki], mask)
+            carry = (checkpoint(_kv_step, *args, use_reentrant=False)
+                     if remat else _kv_step(*args))
+        _, l, acc = carry
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs)  # (nq, B, Hkv, g, bq, Dv)
+    out = out.permute(1, 2, 3, 0, 4, 5).reshape(B, Hq, nq * bq, Dv)
+    return out[:, :, :S].to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -61,12 +187,20 @@ def gqa_project(cfg, p, x, positions, *, rope: bool = True):
 
 def gqa_apply(cfg, p, x, positions, *, causal: bool = True,
               window: int | None = None, rope: bool = True,
-              return_kv: bool = False):
-    """Full-sequence GQA/MQA/MHA attention (prefill) through the flash
-    kernel.  return_kv: also return (k, v) for the cache."""
+              return_kv: bool = False, skip_info=None):
+    """Full-sequence GQA/MQA/MHA attention: :func:`chunked_attention`
+    (blocks ``cfg.q_block`` / ``cfg.kv_block``, ``skip_info`` as there)
+    when autograd records, else the flash kernel.  return_kv: also return
+    (k, v) for the cache."""
     B, S, _ = x.shape
     q, k, v = gqa_project(cfg, p, x, positions, rope=rope)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    if records(q, k, v):
+        out = chunked_attention(q, k, v, make_mask_fn(causal, window, None),
+                                bq=min(cfg.q_block, S),
+                                bkv=min(cfg.kv_block, S),
+                                skip_info=skip_info)
+    else:
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
     out = out @ p["wo"].to(x.dtype)
     if return_kv:

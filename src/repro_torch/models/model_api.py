@@ -1,9 +1,10 @@
 """Unified model API: one facade over the port's model families.
 
 Counterpart of ``repro/models/model_api.py`` for ``family == "dense"``:
-param specs (with ``param_dtype``), init, prefill, decode and the cache
-constructor.  Other families raise NotImplementedError; the training
-loss and the dry-run input specs wait for the training slice.
+param specs (with ``param_dtype``), init, the training loss, prefill,
+decode and the cache constructor.  Other families raise
+NotImplementedError; the dry-run input specs wait for the dry run
+(ROADMAP A17.10).
 """
 from __future__ import annotations
 
@@ -40,6 +41,15 @@ class Model:
         """Params on ``device``, drawn from ``gen``, a generator on that
         device (the reference's init laws, torch's draws)."""
         return common.init_params(gen, self.param_specs(), device)
+
+    # ---------------- training ----------------
+    def loss(self, params, batch):
+        """(loss, metrics) of ``transformer.lm_loss``."""
+        if self.cfg.family == "audio":
+            raise NotImplementedError(
+                f"{self.cfg.name}: the encoder-decoder loss is not ported "
+                "(ROADMAP A17.7)")
+        return transformer.lm_loss(self.cfg, params, batch)
 
     # ---------------- serving ----------------
     def prefill(self, params, batch, max_len: int):

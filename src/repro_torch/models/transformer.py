@@ -4,24 +4,31 @@ Counterpart of ``repro/models/transformer.py`` for the block kind the
 port has: attention (GQA/MQA/MHA) with a dense MLP, uniform over the
 layers (no per-layer window).  Layers are stored stacked on a leading
 "layers" dim, as in the reference, and run by a Python loop
-(``common.scan_layers``).  The reference's ``logical_constraint`` is
-dropped: one card, no mesh.  ``lm_loss`` and ``blockwise_nll`` wait for
-the training slice; rwkv, hybrid, MLA and MoE blocks for their own.
+(``common.scan_layers``); with ``cfg.remat`` each block is checkpointed
+when autograd records, as the reference's scan remats each.  The
+reference's ``logical_constraint`` is dropped: one card, no mesh.
+rwkv, hybrid, MLA and MoE blocks (and MoE's auxiliary losses) wait for
+their own slices.
 
 Entry points:
   forward()      full-sequence logits
+  lm_loss()      the training loss (full logits or ``blockwise_nll``)
   prefill()      forward + cache construction (serving)
   decode_step()  one token with the cache
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.attention import records
 from repro_torch.models.common import (ParamSpec, apply_norm, norm_spec,
                                        scan_layers, softcap)
+from repro_torch.models.qhead import tree_leaves
 
 
 def _check_ported(cfg) -> None:
@@ -86,10 +93,7 @@ def embed_tokens(cfg, params, tokens):
 
 def unembed(cfg, params, x):
     """x: [B, S, D] -> float32 logits [B, S, V]."""
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
-    else:
-        logits = x @ params["lm_head"].to(x.dtype)
+    logits = x @ _unembed_weight(cfg, params, x.dtype)
     return softcap(logits.to(torch.float32), cfg.logit_softcap)
 
 
@@ -102,31 +106,123 @@ def _positions(x):
     return torch.arange(S, device=x.device).expand(B, S)
 
 
+def _static_skip_info(cfg, causal, window, prefix_len):
+    """Static mask geometry for causal block-skipping (None = no skip)."""
+    if (not getattr(cfg, "attn_block_skip", True) or not causal
+            or prefix_len is not None
+            or not (window is None or isinstance(window, int))):
+        return None
+    return (True, window)
+
+
 def block_prefill(cfg, lp, x, positions):
     """One block over the full sequence; returns (x, this layer's
     (k, v) [B, Hkv, S, Hd])."""
+    causal, window = cfg.is_causal_lm, cfg.sliding_window
     h = apply_norm(cfg.norm_kind, x, lp["norm1"])
-    mix, kv = attn_mod.gqa_apply(cfg, lp["mix"], h, positions,
-                                 causal=cfg.is_causal_lm,
-                                 window=cfg.sliding_window, return_kv=True)
+    mix, kv = attn_mod.gqa_apply(
+        cfg, lp["mix"], h, positions, causal=causal, window=window,
+        return_kv=True,
+        skip_info=_static_skip_info(cfg, causal, window, None))
     x = x + mix
     h2 = apply_norm(cfg.norm_kind, x, lp["norm2"])
     return x + mlp_mod.mlp_apply(cfg.mlp_kind, lp["mlp"], h2), kv
 
 
+def block_apply(cfg, lp, x, positions):
+    """One block over the full sequence (training / forward)."""
+    return block_prefill(cfg, lp, x, positions)[0]
+
+
 def forward_hidden(cfg, params, tokens):
-    """tokens [B, S] -> final-norm hidden states [B, S, D]."""
+    """tokens [B, S] -> final-norm hidden states [B, S, D].  When
+    autograd records and ``cfg.remat`` is set, each block is
+    checkpointed: backward keeps its input and recomputes the rest."""
     x = embed_tokens(cfg, params, tokens)
     positions = _positions(x)
-    x, _ = scan_layers(
-        lambda c, lp: (block_prefill(cfg, lp, c, positions)[0], None), x,
-        params["blocks"])
+
+    def body(carry, lp):
+        if cfg.remat and records(carry, *tree_leaves(lp)):
+            return checkpoint(block_apply, cfg, lp, carry, positions,
+                              use_reentrant=False), None
+        return block_apply(cfg, lp, carry, positions), None
+
+    x, _ = scan_layers(body, x, params["blocks"])
     return apply_norm(cfg.norm_kind, x, params["final_norm"])
 
 
 def forward(cfg, params, tokens):
     """tokens [B, S] -> logits [B, S, V]."""
     return unembed(cfg, params, forward_hidden(cfg, params, tokens))
+
+
+def _unembed_weight(cfg, params, dtype):
+    """The unembedding as a (D, V) matrix in ``dtype``."""
+    if cfg.tie_embeddings:
+        return params["embed"].to(dtype).T
+    return params["lm_head"].to(dtype)
+
+
+def _nll_block(cfg, x, targets, m, s, tgt, i: int, wb):
+    """One vocab chunk of :func:`blockwise_nll`: its logits, the online
+    logsumexp's (max, sum) carries and the target's logit if it lies in
+    the chunk."""
+    block = wb.shape[1]
+    logits = (x @ wb).to(torch.float32)                     # (B, S, block)
+    col_ok = i * block + torch.arange(block, device=x.device) < cfg.vocab_size
+    logits = softcap(torch.where(col_ok, logits, -1e30), cfg.logit_softcap)
+    m_new = torch.maximum(m, logits.amax(-1))
+    s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(-1)
+    loc = targets.to(torch.int64) - i * block
+    hit = (loc >= 0) & (loc < block)
+    tgt_l = torch.gather(logits, -1, loc.clamp(0, block - 1)[..., None])[..., 0]
+    return m_new, s, torch.where(hit, tgt_l, tgt)
+
+
+def blockwise_nll(cfg, params, x, targets):
+    """Streaming cross-entropy: never materialises the [B, S, V] logits.
+
+    An online logsumexp over vocab chunks of ``cfg.ce_block`` (the last
+    chunk padded, its pad columns masked); when autograd records each
+    chunk is checkpointed, so backward recomputes its logits instead of
+    storing them.  Returns the per-token NLL [B, S] in float32."""
+    B, S, D = x.shape
+    V, block = cfg.vocab_size, cfg.ce_block
+    pad = -V % block
+    nblk = (V + pad) // block
+    W = F.pad(_unembed_weight(cfg, params, x.dtype), (0, pad))
+    Wc = W.reshape(D, nblk, block).permute(1, 0, 2)      # (nblk, D, block)
+    carry = (torch.full((B, S), -1e30, device=x.device),
+             torch.zeros((B, S), device=x.device),
+             torch.full((B, S), -1e30, device=x.device))
+    remat = records(x, W)
+    for i in range(nblk):
+        args = (cfg, x, targets, *carry, i, Wc[i])
+        carry = (checkpoint(_nll_block, *args, use_reentrant=False)
+                 if remat else _nll_block(*args))
+    m, s, tgt = carry
+    return torch.log(torch.clamp(s, min=1e-30)) + m - tgt
+
+
+def lm_loss(cfg, params, batch):
+    """batch ``{tokens, targets, loss_mask}`` -> (loss, metrics): the mean
+    NLL over the mask, through ``blockwise_nll`` when ``cfg.ce_block`` is
+    set, else full logits, ``log_softmax`` and a gather."""
+    _check_ported(cfg)
+    if batch.get("patch_embeds") is not None:
+        raise NotImplementedError(f"{cfg.name}: the patch-embedding prefix "
+                                  "is not ported (ROADMAP A17.8)")
+    targets = batch["targets"]
+    x = forward_hidden(cfg, params, batch["tokens"])
+    if cfg.ce_block:
+        nll = blockwise_nll(cfg, params, x, targets)
+    else:
+        logp = torch.log_softmax(unembed(cfg, params, x), dim=-1)
+        nll = -torch.gather(logp, -1,
+                            targets.to(torch.int64)[..., None])[..., 0]
+    mask = batch["loss_mask"].to(torch.float32)
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss, {"nll": loss}
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):

@@ -324,9 +324,11 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
 
     def epsilon(step: int) -> torch.Tensor:
         """The reference's float32 schedule as XLA compiles it: the
-        constants fold into one float32 rate and the add fuses."""
+        division by the decay becomes a multiplication by its float32
+        reciprocal, the constants fold into one float32 rate
+        ``f32(f32(end - start) * f32(1 / decay))``, and the add fuses."""
         rate = (torch.tensor(cfg.eps_end - cfg.eps_start, dtype=torch.float32)
-                / cfg.eps_decay_steps)
+                * torch.tensor(1.0 / cfg.eps_decay_steps, dtype=torch.float32))
         e = fma32(torch.tensor(float(step)), rate, cfg.eps_start)
         return torch.clamp(e, cfg.eps_end, cfg.eps_start)
 
