@@ -57,7 +57,13 @@ batch 8 x 128 tokens, the per-sequence loss through the flash kernel,
 24 launches a step), holds its first step and its per-sequence losses
 against the plain versions, kills and resumes a reduced run bit for
 bit, and trains and serves granite-34b and phi3-medium-14b at full
-width and two layers.  Steps per second are
+width and two layers; then serves h2o-danube-3-4b at full width and
+depth past its 4,096-key window (its float32 generate held against a
+plain float32 forward), deepseek-moe-16b and deepseek-v2-lite-16b at
+full width and depth (MoE, MLA with its latent cache), trains the three
+at two layers, and holds the flash and decode kernels at their shapes
+(the window, D 192 / Dv 128) against the plain versions.  Steps per
+second are
 timed over steady learn steps after each run (set-up and warm-up are
 reported apart), with the host time spent in the PRNG beside them.  Each phase prints one JSON line; the line before
 the last lists the kernels with their timings and bounds, and the last
@@ -67,8 +73,8 @@ CUDA device the script exits with code 2.
 
 ``--phases`` picks a subset (device,match,sample,rank,graph,prng,tcam,
 flash,decode,fused,kernel,sharded,fig9,launch_budget,table1,pixel,resume,
-runtime,serve,lm_train) for debugging; every phase runs by default.  Each
-training phase's line says whether its steps were captured
+runtime,serve,lm_train,lm_zoo) for debugging; every phase runs by
+default.  Each training phase's line says whether its steps were captured
 (``"captured"``).  ``runtime_split`` (named in
 ``--phases`` only) splits the runtime's time: each stage alone, then the
 service in five settings.
@@ -80,6 +86,7 @@ step, launches per step, top kernels; the chrome trace goes to
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -107,7 +114,7 @@ SHARDS = 4                   # logical shards of the sharded phase, on one card
 PHASES = ("device", "match", "sample", "rank", "graph", "prng", "tcam",
           "flash", "decode", "fused", "kernel", "sharded", "fig9",
           "launch_budget", "table1", "pixel", "resume", "runtime", "serve",
-          "lm_train")
+          "lm_train", "lm_zoo")
 ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
 # The reference's kernel sweep (tests/test_kernels.py) and GQA group 4 at
@@ -261,22 +268,33 @@ def phase_device(state: dict) -> None:
           "ptxas": ptxas})
 
 
+# A profiler session now and then records no device event at all (seen
+# once in a whole run, on a call that launches one kernel each time), so
+# an empty reading is taken again, up to this many sessions in all.
+PROFILER_SESSIONS = 3
+
+
 def device_ops(fn, calls: int = 20) -> dict:
     """The device operations of one ``fn()`` call, by torch.profiler after
     a warm call: {kernel name: [operations per call, device us per
-    call]}."""
+    call]}; empty only if PROFILER_SESSIONS sessions all read nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:100]: [e.count / calls, e.self_device_time_total / calls]
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count}
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        got = {e.key[:100]: [e.count / calls,
+                             e.self_device_time_total / calls]
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count}
+        if got:
+            return got
+    return got
 
 
 # torch.profiler now and then loses a kernel event (0.95 or 0.98 launches
@@ -3116,90 +3134,116 @@ def decode_vs_prefill(engine, prompts, steps: int) -> dict:
             "max_abs_logit": scale, "tol": SERVE_F32_TOL}
 
 
-def phase_serve(state: dict, trace_dir: str | None) -> None:
-    """stablelm-1.6b at full width through ``Model`` + ``Engine``: one
-    greedy generate (the main path, launch counts checked exactly), then
-    prefill and decode timed alone, then decode held against prefill in
-    float32."""
-    import dataclasses
-
+def serve_arch(state: dict, phase: str, arch: str, batch: int,
+               prompt: int, gen: int):
+    """``arch`` at full width and depth through ``Model`` + ``Engine``,
+    seeded weights: init timed, one greedy generate (the main path: flash
+    and decode launches exact, added to the run's counts), then prefill
+    and decode timed alone (after the generate warmed them up).  Returns
+    (report, cfg, params, prompts, engine)."""
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model_api import Model
-    from repro_torch.models.qhead import tree_leaves
     from repro_torch.serving import Engine
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     model = Model.from_config(cfg)
+    gc.collect()  # the last phase's tensors, before 65 GB of params
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = model.init_params(
         torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    params_gb = torch.cuda.memory_allocated() / 1e9 - before_gb
     prompts = prng.randint(prng.split(prng.key(SEED + 1), 3)[0],
-                           (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size,
-                           device="cuda")
-    batch = {"tokens": prompts}
+                           (batch, prompt), 0, cfg.vocab_size, device="cuda")
     engine = Engine(model, params)
-    max_len = SERVE_PROMPT + SERVE_GEN + 1
+    max_len = prompt + gen + 1
 
-    # The main path, through the engine's entry point.
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = engine.generate(batch, SERVE_GEN)
+    res = engine.generate({"tokens": prompts}, gen)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
-    launches = dict(ops.launches)
+    got = {k: ops.launches[k] for k in ("flash_attention",
+                                        "decode_attention")}
     want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * (SERVE_GEN - 1)}
-    for kernel, n in want.items():
-        if launches[kernel] != n:
-            fail("serve", f"{kernel} launched {launches[kernel]} times in "
-                 f"one generate, not {n}")
-        state["launches"][kernel] = launches[kernel]
-    if tuple(res.tokens.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
-            ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
-        fail("serve", f"tokens of shape {tuple(res.tokens.shape)} or out "
-             "of the vocabulary")
-    if not bool(torch.isfinite(res.logits_last).all()):
-        fail("serve", "non-finite logits")
+            "decode_attention": cfg.n_layers * (gen - 1)}
+    if got != want:
+        fail(phase, f"{arch}: one generate launched {got}, not {want}")
+    for k, n in got.items():
+        state["launches"][k] = state["launches"].get(k, 0) + n
+    if tuple(res.tokens.shape) != (batch, gen) or not bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()) \
+            or not bool(torch.isfinite(res.logits_last).all()):
+        fail(phase, f"{arch}: tokens {tuple(res.tokens.shape)} out of "
+             "the vocabulary or non-finite logits")
 
-    # Prefill and decode timed alone (after the generate warmed them up).
     prefill_s = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = engine.prefill(batch, max_len)
+        logits, cache = engine.prefill({"tokens": prompts}, max_len)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
-    if not bool(torch.isfinite(logits).all()):
-        fail("serve", "non-finite prefill logits")
     tok = Engine._choose(logits, 0.0, None, 0)
-    box = [tok, cache]
-
-    def step():
-        lg, box[1] = engine.decode(box[0], box[1])
-        box[0] = Engine._choose(lg[:, -1], 0.0, None, 0)
-
-    steps = SERVE_GEN - 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
+    for _ in range(gen - 1):
+        lg, cache = engine.decode(tok, cache)
+        tok = Engine._choose(lg[:, -1], 0.0, None, 0)
     torch.cuda.synchronize()
-    decode_s = (time.perf_counter() - t0) / steps
+    decode_s = (time.perf_counter() - t0) / (gen - 1)
+    if not bool(torch.isfinite(lg).all()):
+        fail(phase, f"{arch}: non-finite decode logits")
+    report = {
+        "arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+        "params": lm_param_count(cfg), "params_gb": params_gb,
+        "allocated_before_gb": before_gb,
+        "batch": batch, "prompt": prompt, "gen": gen, "init_s": init_s,
+        "generate_s": generate_s, "launches": got,
+        "prefill_ms": float(np.median(prefill_s)) * 1e3,
+        "prefill_ms_all": [x * 1e3 for x in prefill_s],
+        "decode_ms_per_token": decode_s * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del res, cache, logits, lg
+    return report, cfg, params, prompts, engine
+
+
+def phase_serve(state: dict, trace_dir: str | None) -> None:
+    """stablelm-1.6b at full width through ``Model`` + ``Engine``: one
+    greedy generate (the main path, launch counts checked exactly), then
+    prefill and decode timed alone (``serve_arch``), then decode held
+    against prefill in float32."""
+    import dataclasses
+
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving import Engine
+
+    report, cfg, params, prompts, engine = serve_arch(
+        state, "serve", ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)
+    max_len = SERVE_PROMPT + SERVE_GEN + 1
     profile = None
     if trace_dir is not None:
-        logits, cache = engine.prefill(batch, max_len)
-        box[:] = [Engine._choose(logits, 0.0, None, 0), cache]
+        logits, cache = engine.prefill({"tokens": prompts}, max_len)
+        box = [Engine._choose(logits, 0.0, None, 0), cache]
+
+        def step():
+            lg, box[1] = engine.decode(box[0], box[1])
+            box[0] = Engine._choose(lg[:, -1], 0.0, None, 0)
+
         profile = profile_steps(step, 8, trace_dir, "serve_decode",
                                 ("serve_decode", "serve_prefill"))
         del profile["kernel_sequence"]
         profile["decode_attention_launches_per_token"] = cfg.n_layers
+        del box, logits, cache
 
     # Decode against prefill, in float32 at full width on a shorter prompt.
     engine32 = Engine(Model.from_config(dataclasses.replace(
@@ -3207,17 +3251,10 @@ def phase_serve(state: dict, trace_dir: str | None) -> None:
     check = decode_vs_prefill(engine32, prompts[:, :256], 8)
     if not check["max_rel_err"] <= SERVE_F32_TOL:
         fail("serve", f"float32 decode != prefill: {check}")
-    emit({"phase": "serve", "ok": True, "arch": ARCH, "params": n_params,
-          "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
-          "max_len": max_len, "init_s": init_s, "generate_s": generate_s,
-          "launches": launches,
-          "prefill_ms": float(np.median(prefill_s)) * 1e3,
-          "prefill_ms_all": [x * 1e3 for x in prefill_s],
-          "decode_ms_per_token": decode_s * 1e3,
-          "tokens_per_s": SERVE_BATCH / decode_s,
+    emit({"phase": "serve", "ok": True, **report, "max_len": max_len,
+          "tokens_per_s": SERVE_BATCH / report["decode_ms_per_token"] * 1e3,
           "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
-          / float(np.median(prefill_s)),
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          / report["prefill_ms"] * 1e3,
           "decode_vs_prefill_f32": check, "profile": profile})
 
 
@@ -3391,12 +3428,12 @@ LM_OTHER, LM_OTHER_LAYERS, LM_OTHER_STEPS, LM_OTHER_GEN = (
     ("granite-34b", "phi3-medium-14b"), 2, 3, 16)
 
 
-def lm_other_configs() -> dict:
-    """(d): granite-34b (MQA, head dim 128, untied head) and
-    phi3-medium-14b (GQA 40 / 10) at full width and 2 layers: a few train
-    steps through the sequence replay, the train step and the
-    per-sequence loss, then a greedy generate; the flash and decode
-    launches exact, losses and logits finite."""
+def cut_depth_run(phase: str, arch: str, layers: int, steps: int,
+                  gen: int) -> dict:
+    """``arch`` at full width and ``layers`` layers: ``steps`` train steps
+    through the sequence replay, the train step and the per-sequence loss
+    (batch 8 x 128), then, with ``gen``, a greedy generate; the flash and
+    decode launches exact, losses and logits finite."""
     import dataclasses
 
     from repro_torch import prng
@@ -3410,56 +3447,74 @@ def lm_other_configs() -> dict:
     from repro_torch.train.optimizer import AdamW, cosine_schedule
 
     dev = torch.device(LM_DEVICE)
-    out = {}
-    for arch in LM_OTHER:
-        cfg = dataclasses.replace(get_config(arch), n_layers=LM_OTHER_LAYERS)
-        model = Model.from_config(cfg)
-        opt = AdamW(cosine_schedule(3e-4, 20, 30))
-        step_fn = ts_mod.make_train_step(model, opt)
-        data = data_mod.PrioritizedSeqData(
-            data_mod.corpus_tokens(256, 129, cfg.vocab_size, SEED), 8,
-            device=dev)
-        ds = data.init()
-        st = ts_mod.init_train_state(
-            model, opt, torch.Generator(device=dev).manual_seed(SEED), dev)
-        ops.reset_launches()
-        losses, step_ms = [], []
-        for step in range(LM_OTHER_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            idx, batch = data.sample(ds, prng.fold_in(prng.key(SEED), step))
-            with launch_train.deterministic(dev):
-                st, met = step_fn(st, batch)
-                seq_loss = launch_train.per_sequence_loss(model, st.params,
-                                                          batch)
-            ds = data.update(ds, idx, seq_loss)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(met["loss"]))
-        flash = ops.launches["flash_attention"]
-        if flash != LM_OTHER_STEPS * cfg.n_layers or not np.all(
-                np.isfinite(losses)):
-            fail("lm_train", f"{arch}: {flash} flash launches in "
-                 f"{LM_OTHER_STEPS} steps, losses {losses}")
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = Model.from_config(cfg)
+    opt = AdamW(cosine_schedule(3e-4, 20, 30))
+    step_fn = ts_mod.make_train_step(model, opt)
+    data = data_mod.PrioritizedSeqData(
+        data_mod.corpus_tokens(256, 129, cfg.vocab_size, SEED), 8,
+        device=dev)
+    ds = data.init()
+    torch.cuda.reset_peak_memory_stats()
+    st = ts_mod.init_train_state(
+        model, opt, torch.Generator(device=dev).manual_seed(SEED), dev)
+    ops.reset_launches()
+    losses, step_ms, aux = [], [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx, batch = data.sample(ds, prng.fold_in(prng.key(SEED), step))
+        with launch_train.deterministic(dev):
+            st, met = step_fn(st, batch)
+            seq_loss = launch_train.per_sequence_loss(model, st.params,
+                                                      batch)
+        ds = data.update(ds, idx, seq_loss)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        aux.append({k: float(v) for k, v in met.items()
+                    if k.startswith("moe_")})
+    flash = ops.launches["flash_attention"]
+    if flash != steps * cfg.n_layers or not np.all(np.isfinite(losses)):
+        fail(phase, f"{arch}: {flash} flash launches in {steps} steps, "
+             f"losses {losses}")
+    if cfg.n_experts and not all(len(a) == 3 and np.all(np.isfinite(
+            list(a.values()))) for a in aux):
+        fail(phase, f"{arch}: MoE metrics missing or non-finite: {aux}")
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "losses": losses, "step_ms": step_ms,
+           "train_launches": {"flash_attention": flash},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.n_experts:
+        out["moe_metrics_first_last"] = [aux[0], aux[-1]]
+    if gen:
         engine = Engine(model, st.params)
         ops.reset_launches()
         res = engine.generate({"tokens": batch["tokens"][:4, :64]
-                               .contiguous()}, LM_OTHER_GEN)
-        gen = {k: ops.launches[k]
+                               .contiguous()}, gen)
+        got = {k: ops.launches[k]
                for k in ("flash_attention", "decode_attention")}
-        if gen != {"flash_attention": cfg.n_layers, "decode_attention":
-                   cfg.n_layers * (LM_OTHER_GEN - 1)} or not bool(
+        if got != {"flash_attention": cfg.n_layers, "decode_attention":
+                   cfg.n_layers * (gen - 1)} or not bool(
                        torch.isfinite(res.logits_last).all()):
-            fail("lm_train", f"{arch}: generate launched {gen}")
-        out[arch] = {"layers": cfg.n_layers, "d_model": cfg.d_model,
-                     "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-                     "losses": losses, "step_ms": step_ms,
-                     "train_launches": {"flash_attention": flash},
-                     "generate_launches": gen,
-                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-        del st, ds, data, engine, res
-        torch.cuda.empty_cache()
+            fail(phase, f"{arch}: generate launched {got}")
+        out["generate_launches"] = got
+        del engine, res
+    del st, ds, data
+    torch.cuda.empty_cache()
     return out
+
+
+def lm_other_configs() -> dict:
+    """(d): granite-34b (MQA, head dim 128, untied head) and
+    phi3-medium-14b (GQA 40 / 10) at full width and 2 layers: a few train
+    steps through the sequence replay, the train step and the
+    per-sequence loss, then a greedy generate; the flash and decode
+    launches exact, losses and logits finite."""
+    return {arch: cut_depth_run("lm_train", arch, LM_OTHER_LAYERS,
+                                LM_OTHER_STEPS, LM_OTHER_GEN)
+            for arch in LM_OTHER}
 
 
 def phase_lm_train(state: dict) -> None:
@@ -3542,6 +3597,251 @@ def phase_lm_train(state: dict) -> None:
           "other_configs": others})
 
 
+# Phase lm_zoo: the sliding-window and deepseek configs on the card.
+# (a) h2o-danube-3-4b at full width and depth: batch 2, a 4,160-token
+# prompt, 32 greedy tokens, so that every decode step attends past the
+# 4,096-key window; (b) deepseek-moe-16b and (c) deepseek-v2-lite-16b at
+# full width and depth (65.5 and 62.8 GB of float32 params): batch 4,
+# 256-token prompts, 16 greedy tokens; (d) each of the three at full width
+# and 2 layers (the deepseeks: 1 dense + 1 MoE) through the trainer's
+# step, 10 steps.
+ZOO_WINDOW_ARCH = "h2o-danube-3-4b"
+ZOO_MOE_ARCHS = ("deepseek-moe-16b", "deepseek-v2-lite-16b")
+ZOO_WINDOW_SERVE = (2, 4160, 32)  # batch, prompt, generated tokens
+ZOO_MOE_SERVE = (4, 256, 16)
+ZOO_TRAIN_LAYERS, ZOO_TRAIN_STEPS = 2, 10
+# The two kernels at the zoo's shapes, each held against its plain
+# version in float32 and bf16 and timed in bf16 beside SDPA: flash (b,
+# hq, hkv, s, d, dv, window; causal) at h2o's prefill and
+# deepseek-v2-lite's (MLA: D 192, Dv 128); decode (b, hkv, group, s, d,
+# dv, cur_len, window) at h2o's decode (GQA 32 / 8, D 120, the window)
+# and deepseek-v2-lite's (Hkv = H, group 1, D 192, Dv 128).
+ZOO_FLASH = [(2, 32, 8, 4160, 120, 120, 4096),
+             (4, 16, 16, 256, 192, 128, None)]
+ZOO_DECODE = [(2, 8, 4, 4193, 120, 120, 4190, 4096),
+              (4, 16, 1, 273, 192, 128, 271, None)]
+# Held against the plain version and not timed: h2o's decode with a
+# window of 1,024, whose bound (3,166) leaves 24 of the 33 splits of 128
+# keys wholly below it (at 4,096 the bound, 94, falls in the first split).
+ZOO_DECODE_EDGE = [(2, 8, 4, 4193, 120, 120, 4190, 1024)]
+# In bf16 a kernel is held at 2e-2, while a softmax over 4,096 random keys
+# gives outputs of about that size (std sqrt(e / 4096) = 0.026), so a key
+# taken or lost at the window's bound (a move of about 1e-3) would pass.
+# So a windowed bf16 case first lays a ladder of scores across the bound,
+# in column 0 of q and k (the other columns stay random): against the
+# rows past the window, the keys up to the ladder's top score
+# LADDER_BASE + LADDER_STEP min(top - j, rungs), the others 0.  The live
+# key at a row's bound then outscores every other live key by 2 or more
+# and carries most of its weight, while a key below the bound outscores
+# it: one key taken below the bound, or lost at it, moves that row's
+# output by O(1).
+LADDER_Q, LADDER_BASE, LADDER_STEP = 16.0, 12.0, 2.0
+# (a)'s float32 generate through the kernels against a float32 forward
+# over the same tokens through the plain route (attention_ref), as max
+# |difference| / max |logit| over the 32 generated positions: the two
+# sum each 4,096-key softmax in other orders across 24 layers (the serve
+# phase's decode vs prefill, both through the kernels at 256 tokens, read
+# 8.4e-7), while a key of the window's edge taken or left wrongly moves
+# the logits by 1e-2 or more.
+ZOO_WINDOW_TOL = 1e-4
+
+
+def causal_pairs(s: int, window: int | None) -> int:
+    """(q, k) pairs a causal mask with an optional window keeps."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def lay_ladder(q: torch.Tensor, k: torch.Tensor, top: int,
+               rungs: int) -> None:
+    """Write the window's ladder (see LADDER_Q) into column 0 of q (the
+    rows past the window, as the caller slices them) and of k (keys on
+    axis -2), in place."""
+    j = torch.arange(k.shape[-2], device=k.device)
+    score = LADDER_BASE + LADDER_STEP * (top - j).clamp(max=rungs)
+    k[..., 0] = torch.where(j <= top, score * k.shape[-1] ** 0.5 / LADDER_Q,
+                            0.0).to(k.dtype)
+    q[..., 0] = LADDER_Q
+
+
+def zoo_kernels() -> list:
+    """The flash and decode kernels at ZOO_FLASH, ZOO_DECODE and
+    ZOO_DECODE_EDGE against their plain versions (float32, and bf16 on
+    the window's ladder where there is a window), and timed (bf16, but
+    for ZOO_DECODE_EDGE) beside their plain versions and SDPA with the
+    bound of the same work."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref, decode_attention_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for i, (b, hq, hkv, s, d, dv, window) in enumerate(ZOO_FLASH):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attention_inputs(
+                [(b, hq, s, d), (b, hkv, s, d), (b, hkv, s, dv)], dtype,
+                200 + i)
+            ladder = window is not None and dtype == torch.bfloat16
+            if ladder:
+                # row r >= window has its bound at r - window + 1, in
+                # [1, s - window]: the ladder spans keys 0 .. s - window
+                q[:, :, :window, 0] = 0
+                lay_ladder(q[:, :, window:], k, s - window, s - window)
+            got = ops.flash_attention(q, k, v, causal=True, window=window)
+            want = attention_ref(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            case = (f"b{b} hq{hq} hkv{hkv} s{s} d{d} dv{dv} causal "
+                    f"window={window} {str(dtype)[6:]}"
+                    + (" ladder" if ladder else ""))
+            row = {"kernel": "flash_attention", "case": case,
+                   "max_abs_err": check_close("lm_zoo", case, got, want,
+                                              ATTN_TOL[dtype])}
+            del want
+            if dtype == torch.bfloat16:
+                pos = torch.arange(s, device="cuda")
+                keep = pos[:, None] >= pos[None, :]
+                if window is not None:
+                    keep &= pos[:, None] - pos[None, :] < window
+                flops = 2 * (d + dv) * b * hq * causal_pairs(s, window)
+                bound_ms, bound_by = attention_bound(nbytes(q, k, v, got),
+                                                     flops)
+                row.update(
+                    ms=device_time_ms(lambda: ops.flash_attention(
+                        q, k, v, causal=True, window=window)),
+                    plain_ms=device_time_ms(lambda: attention_ref(
+                        q, k, v, causal=True, window=window), calls=3,
+                        reps=2),
+                    library_ms=device_time_ms(lambda: sdpa(
+                        q, k, v, attn_mask=keep, enable_gqa=hq != hkv)
+                        if window is not None else sdpa(
+                            q, k, v, is_causal=True,
+                            enable_gqa=hq != hkv)),
+                    bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            del q, k, v, got
+    for i, (b, hkv, g, s, d, dv, cur, window) in enumerate(
+            ZOO_DECODE + ZOO_DECODE_EDGE):
+        lo = 0 if window is None else max(0, cur - window)
+        timed = i < len(ZOO_DECODE)
+        for dtype in (torch.bfloat16, torch.float32):
+            sets = [attention_inputs([(b, hkv, g, d), (b, hkv, s, d),
+                                      (b, hkv, s, dv)], dtype, 300 + 10 * i
+                                     + j)
+                    for j in range(COLD_SETS if dtype == torch.bfloat16
+                                   and timed else 1)]
+            q, k, v = sets[0]
+            ladder = window is not None and dtype == torch.bfloat16
+            if ladder:
+                # 32 rungs each side of the bound, and every key further
+                # below it (whole splits, at a window of 1,024) on top
+                lay_ladder(q, k, lo + 31, 64)
+            cur_len = torch.tensor(cur, dtype=torch.int32, device="cuda")
+            got = ops.decode_attention(q, k, v, cur_len, window=window)
+            want = decode_attention_ref(q, k, v, cur_len, window)
+            torch.cuda.synchronize()
+            case = (f"b{b} hkv{hkv} group{g} s{s} d{d} dv{dv} cur{cur} "
+                    f"window={window} {str(dtype)[6:]}"
+                    + (" ladder" if ladder else ""))
+            row = {"kernel": "decode_attention", "case": case,
+                   "max_abs_err": check_close("lm_zoo", case, got, want,
+                                              DECODE_TOL[dtype])}
+            if dtype == torch.bfloat16 and timed:
+                live = cur - lo
+                moved = (nbytes(q, got, cur_len)
+                         + b * hkv * live * (d + dv) * k.element_size())
+                bound_ms, bound_by = attention_bound(
+                    moved, 2 * b * hkv * g * live * (d + dv))
+                row.update(
+                    ms=cold_time_ms(lambda q, k, v: ops.decode_attention(
+                        q, k, v, cur_len, window=window), sets),
+                    plain_ms=device_time_ms(lambda: decode_attention_ref(
+                        q, k, v, cur_len, window), calls=10, reps=3),
+                    library_ms=cold_time_ms(lambda q, k, v: sdpa(
+                        q.reshape(b, hkv * g, 1, d), k[:, :, lo:cur],
+                        v[:, :, lo:cur], enable_gqa=g > 1), sets),
+                    bound_ms=bound_ms, bound_by=bound_by, l2="cold",
+                    bytes=moved)
+            rows.append(row)
+            del sets, q, k, v, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_window_check(cfg, params, prompts, gen: int) -> dict:
+    """(a)'s check: a float32 greedy generate through the kernels (each
+    decode step past the window), its logits held against a float32
+    forward over the same tokens through the plain route."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models import transformer
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving import Engine
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    engine = Engine(Model.from_config(cfg32), params)
+    B, P = prompts.shape
+    logits, cache = engine.prefill({"tokens": prompts}, P + gen + 1)
+    seq, got = [prompts], [logits]
+    for _ in range(gen - 1):
+        tok = Engine._choose(logits, 0.0, None, 0)
+        seq.append(tok)
+        lg, cache = engine.decode(tok, cache)
+        logits = lg[:, -1]
+        got.append(logits)
+    del cache, engine
+    got = torch.stack(got, dim=1)                         # (B, gen, V)
+    tokens = torch.cat(seq, dim=1)                        # (B, P + gen - 1)
+    real = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, causal=True, window=None: \
+        attention_ref(q, k, v, causal=causal, window=window)
+    try:
+        with torch.no_grad():
+            x, _ = transformer.forward_hidden(cfg32, params, tokens)
+            want = transformer.unembed(cfg32, params, x[:, P - 1:])
+    finally:
+        ops.flash_attention = real
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    if not (bool(torch.isfinite(got).all()) and err <= ZOO_WINDOW_TOL):
+        fail("lm_zoo", f"{cfg.name}: float32 generate vs the plain forward "
+             f"{err} > {ZOO_WINDOW_TOL}")
+    return {"positions": [P - 1, P + gen - 2], "max_rel_err": err,
+            "max_abs_logit": scale, "tol": ZOO_WINDOW_TOL, "window": cfg.sliding_window,
+            "last_cur_len": P + gen - 1}
+
+
+def phase_lm_zoo(state: dict) -> None:
+    """The zoo's kernel shapes, (a) h2o-danube-3-4b served past its
+    window and held against a plain float32 forward, (b) and (c) the
+    deepseeks served at full depth, (d) the three through the trainer's
+    step at 2 layers."""
+    kernels = zoo_kernels()
+    served = {}
+    report, cfg, params, prompts, engine = serve_arch(
+        state, "lm_zoo", ZOO_WINDOW_ARCH, *ZOO_WINDOW_SERVE)
+    del engine
+    report["float32_vs_plain_forward"] = zoo_window_check(
+        cfg, params, prompts, ZOO_WINDOW_SERVE[2])
+    served[ZOO_WINDOW_ARCH] = report
+    del params, prompts
+    for arch in ZOO_MOE_ARCHS:
+        torch.cuda.empty_cache()
+        served[arch], _, params, _, engine = serve_arch(
+            state, "lm_zoo", arch, *ZOO_MOE_SERVE)
+        del params, engine
+    torch.cuda.empty_cache()
+    trained = {}
+    for arch in (ZOO_WINDOW_ARCH,) + ZOO_MOE_ARCHS:
+        trained[arch] = cut_depth_run("lm_zoo", arch, ZOO_TRAIN_LAYERS,
+                                      ZOO_TRAIN_STEPS, 0)
+        state["launches"]["flash_attention"] = (
+            state["launches"].get("flash_attention", 0)
+            + trained[arch]["train_launches"]["flash_attention"])
+    emit({"phase": "lm_zoo", "ok": True, "card": state["smi"],
+          "kernels": kernels, "served": served, "trained": trained})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3609,6 +3909,8 @@ def main(argv=None) -> int:
         phase_serve(state, trace_dir)
     if "lm_train" in phases:
         phase_lm_train(state)
+    if "lm_zoo" in phases:
+        phase_lm_zoo(state)
     rows = []
     for name, row in state["kernels"].items():
         rows.append({**row, "launches": state["launches"].get(name, 0)})

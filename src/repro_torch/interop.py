@@ -184,11 +184,14 @@ def lm_params_from_jax(params, device="cuda") -> dict:
 
 
 def lm_cache_from_jax(cache, device="cuda") -> dict:
-    """The reference LM's KV cache (``{"blocks": {"k", "v"}, "len"}``,
-    numpy leaves) as the port's, ``len`` an int32 scalar on ``device``."""
-    return {"blocks": {k: _lm_leaf(v, device)
-                       for k, v in cache["blocks"].items()},
-            "len": _lm_leaf(np.asarray(cache["len"], np.int32), device)}
+    """The reference LM's cache (``{"blocks": {"k", "v"} or {"latent"},
+    "len"}``, with ``"dense_blocks"`` alike for deepseek's leading dense
+    layers; numpy leaves) as the port's, ``len`` an int32 scalar on
+    ``device``."""
+    out = {name: {k: _lm_leaf(v, device) for k, v in cache[name].items()}
+           for name in ("blocks", "dense_blocks") if name in cache}
+    out["len"] = _lm_leaf(np.asarray(cache["len"], np.int32), device)
+    return out
 
 
 def lm_train_state_from_jax(st, device="cuda") -> TrainState:

@@ -4,20 +4,24 @@
 // (_decode_kernel, called through decode_attention_fwd at :61).  Same
 // function as the port's kernels/ref.py::decode_attention_ref:
 //
-//   out[b, h, g] = softmax(q[b, h, g] k[b, h]^T / sqrt(D), keys < cur_len) v[b, h]
+//   out[b, h, g] = softmax(q[b, h, g] k[b, h]^T / sqrt(D), keys live) v[b, h]
 //
-// with q [B, Hkv, group, D] (the group query heads of kv head h), k and v
-// [B, Hkv, S, D], and cur_len an int32 in device memory, read by the
-// kernel as the TPU kernel reads its (1,) operand, so a decode step never
-// waits on the host for it.  float32 or bfloat16 in, float32 arithmetic,
-// output in q's type.  Any group and any head dim the wrappers take.
+// with q [B, Hkv, group, D] (the group query heads of kv head h), k
+// [B, Hkv, S, D], v [B, Hkv, S, Dv] (Dv may differ from D: MLA scores
+// over 192 columns and averages 128), and cur_len an int32 in device
+// memory, read by the kernel as the TPU kernel reads its (1,) operand, so
+// a decode step never waits on the host for it.  The live keys are those
+// below cur_len and, with a sliding window W (a launch argument, the same
+// for every call of a model), at or above cur_len - W: the reference's
+// mask (qpos - kpos) < W at qpos = cur_len - 1.  float32 or bfloat16 in,
+// float32 arithmetic, output in q's type.  Any group and any head dims
+// the wrappers take.
 //
-// Bound: bytes.  A step must read the cur_len live rows of k and v once:
-// at the serving path's shape (B 4, Hkv 32, group 1, D 64, bf16) that is
-// 35.7 MB at cur_len 1088, 11 us at 3.35 TB/s; the products are 2 flops a
-// byte for group 1, far below the card's rate, so there are no tensor
-// cores here: the work is keeping enough 16-byte loads in flight on every
-// SM.
+// Bound: bytes.  A step must read the live rows of k and v once: at the
+// serving path's shape (B 4, Hkv 32, group 1, D 64, bf16) that is 35.7 MB
+// at cur_len 1088, 11 us at 3.35 TB/s; the products are 2 flops a byte
+// for group 1, far below the card's rate, so there are no tensor cores
+// here: the work is keeping enough 16-byte loads in flight on every SM.
 //
 // Design: split-KV in one launch.  The grid is (kv split, kv head x group
 // tile, batch); the wrapper picks the split count from S and the shapes
@@ -27,27 +31,32 @@
 // float32); a larger group (MQA: 48 heads on one kv head) is spread over
 // several tiles, each reading the cache chunk again (mostly from L2).  In
 // a block:
-//   * each warp takes its own keys, with lanes across D in 16-byte loads
-//     (D 64 bf16: 8 lanes a key, 4 keys a warp-load), two warp-loads a
-//     step, and the next step's loads in flight during this step's math
-//     (registers, double buffered; the first step's are issued before
-//     cur_len is read); no block barrier in the sweep;
+//   * each warp takes its own keys, with lanes across max(D, Dv) in
+//     16-byte loads (D 64 bf16: 8 lanes a key, 4 keys a warp-load), two
+//     warp-loads a step, and the next step's loads in flight during this
+//     step's math (registers, double buffered; the first step's are
+//     issued before cur_len is read); no block barrier in the sweep;
 //   * each key slot of a warp keeps its own running (max, sum,
 //     accumulator) per query head in registers, in log2 units (q is
 //     scaled by log2(e) / sqrt(D) on its load);
 //   * slots merge by shuffles and warps through shared memory, once, at
 //     the end; the block writes its float32 partial (max, sum,
-//     accumulator[group][D]) to scratch;
+//     accumulator[group][Dv]) to scratch;
 //   * the last block of each (b, kv head, group tile) to finish (a
 //     __threadfence and an atomicAdd on a per-tile counter, which it
 //     resets to 0) merges the splits and writes the output, divided by
 //     max(sum, 1e-30).  With one split the block writes the output itself.
-// Keys at or past cur_len are left out (the TPU kernel scores them
-// -1e30, which weighs 0 beside any live key): a split past cur_len writes
-// an empty partial (max -inf, sum 0).  If no key is live (cur_len <= 0)
-// every key of S scores -1e30 and the weights are uniform, as in the
-// plain version.  The scratch and the counters are the wrapper's (allocated
-// once per device and size); the kernel allocates nothing.
+// Keys outside the live span are left out (the TPU kernel scores them
+// -1e30, which weighs 0 beside any live key): a split wholly past cur_len
+// or wholly below the window's lower bound writes an empty partial (max
+// -inf, sum 0), and a split the bound crosses starts its sweep at the
+// step that holds the bound (its preloaded first step is then loaded
+// again).  The bound comes from cur_len on the card, so a call never
+// syncs and the split count does not depend on it.  If no key is live
+// (cur_len <= 0) every key of S scores -1e30 and the weights are
+// uniform, as in the plain version.  The scratch and the counters are the
+// wrapper's (allocated once per device and size); the kernel allocates
+// nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,33 +104,35 @@ __device__ __forceinline__ float weight(float m, float big) {
 }
 
 // The k and v chunks of this lane for the U keys key0 + u kpw (zeros at
-// or past end, or past D).
+// or past end, or past D for k and Dv for v).
 template <typename T, int CM, int U>
 __device__ __forceinline__ void load_keys(uint4 (&kr)[U][CM],
                                           uint4 (&vr)[U][CM],
                                           const T* __restrict__ kp,
                                           const T* __restrict__ vp, int key0,
-                                          int kpw, int end, int d,
-                                          const int (&col)[CM]) {
+                                          int kpw, int end, int d, int dv,
+                                          const int (&col)[CM],
+                                          const int (&colv)[CM]) {
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int key = key0 + u * kpw;
 #pragma unroll
     for (int c = 0; c < CM; ++c) {
-      if (key < end && col[c] >= 0) {
-        const long long off = static_cast<long long>(key) * d + col[c];
-        kr[u][c] = __ldg(reinterpret_cast<const uint4*>(kp + off));
-        vr[u][c] = __ldg(reinterpret_cast<const uint4*>(vp + off));
-      } else {
-        kr[u][c] = make_uint4(0, 0, 0, 0);
-        vr[u][c] = make_uint4(0, 0, 0, 0);
-      }
+      kr[u][c] = key < end && col[c] >= 0
+                     ? __ldg(reinterpret_cast<const uint4*>(
+                           kp + static_cast<long long>(key) * d + col[c]))
+                     : make_uint4(0, 0, 0, 0);
+      vr[u][c] = key < end && colv[c] >= 0
+                     ? __ldg(reinterpret_cast<const uint4*>(
+                           vp + static_cast<long long>(key) * dv + colv[c]))
+                     : make_uint4(0, 0, 0, 0);
     }
   }
 }
 
 // GT: query heads of a group tile.  `lanes` lanes share a key (a power of
-// two covering D / V chunks, at most 32, each lane holding up to CM).
+// two covering max(D, Dv) / V chunks, at most 32, each lane holding up to
+// CM).  window <= 0: no window.
 template <typename T, int GT>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
@@ -129,7 +140,8 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
                        const int32_t* __restrict__ cur_len,
                        T* __restrict__ o, float* __restrict__ part,
                        int* __restrict__ counters, int group, int s_len,
-                       int d, int chunk, int lanes, float scale_log2) {
+                       int d, int dv, int window, int chunk, int lanes,
+                       float scale_log2) {
   constexpr int V = Vec<T>::n, CM = Vec<T>::chunks;
   constexpr int U = 2;  // keys a slot takes a step
   __shared__ float sm_acc[kWarps][GT][kMaxD];
@@ -145,28 +157,36 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
   const int g0 = gtile * GT, gact = min(GT, group - g0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int kpw = 32 / lanes, slot = lane / lanes;
-  int col[CM];
+  int col[CM], colv[CM];  // this lane's k and v columns (-1: none)
 #pragma unroll
   for (int c = 0; c < CM; ++c) {
     const int j = c * lanes + lane % lanes;
     col[c] = j < d / V ? j * V : -1;
+    colv[c] = j < dv / V ? j * V : -1;
   }
 
   const int c0 = split * chunk;
   const T* kp = k + bh * s_len * d;
-  const T* vp = v + bh * s_len * d;
+  const T* vp = v + bh * s_len * dv;
   // The first step's loads go out before cur_len is known: keys of the
-  // chunk below S are in bounds, and those at or past cur_len are
+  // chunk below S are in bounds, and those outside the live span are
   // dropped by the step's masks.
   const int step_keys = kWarps * U * kpw;
   const int first = c0 + warp * U * kpw + slot;
   uint4 kc[U][CM], vc[U][CM], kn[U][CM], vn[U][CM];
   load_keys<T, CM, U>(kc, vc, kp, vp, first, kpw, min(c0 + chunk, s_len), d,
-                      col);
+                      dv, col, colv);
   const int cur = *cur_len;
   const bool none_live = cur <= 0;  // every key masked: uniform weights
   const int live = none_live ? s_len : min(cur, s_len);
   const int end = min(c0 + chunk, live);
+  // the window's lower bound (0 when no key is live: uniform over S)
+  const int lo = window > 0 && !none_live ? max(0, cur - window) : 0;
+  // the sweep's first step: the one that holds max(c0, lo)
+  const int t0 = lo > c0 ? (lo - c0) / step_keys : 0;
+  if (t0 > 0 && c0 + t0 * step_keys < end)
+    load_keys<T, CM, U>(kc, vc, kp, vp, first + t0 * step_keys, kpw, end, d,
+                        dv, col, colv);
 
   float qf[GT][CM][V];
 #pragma unroll
@@ -198,17 +218,18 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
 
   // The sweep: at step t, warp w takes keys first + t step_keys + u kpw
   // (u < U) in its slot, the next step's loads in flight meanwhile.
-  const int n_steps = end > c0 ? (end - c0 + step_keys - 1) / step_keys : 0;
-  for (int t = 0; t < n_steps; ++t) {
+  const int n_steps =
+      end > max(c0, lo) ? (end - c0 + step_keys - 1) / step_keys : 0;
+  for (int t = t0; t < n_steps; ++t) {
     const int key0 = first + t * step_keys;
     if (t + 1 < n_steps)
-      load_keys<T, CM, U>(kn, vn, kp, vp, key0 + step_keys, kpw, end, d,
-                          col);
+      load_keys<T, CM, U>(kn, vn, kp, vp, key0 + step_keys, kpw, end, d, dv,
+                          col, colv);
     float kf[U][CM][V], vf[U][CM][V];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      ok[u] = key0 + u * kpw < end;
+      ok[u] = key0 + u * kpw < end && key0 + u * kpw >= lo;
 #pragma unroll
       for (int c = 0; c < CM; ++c) {
         to_float(kc[u][c], kf[u][c], static_cast<T*>(nullptr));
@@ -288,10 +309,10 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
       }
 #pragma unroll
       for (int c = 0; c < CM; ++c)
-        if (col[c] >= 0)
+        if (colv[c] >= 0)
 #pragma unroll
           for (int i = 0; i < V; ++i)
-            sm_acc[warp][g][col[c] + i] = acc[g][c][i];
+            sm_acc[warp][g][colv[c] + i] = acc[g][c][i];
     }
   }
   __syncthreads();
@@ -309,10 +330,10 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  T* out = o + (bh * group + g0) * d;
+  T* out = o + (bh * group + g0) * dv;
   if (n_split == 1) {
-    for (int idx = threadIdx.x; idx < gact * d; idx += kThreads) {
-      const int g = idx / d, e = idx - g * d;
+    for (int idx = threadIdx.x; idx < gact * dv; idx += kThreads) {
+      const int g = idx / dv, e = idx - g * dv;
       float a = 0.f;
       for (int w = 0; w < kWarps; ++w) a += sm_acc[w][g][e] * sm_wt[w][g];
       attn::store(out + idx, a / fmaxf(sm_sum[g], 1e-30f));
@@ -320,11 +341,11 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
     return;
   }
 
-  // This split's partial: [max, sum, acc[D]] per query head.
-  const int rec = d + 2;
+  // This split's partial: [max, sum, acc[Dv]] per query head.
+  const int rec = dv + 2;
   float* mine = part + (bh * group + g0) * n_split * rec;
-  for (int idx = threadIdx.x; idx < gact * d; idx += kThreads) {
-    const int g = idx / d, e = idx - g * d;
+  for (int idx = threadIdx.x; idx < gact * dv; idx += kThreads) {
+    const int g = idx / dv, e = idx - g * dv;
     float a = 0.f;
     for (int w = 0; w < kWarps; ++w) a += sm_acc[w][g][e] * sm_wt[w][g];
     mine[(g * n_split + split) * rec + 2 + e] = a;
@@ -349,8 +370,8 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
 
   // The last block merges the splits, each output in one pass over them
   // (the loads of several splits in flight at once).
-  for (int idx = threadIdx.x; idx < gact * d; idx += kThreads) {
-    const int g = idx / d, e = idx - g * d;
+  for (int idx = threadIdx.x; idx < gact * dv; idx += kThreads) {
+    const int g = idx / dv, e = idx - g * dv;
     const float* pg = mine + g * n_split * rec;
     float big = -INFINITY, den = 0.f, num = 0.f;
 #pragma unroll 8
@@ -358,7 +379,7 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
       const float ms = __ldcg(pg + sp * rec);
       const float ls = __ldcg(pg + sp * rec + 1);
       const float as = __ldcg(pg + sp * rec + 2 + e);
-      if (ms == -INFINITY) continue;  // a split past cur_len
+      if (ms == -INFINITY) continue;  // a split outside the live span
       const float nb = fmaxf(big, ms);
       const float a = weight(big, nb), w = exp2f(ms - nb);
       den = den * a + ls * w;
@@ -372,9 +393,10 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int GT>
 int launch_gt(const void* q, const void* k, const void* v,
               const void* cur_len, void* o, void* part, void* counters,
-              int batch, int hkv, int group, int s_len, int d, int n_split,
-              int chunk, float scale, cudaStream_t stream) {
-  const int n_chunks = d / Vec<T>::n;
+              int batch, int hkv, int group, int s_len, int d, int dv,
+              int window, int n_split, int chunk, float scale,
+              cudaStream_t stream) {
+  const int n_chunks = max(d, dv) / Vec<T>::n;
   int lanes = 1;
   while (lanes < n_chunks && lanes < 32) lanes <<= 1;
   const int n_gt = (group + GT - 1) / GT;
@@ -384,7 +406,7 @@ int launch_gt(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(cur_len),
       static_cast<T*>(o), static_cast<float*>(part),
-      static_cast<int*>(counters), group, s_len, d, chunk, lanes,
+      static_cast<int*>(counters), group, s_len, d, dv, window, chunk, lanes,
       scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -392,12 +414,14 @@ int launch_gt(const void* q, const void* k, const void* v,
 template <typename T>
 int launch_type(const void* q, const void* k, const void* v,
                 const void* cur_len, void* o, void* part, void* counters,
-                int batch, int hkv, int group, int s_len, int d, int n_split,
-                int chunk, int gt, float scale, cudaStream_t stream) {
+                int batch, int hkv, int group, int s_len, int d, int dv,
+                int window, int n_split, int chunk, int gt, float scale,
+                cudaStream_t stream) {
 #define DECODE_GT(G)                                                       \
   case G:                                                                  \
     return launch_gt<T, G>(q, k, v, cur_len, o, part, counters, batch, hkv, \
-                           group, s_len, d, n_split, chunk, scale, stream);
+                           group, s_len, d, dv, window, n_split, chunk,     \
+                           scale, stream);
   switch (gt) {
     DECODE_GT(1) DECODE_GT(2) DECODE_GT(4)
     default:
@@ -407,7 +431,8 @@ int launch_type(const void* q, const void* k, const void* v,
   if constexpr (sizeof(T) == 2) {
     if (gt == 8)
       return launch_gt<T, 8>(q, k, v, cur_len, o, part, counters, batch, hkv,
-                             group, s_len, d, n_split, chunk, scale, stream);
+                             group, s_len, d, dv, window, n_split, chunk,
+                             scale, stream);
   }
   return cudaErrorInvalidValue;
 #undef DECODE_GT
@@ -415,35 +440,37 @@ int launch_type(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q [batch, hkv, group, d], k and v [batch, hkv, s_len, d], o like q: all
-// contiguous, 16-byte aligned, of one type (bf16 != 0: bfloat16, else
-// float32); cur_len points at one int32 on the device.  d is a multiple
-// of 8 in [8, 256]; gt (query heads of a group tile) is 1, 2, 4 or (bf16
-// only) 8.  The
-// keys are cut into n_split chunks of `chunk` (1 <= n_split <= 64, the
-// last chunk ending at or past s_len).  With n_split > 1, part holds
-// batch * hkv * group * n_split * (d + 2) floats and counters
-// batch * hkv * ceil(group / gt) ints that are 0 (the kernel leaves them
-// 0).  scale is 1/sqrt(d) in float32.
+// q [batch, hkv, group, d], k [batch, hkv, s_len, d], v [batch, hkv,
+// s_len, dv], o [batch, hkv, group, dv]: all contiguous, 16-byte aligned,
+// of one type (bf16 != 0: bfloat16, else float32); cur_len points at one
+// int32 on the device.  d and dv are multiples of 8 in [8, 256]; window
+// <= 0 means no window; gt (query heads of a group tile) is 1, 2, 4 or
+// (bf16 only) 8.  The keys are cut into n_split chunks of `chunk` (1 <=
+// n_split <= 64, the last chunk ending at or past s_len).  With n_split >
+// 1, part holds batch * hkv * group * n_split * (dv + 2) floats and
+// counters batch * hkv * ceil(group / gt) ints that are 0 (the kernel
+// leaves them 0).  scale is 1/sqrt(d) in float32.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* cur_len,
                                        void* o, void* part, void* counters,
                                        int batch, int hkv, int group,
-                                       int s_len, int d, int n_split,
-                                       int chunk, int gt, float scale,
-                                       int bf16, void* stream) {
+                                       int s_len, int d, int dv, int window,
+                                       int n_split, int chunk, int gt,
+                                       float scale, int bf16, void* stream) {
   if (batch < 1 || hkv < 1 || group < 1 || s_len < 1 || d < 8 || d > kMaxD ||
-      d % 8 || batch > 65535 || n_split < 1 || n_split > kMaxSplits ||
+      d % 8 || dv < 8 || dv > kMaxD || dv % 8 || batch > 65535 ||
+      n_split < 1 || n_split > kMaxSplits ||
       chunk < 1 || static_cast<long long>(n_split) * chunk < s_len ||
       (n_split > 1 && (part == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_type<__nv_bfloat16>(q, k, v, cur_len, o, part, counters,
-                                      batch, hkv, group, s_len, d, n_split,
-                                      chunk, gt, scale, st);
+                                      batch, hkv, group, s_len, d, dv,
+                                      window, n_split, chunk, gt, scale, st);
   return launch_type<float>(q, k, v, cur_len, o, part, counters, batch, hkv,
-                            group, s_len, d, n_split, chunk, gt, scale, st);
+                            group, s_len, d, dv, window, n_split, chunk, gt,
+                            scale, st);
 }
 
 extern "C" const char* decode_attention_error(int code) {

@@ -6,10 +6,12 @@
 //
 //   out[b, h] = softmax(mask(q[b, h] k[b, h / group]^T / sqrt(D))) v[b, h / group]
 //
-// with q [B, Hq, S, D], k and v [B, Hkv, S, D], group = Hq / Hkv (GQA and
-// MQA through the kv-head map, no broadcast of k or v), a causal mask
-// (qpos >= kpos) and a sliding window (qpos - kpos < window), each
-// optional.  float32 accumulation; output in q's type.
+// with q [B, Hq, S, D], k [B, Hkv, S, D], v [B, Hkv, S, Dv] (Dv may
+// differ from D: MLA scores over 192 columns and averages 128), group =
+// Hq / Hkv (GQA and MQA through the kv-head map, no broadcast of k or v),
+// a causal mask (qpos >= kpos) and a sliding window (qpos - kpos <
+// window), each optional.  float32 accumulation; output [B, Hq, S, Dv] in
+// q's type.
 //
 // Bound: at the serving path's prefill shape (B 4, H 32, S 1024, D 64,
 // bf16, causal) the inputs and the output are 67 MB, 20 us at 3.35 TB/s,
@@ -25,13 +27,16 @@
 // warpgroups:
 //   * warpgroup 0 is the producer: one thread issues TMA loads of the q
 //     tiles (two buffers, so that the next item's q arrives during this
-//     one's sweep, where they fit) and of kv tiles (128 keys for D <= 128,
-//     64 for D <= 192, 32 above) into a ring of up to 4 stages, each with
+//     one's sweep, where they fit) and of kv tiles (128 keys while D and
+//     Dv fit 2 column panels, 64 at 3, 32 at 4) into a ring of up to 4
+//     stages, each with
 //     a "full" mbarrier (the TMA's bytes) and an "empty" one (the
 //     consumers' 8 warps); it gives registers away (setmaxnreg 40/232);
 //   * warpgroups 1 and 2 are consumers of 64 q rows each: s = q k^T with
-//     wgmma (q and k both K-major, 128-byte swizzled, D padded to column
-//     panels of 64 by the TMA's zero fill), the online softmax on the
+//     wgmma (q and k both K-major, 128-byte swizzled, D padded to NP column
+//     panels of 64 by the TMA's zero fill; v in its own NPV panels of Dv,
+//     NPV = NP or NP - 1),
+//     the online softmax on the
 //     accumulator's own layout (row max and sum within each quad of
 //     lanes, running (max, sum) per row in registers, in log2 units), p
 //     rounded to bf16 in registers as the A operand of o += p v (v
@@ -66,7 +71,8 @@
 //     maximum with shuffles, turns the scores into weights in place and
 //     keeps each row's (max, denominator) in registers;
 //   * p v: the same warp adds its rows' weights times v into a float32
-//     accumulator, lane l holding columns l, l + 32, ... (NC of them);
+//     accumulator, lane l holding columns l, l + 32, ... of Dv (NC of
+//     them);
 //   * at the end each row is divided by max(denominator, 1e-30).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,30 +95,31 @@ constexpr int kBKV = 64;   // keys of a kv tile
 constexpr int kRows = kBQ / attn::kWarps;  // q rows of a warp (8)
 constexpr int kLdP = kBKV + 1;             // row stride of the score tile
 
-size_t smem_bytes(int d) {
+size_t smem_bytes(int d, int dv) {
   const size_t ld = d + 1;
-  return sizeof(float) * (kBQ * ld + kBKV * ld + kBKV * d + kBQ * kLdP);
+  return sizeof(float) * (kBQ * ld + kBKV * ld + kBKV * dv + kBQ * kLdP);
 }
 
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int hq,
-                       int hkv, int s_len, int d, int causal, int window,
-                       float scale) {
+                       int hkv, int s_len, int d, int dv, int causal,
+                       int window, float scale) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* qs = smem;              // [kBQ][ld], scaled
   float* ks = qs + kBQ * ld;     // [kBKV][ld]
-  float* vs = ks + kBKV * ld;    // [kBKV][d]
-  float* ps = vs + kBKV * d;     // [kBQ][kLdP]: scores, then weights
+  float* vs = ks + kBKV * ld;    // [kBKV][dv]
+  float* ps = vs + kBKV * dv;    // [kBQ][kLdP]: scores, then weights
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest sweeps first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (hq / hkv);
   const int q0 = qt * kBQ;
-  const long long q_off = (static_cast<long long>(b) * hq + h) * s_len * d;
-  const long long kv_off = (static_cast<long long>(b) * hkv + hk) * s_len * d;
+  const long long bh = static_cast<long long>(b) * hq + h;
+  const long long bk = static_cast<long long>(b) * hkv + hk;
+  const long long q_off = bh * s_len * d, k_off = bk * s_len * d;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   attn::load_tiles<T>(q + q_off, nullptr, q0, kBQ, s_len, d, scale, qs, ld,
@@ -137,8 +144,15 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kBKV;
     __syncthreads();  // the last tile's readers are done
-    attn::load_tiles<T>(k + kv_off, v + kv_off, k0, kBKV, s_len, d, 1.f, ks,
-                        ld, vs, d);
+    if (dv == d) {
+      attn::load_tiles<T>(k + k_off, v + k_off, k0, kBKV, s_len, d, 1.f, ks,
+                          ld, vs, d);
+    } else {
+      attn::load_tiles<T>(k + k_off, nullptr, k0, kBKV, s_len, d, 1.f, ks,
+                          ld, nullptr, 0);
+      attn::load_tiles<T>(v + bk * s_len * dv, nullptr, k0, kBKV, s_len, dv,
+                          1.f, vs, dv, nullptr, 0);
+    }
     __syncthreads();
 
     float s[4][4];
@@ -198,7 +212,7 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int col = lane + 32 * c;
-        vv[c] = col < d ? vs[j * d + col] : 0.f;
+        vv[c] = col < dv ? vs[j * dv + col] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
@@ -214,21 +228,21 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + warp * kRows + i;
     if (qpos >= s_len) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* out = o + q_off + static_cast<long long>(qpos) * d;
+    T* out = o + (bh * s_len + qpos) * dv;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = lane + 32 * c;
-      if (col < d) attn::store(out + col, acc[i][c] * inv);
+      if (col < dv) attn::store(out + col, acc[i][c] * inv);
     }
   }
 }
 
 template <typename T, int NC>
 int launch_nc(const void* q, const void* k, const void* v, void* o,
-              int batch, int hq, int hkv, int s_len, int d, int causal,
-              int window, float scale, cudaStream_t stream) {
+              int batch, int hq, int hkv, int s_len, int d, int dv,
+              int causal, int window, float scale, cudaStream_t stream) {
   auto kernel = flash_attention_simt<T, NC>;
-  const size_t smem = smem_bytes(d);
+  const size_t smem = smem_bytes(d, dv);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -236,20 +250,20 @@ int launch_nc(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((s_len + kBQ - 1) / kBQ, hq, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, s_len, d,
+      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, s_len, d, dv,
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_type(const void* q, const void* k, const void* v, void* o,
-                int batch, int hq, int hkv, int s_len, int d, int causal,
-                int window, float scale, cudaStream_t stream) {
+                int batch, int hq, int hkv, int s_len, int d, int dv,
+                int causal, int window, float scale, cudaStream_t stream) {
 #define FLASH_NC(NC)                                                       \
   case NC:                                                                 \
-    return launch_nc<T, NC>(q, k, v, o, batch, hq, hkv, s_len, d, causal, \
-                            window, scale, stream);
-  switch ((d + 31) / 32) {
+    return launch_nc<T, NC>(q, k, v, o, batch, hq, hkv, s_len, d, dv,     \
+                            causal, window, scale, stream);
+  switch ((dv + 31) / 32) {
     FLASH_NC(1) FLASH_NC(2) FLASH_NC(3) FLASH_NC(4)
     FLASH_NC(5) FLASH_NC(6) FLASH_NC(7) FLASH_NC(8)
     default:
@@ -269,28 +283,31 @@ constexpr int kMaxStages = 4;
 constexpr size_t kSmemLimit = 232448;  // shared memory a block may use
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Keys of a kv tile: 128 while D fits two panels, then 64, and 32 at
-// D > 192, where the 4 panels' accumulators take 128 of a consumer's 232
-// registers.
-constexpr int kv_tile(int np) { return np <= 2 ? 128 : np == 3 ? 64 : 32; }
+// Keys of a kv tile, from the wider of D's and Dv's panel counts: 128
+// while both fit two panels, then 64, and 32 at 4 panels, where the
+// accumulators of 4 v panels take 128 of a consumer's 232 registers.
+constexpr int kv_tile(int np, int npv) {
+  return (np > npv ? np : npv) <= 2 ? 128 : (np > npv ? np : npv) == 3 ? 64
+                                                                       : 32;
+}
 
 constexpr int kNC = 2;           // consumer warpgroups, 64 q rows each
 constexpr int kBQ = 64 * kNC;    // q rows of a work item
 constexpr int kThreads = 128 * (kNC + 1);
 constexpr uint32_t kQPanelBytes = kBQ * 128;  // one q column panel
 
-size_t smem_bytes(int np, int st, int nq) {
+size_t smem_bytes(int np, int npv, int st, int nq) {
   return 1024 + nq * np * kQPanelBytes +
-         2ull * st * np * kv_tile(np) * 128 + 8 * (2 * st + 4);
+         1ull * st * (np + npv) * kv_tile(np, npv) * 128 + 8 * (2 * st + 4);
 }
 
 // Ring stages of k and v tiles (as many as fit, up to 4), then q buffers
 // (two where they fit, so that the next item's q tile loads during a
 // sweep).
-void buffers(int np, int* nq, int* st) {
+void buffers(int np, int npv, int* nq, int* st) {
   for (*st = kMaxStages; *st >= 2; --*st)
     for (*nq = 2; *nq >= 1; --*nq)
-      if (smem_bytes(np, *st, *nq) <= kSmemLimit) return;
+      if (smem_bytes(np, npv, *st, *nq) <= kSmemLimit) return;
   *nq = 1;
   *st = 1;
 }
@@ -352,16 +369,17 @@ __device__ __forceinline__ Item work_item(int w, int n_qt, int hq, int batch,
 }
 
 // NP: column panels of 64 that hold D (D padded with zeros to 64 NP);
-// BKV: keys of a kv tile.  A persistent kernel: block i takes work items
-// i, i + grid, ...; the k/v ring runs on across items, and with two q
-// buffers (nq) the next item's q tile loads during this one's sweep.
-template <int NP, int BKV>
+// NPV: those that hold Dv; BKV: keys of a kv tile.  A persistent kernel:
+// block i takes work items i, i + grid, ...; the k/v ring runs on across
+// items, and with two q buffers (nq) the next item's q tile loads during
+// this one's sweep.
+template <int NP, int NPV, int BKV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
                    __nv_bfloat16* __restrict__ o, int batch, int hq, int hkv,
-                   int s_len, int d, int causal, int window,
+                   int s_len, int dv, int causal, int window,
                    float scale_log2, int st, int nq) {
   constexpr uint32_t kKVPanelBytes = BKV * 128;  // one k or v column panel
   constexpr uint32_t kQBytes = NP * kQPanelBytes;
@@ -370,8 +388,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
   uint8_t* qs = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* ks = qs + nq * kQBytes;           // [st][NP] panels of BKV keys
-  uint8_t* vs = ks + st * NP * kKVPanelBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(vs + st * NP * kKVPanelBytes);
+  uint8_t* vs = ks + st * NP * kKVPanelBytes;  // [st][NPV] panels
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + st * NPV * kKVPanelBytes);
   uint64_t* empty = full + st;
   uint64_t* q_full = empty + st;
   uint64_t* q_empty = q_full + 2;
@@ -413,15 +431,15 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
           const int stage = t % st;
           if (t >= st) hopper::mbar_wait(empty + stage, (t / st - 1) & 1);
           const int k0 = (item.kt_lo + i) * BKV;
-          hopper::mbar_expect_tx(full + stage, 2 * NP * kKVPanelBytes);
+          hopper::mbar_expect_tx(full + stage, (NP + NPV) * kKVPanelBytes);
 #pragma unroll
-          for (int p = 0; p < NP; ++p) {
-            const uint32_t off = (stage * NP + p) * kKVPanelBytes;
-            hopper::tma_load_3d(ks + off, &map_k, full + stage, p * kPanel,
-                                k0, bk);
-            hopper::tma_load_3d(vs + off, &map_v, full + stage, p * kPanel,
-                                k0, bk);
-          }
+          for (int p = 0; p < NP; ++p)
+            hopper::tma_load_3d(ks + (stage * NP + p) * kKVPanelBytes,
+                                &map_k, full + stage, p * kPanel, k0, bk);
+#pragma unroll
+          for (int p = 0; p < NPV; ++p)
+            hopper::tma_load_3d(vs + (stage * NPV + p) * kKVPanelBytes,
+                                &map_v, full + stage, p * kPanel, k0, bk);
         }
       }
     }
@@ -431,7 +449,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
     const int c = threadIdx.x / 128 - 1;
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int col_l = 2 * (lane % 4);
-    float acc[NP][32];
+    float acc[NPV][32];
     float s[kS];
     uint32_t pa[BKV / 16][4];  // p in bf16: the A fragments of p v
     // Ring position of the current kv tile, advanced one tile at a time
@@ -528,11 +546,11 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
       };
       auto pv = [&](int at) {  // issue o += p v from ring stage `at`
         const uint32_t v_addr =
-            hopper::smem_addr(vs + at * NP * kKVPanelBytes);
+            hopper::smem_addr(vs + at * NPV * kKVPanelBytes);
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
-          for (int p = 0; p < NP; ++p)
+          for (int p = 0; p < NPV; ++p)
             hopper::wgmma_m64n64k16_rs_tb(
                 acc[p], pa[kk],
                 desc_sw128(v_addr + p * kKVPanelBytes + kk * 16 * 128,
@@ -587,7 +605,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
       };
       auto rescale_and_pack = [&](float2 alpha) {
 #pragma unroll
-        for (int p = 0; p < NP; ++p)
+        for (int p = 0; p < NPV; ++p)
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             acc[p][4 * i] *= alpha.x;
@@ -608,7 +626,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
       };
 
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
+      for (int p = 0; p < NPV; ++p)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
       hopper::mbar_wait(q_full + qb, (j / nq) & 1);
@@ -642,7 +660,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
           const float2 alpha = softmax(it);
           hopper::wgmma_wait<0>();  // p v of the last tile is done
 #pragma unroll
-          for (int p = 0; p < NP; ++p) hopper::fence_operands(acc[p]);
+          for (int p = 0; p < NPV; ++p) hopper::fence_operands(acc[p]);
           __syncwarp();
           if (lane == 0) hopper::mbar_arrive(empty + last);
           rescale_and_pack(alpha);
@@ -655,7 +673,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
         turn_end();
         hopper::wgmma_wait<0>();
 #pragma unroll
-        for (int p = 0; p < NP; ++p) hopper::fence_operands(acc[p]);
+        for (int p = 0; p < NPV; ++p) hopper::fence_operands(acc[p]);
         __syncwarp();
         if (lane == 0) hopper::mbar_arrive(empty + last);
       }
@@ -671,21 +689,21 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
       const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
       const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
       __nv_bfloat16* ob =
-          o + (static_cast<long long>(item.b) * hq + item.h) * s_len * d;
+          o + (static_cast<long long>(item.b) * hq + item.h) * s_len * dv;
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
+      for (int p = 0; p < NPV; ++p)
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int col = p * kPanel + 8 * i + col_l;
-          if (col >= d) continue;
+          if (col >= dv) continue;
           if (row_a < s_len)
             *reinterpret_cast<__nv_bfloat162*>(
-                ob + static_cast<long long>(row_a) * d + col) =
+                ob + static_cast<long long>(row_a) * dv + col) =
                 __floats2bfloat162_rn(acc[p][4 * i] * inv_a,
                                       acc[p][4 * i + 1] * inv_a);
           if (row_b < s_len)
             *reinterpret_cast<__nv_bfloat162*>(
-                ob + static_cast<long long>(row_b) * d + col) =
+                ob + static_cast<long long>(row_b) * dv + col) =
                 __floats2bfloat162_rn(acc[p][4 * i + 2] * inv_b,
                                       acc[p][4 * i + 3] * inv_b);
         }
@@ -693,22 +711,22 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int NP>
+template <int NP, int NPV>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              int batch, int hq, int hkv, int s_len, int d, int causal,
-              int window, float scale, cudaStream_t stream) {
-  constexpr int kBKV = kv_tile(NP);
+              int batch, int hq, int hkv, int s_len, int d, int dv,
+              int causal, int window, float scale, cudaStream_t stream) {
+  constexpr int kBKV = kv_tile(NP, NPV);
   CUtensorMap map_q, map_k, map_v;
   int err = hopper::make_map_bf16(&map_q, q, batch * hq, s_len, d, kBQ);
   if (!err) err = hopper::make_map_bf16(&map_k, k, batch * hkv, s_len, d,
                                         kBKV);
-  if (!err) err = hopper::make_map_bf16(&map_v, v, batch * hkv, s_len, d,
+  if (!err) err = hopper::make_map_bf16(&map_v, v, batch * hkv, s_len, dv,
                                         kBKV);
   if (err) return err;
   int nq, st;
-  buffers(NP, &nq, &st);
-  const size_t smem = smem_bytes(NP, st, nq);
-  auto kernel = flash_attention_tc<NP, kBKV>;
+  buffers(NP, NPV, &nq, &st);
+  const size_t smem = smem_bytes(NP, NPV, st, nq);
+  auto kernel = flash_attention_tc<NP, NPV, kBKV>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -724,22 +742,42 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   const int grid = static_cast<int>(std::min<long long>(items, sms));
   kernel<<<grid, kThreads, smem, stream>>>(
       map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), batch, hq, hkv,
-      s_len, d, causal, window, scale * kLog2e, st, nq);
+      s_len, dv, causal, window, scale * kLog2e, st, nq);
   return static_cast<int>(cudaGetLastError());
 }
 
+// One instantiation for each panel count of D (1 to 4) with Dv's equal
+// to it or one fewer (MLA: D 192, Dv 128); other pairs return
+// cudaErrorInvalidValue (ops.flash_attention refuses them first).  Add a
+// pair when a config needs it.
+template <int NP>
+int launch_np(const void* q, const void* k, const void* v, void* o,
+              int batch, int hq, int hkv, int s_len, int d, int dv,
+              int causal, int window, float scale, cudaStream_t stream) {
+  const int npv = (dv + kPanel - 1) / kPanel;
+  if (npv == NP)
+    return launch_tc<NP, NP>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
+                             causal, window, scale, stream);
+  if constexpr (NP > 1) {
+    if (npv == NP - 1)
+      return launch_tc<NP, NP - 1>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
+                                   causal, window, scale, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int hq, int hkv, int s_len, int d, int causal, int window,
+           int hq, int hkv, int s_len, int d, int dv, int causal, int window,
            float scale, cudaStream_t stream) {
   switch ((d + kPanel - 1) / kPanel) {
-    case 1: return launch_tc<1>(q, k, v, o, batch, hq, hkv, s_len, d, causal,
-                                window, scale, stream);
-    case 2: return launch_tc<2>(q, k, v, o, batch, hq, hkv, s_len, d, causal,
-                                window, scale, stream);
-    case 3: return launch_tc<3>(q, k, v, o, batch, hq, hkv, s_len, d, causal,
-                                window, scale, stream);
-    case 4: return launch_tc<4>(q, k, v, o, batch, hq, hkv, s_len, d, causal,
-                                window, scale, stream);
+    case 1: return launch_np<1>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
+                                causal, window, scale, stream);
+    case 2: return launch_np<2>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
+                                causal, window, scale, stream);
+    case 3: return launch_np<3>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
+                                causal, window, scale, stream);
+    case 4: return launch_np<4>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
+                                causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -748,24 +786,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 
 }  // namespace
 
-// q [batch, hq, s_len, d], k and v [batch, hkv, s_len, d], o like q: all
-// contiguous, 16-byte aligned, of one type (bf16 != 0: bfloat16, run on
-// the tensor cores; else float32, run on the SIMT kernel).  d is a
-// multiple of 8 in [8, 256], hq a multiple of hkv; window <= 0 means no
-// window.  scale is 1/sqrt(d) in float32.
+// q [batch, hq, s_len, d], k [batch, hkv, s_len, d], v [batch, hkv,
+// s_len, dv], o [batch, hq, s_len, dv]: all contiguous, 16-byte aligned,
+// of one type (bf16 != 0: bfloat16, run on the tensor cores; else
+// float32, run on the SIMT kernel).  d and dv are multiples of 8 in [8,
+// 256], hq a multiple of hkv; window <= 0 means no window.  scale is
+// 1/sqrt(d) in float32.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int batch,
                                       int hq, int hkv, int s_len, int d,
-                                      int causal, int window, float scale,
-                                      int bf16, void* stream) {
+                                      int dv, int causal, int window,
+                                      float scale, int bf16, void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv || s_len < 1 || d < 8 ||
-      d > 256 || d % 8 || hq > 65535 || batch > 65535)
+      d > 256 || d % 8 || dv < 8 || dv > 256 || dv % 8 || hq > 65535 ||
+      batch > 65535)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)  // the tensor-core kernel
-    return tc::launch(q, k, v, o, batch, hq, hkv, s_len, d, causal, window,
-                      scale, st);
-  return launch_type<float>(q, k, v, o, batch, hq, hkv, s_len, d, causal,
+    return tc::launch(q, k, v, o, batch, hq, hkv, s_len, d, dv, causal,
+                      window, scale, st);
+  return launch_type<float>(q, k, v, o, batch, hq, hkv, s_len, d, dv, causal,
                             window, scale, st);
 }
 

@@ -11,7 +11,9 @@ which checks the arguments.  The kernel is split-KV in one launch:
 :func:`plan` cuts the keys into chunks on the host, each block writes a
 partial softmax state to a scratch buffer kept per device and stream
 (:func:`repro_torch.kernels.build.scratch`), and the last block of each
-kv head merges them.  A call is refused under CUDA graph capture: a
+kv head merges them.  A sliding window's lower bound is computed on the
+card from ``cur_len``; the split count stays a function of S and the
+shapes.  A call is refused under CUDA graph capture: a
 larger call would replace the buffers a captured one points at.
 """
 from __future__ import annotations
@@ -27,7 +29,7 @@ _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # launch arguments of csrc/decode_attention.cu
 _ARGS = (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-         _INT, _INT, _INT, _FLOAT, _INT)
+         _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT)
 
 MIN_CHUNK = 128      # fewest keys a split takes (one block's sweep)
 MAX_SPLITS = 64      # the kernel's cap on splits of a call
@@ -64,9 +66,12 @@ def plan(b: int, hkv: int, group: int, s: int, dtype: torch.dtype,
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          cur_len: torch.Tensor) -> torch.Tensor:
+                          cur_len: torch.Tensor,
+                          window: int | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors already checked by the wrapper;
-    ``cur_len`` is an int32 scalar on the card, read there.  The merge
+    ``cur_len`` is an int32 scalar on the card, read there, and the
+    kernel takes the window's lower bound ``cur_len - window`` from it.
+    The output is [B, Hkv, group, Dv], Dv being v's head dim.  The merge
     counters are zeros when made and the kernel leaves them zero."""
     if torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
@@ -74,17 +79,17 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "scratch is replaced when a call needs more, under a captured "
             "call's feet")
     b, hkv, group, d = q.shape
-    s = k.shape[2]
+    s, dv = k.shape[2], v.shape[3]
     cut = plan(b, hkv, group, s, q.dtype, build.sm_count(q.device))
-    n_part = b * hkv * group * cut.n_split * (d + 2) if cut.n_split > 1 else 0
+    n_part = b * hkv * group * cut.n_split * (dv + 2) if cut.n_split > 1 else 0
     part = build.scratch("decode_attention.partials", q.device,
                          max(n_part, 1), torch.float32)
     cnt = build.scratch("decode_attention.counters", q.device,
                         b * hkv * cut.n_gt)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, hkv, group, dv))
     build.launch("decode_attention", _ARGS, q.device, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), cur_len.data_ptr(),
                  out.data_ptr(), part.data_ptr(), cnt.data_ptr(), b, hkv,
-                 group, s, d, cut.n_split, cut.chunk, cut.gt, 1.0 / d ** 0.5,
-                 int(q.dtype == torch.bfloat16))
+                 group, s, d, dv, window or 0, cut.n_split, cut.chunk, cut.gt,
+                 1.0 / d ** 0.5, int(q.dtype == torch.bfloat16))
     return out

@@ -217,36 +217,49 @@ def tcam_match(pq: torch.Tensor, query, mask) -> torch.Tensor:
 def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> str:
     """Validate q, k, v of an attention kernel (one float32 or bfloat16
-    dtype, 4-D, one batch and head dim, a head dim that is a multiple of
-    8 up to 256, one device, contiguous, on CUDA 16-byte aligned);
-    returns the device type."""
+    dtype, 4-D, k and v of one batch, head count and length, q and k of
+    one batch and head dim, each head dim (D of q and k, Dv of v) a
+    multiple of 8 up to 256, one device, contiguous, on CUDA 16-byte
+    aligned); returns the device type."""
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{fn}: q, k, v must share one dtype, float32 or "
                         f"bfloat16, got {q.dtype} / {k.dtype} / {v.dtype}")
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"{fn}: need 4-D q and k, v of one shape, got "
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"{fn}: need 4-D q, k, v, with k and v of one "
+                         f"batch, head count and length, got "
                          f"{tuple(q.shape)} / {tuple(k.shape)} / "
                          f"{tuple(v.shape)}")
     d = q.shape[3]
     if k.shape[0] != q.shape[0] or k.shape[3] != d:
         raise ValueError(f"{fn}: q and k differ in batch or head dim: "
                          f"{tuple(q.shape)} / {tuple(k.shape)}")
-    if d % 8 or not 8 <= d <= 256:
-        raise ValueError(f"{fn}: head dim must be a multiple of 8 in "
-                         f"[8, 256], got {d}")
+    for name, x in (("head dim", d), ("value head dim", v.shape[3])):
+        if x % 8 or not 8 <= x <= 256:
+            raise ValueError(f"{fn}: {name} must be a multiple of 8 in "
+                             f"[8, 256], got {x}")
     return _device_kind(fn, (q, k, v),
                         {"q": (q, 16), "k": (k, 16), "v": (v, 16)})
+
+
+def _check_window(fn: str, window) -> int | None:
+    """A window is None or a host int >= 1."""
+    if window is not None and int(window) < 1:
+        raise ValueError(f"{fn}: window must be >= 1, got {window}")
+    return None if window is None else int(window)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None
                     ) -> torch.Tensor:
-    """Blockwise attention forward: q [B, Hq, S, D], k and v
-    [B, Hkv, S, D] with ``Hq % Hkv == 0`` (q head h reads kv head
+    """Blockwise attention forward: q [B, Hq, S, D], k [B, Hkv, S, D] and
+    v [B, Hkv, S, Dv] with ``Hq % Hkv == 0`` (q head h reads kv head
     ``h // (Hq // Hkv)``), a causal mask and an optional sliding
-    ``window`` (``qpos - kpos < window``).  Any S; float32 accumulation;
-    output [B, Hq, S, D] in q's dtype.
+    ``window`` (``qpos - kpos < window``).  Any S; the value head dim Dv
+    may differ from D (MLA); float32 accumulation; output [B, Hq, S, Dv]
+    in q's dtype.  In bfloat16 on CUDA, Dv takes as many 64-column
+    panels as D or one fewer (MLA: D 192, Dv 128), the pairs the
+    tensor-core kernel is built for; other pairs raise there.
 
     A forward only: with grad mode on, inputs that require grad raise on
     either device (the CUDA kernel's output has no ``grad_fn``, so a
@@ -264,25 +277,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"flash_attention: Hq = {q.shape[1]} is not a "
                          f"multiple of Hkv = {k.shape[1]}")
-    if window is not None and int(window) < 1:
-        raise ValueError(f"flash_attention: window must be >= 1, got "
-                         f"{window}")
-    window = None if window is None else int(window)
+    window = _check_window("flash_attention", window)
     if kind == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
+    panels, v_panels = -(-q.shape[3] // 64), -(-v.shape[3] // 64)
+    if q.dtype == torch.bfloat16 and v_panels not in (panels, panels - 1):
+        raise ValueError(f"flash_attention: bfloat16 on CUDA takes Dv in "
+                         f"as many 64-column panels as D or one fewer, got "
+                         f"D {q.shape[3]}, Dv {v.shape[3]}")
     out = _fa.flash_attention_cuda(q, k, v, causal, window)
     _launched("flash_attention")
     return out
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     cur_len) -> torch.Tensor:
+                     cur_len, *, window: int | None = None) -> torch.Tensor:
     """One query position against a KV cache: q [B, Hkv, group, D] (the
-    group query heads of each kv head, which share its cache), k and v
-    [B, Hkv, S, D]; keys at ``cur_len`` and past it are masked.
+    group query heads of each kv head, which share its cache), k
+    [B, Hkv, S, D] and v [B, Hkv, S, Dv]; keys at ``cur_len`` and past it
+    are masked, and with a sliding ``window`` (a host int, the same for
+    every call of a model) the keys below ``cur_len - window`` too.
     ``cur_len`` is an int32 scalar tensor on the cache's device, which
-    the kernel reads there (no host sync).  Any group.  Returns
-    [B, Hkv, group, D] in q's dtype."""
+    the kernel reads there (no host sync; the window's bound comes from
+    it on the card).  Any group.  Returns [B, Hkv, group, Dv] in q's
+    dtype."""
     kind = _check_attention("decode_attention", q, k, v)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"decode_attention: q and k differ in kv heads: "
@@ -295,9 +313,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                else type(cur_len).__name__)
         raise TypeError(f"decode_attention: cur_len must be an int32 scalar "
                         f"tensor on {q.device}, got {got}")
+    window = _check_window("decode_attention", window)
     if kind == "cpu":
-        return decode_attention_ref(q, k, v, cur_len)
-    out = _da.decode_attention_cuda(q, k, v, cur_len)
+        return decode_attention_ref(q, k, v, cur_len, window)
+    out = _da.decode_attention_cuda(q, k, v, cur_len, window)
     _launched("decode_attention")
     return out
 

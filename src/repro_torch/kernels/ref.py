@@ -73,9 +73,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None
                   ) -> torch.Tensor:
     """Attention with the softmax written out, in float32; the output is
-    in q's dtype.  q [B, Hq, S, D], k and v [B, Hkv, S, D]; each kv head
-    serves ``Hq // Hkv`` consecutive q heads.  Masks: causal
-    ``qpos >= kpos`` and a sliding ``window`` ``qpos - kpos < window``."""
+    in q's dtype.  q [B, Hq, S, D], k [B, Hkv, S, D], v [B, Hkv, S, Dv];
+    each kv head serves ``Hq // Hkv`` consecutive q heads; the output is
+    [B, Hq, S, Dv].  Masks: causal ``qpos >= kpos`` and a sliding
+    ``window`` ``qpos - kpos < window``."""
     d = q.shape[-1]
     group = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(group, dim=1).to(torch.float32)
@@ -94,15 +95,21 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         cur_len) -> torch.Tensor:
+                         cur_len, window: int | None = None) -> torch.Tensor:
     """One query position against a KV cache, in float32; the output is
     in q's dtype.  q [B, Hkv, group, D] (the group query heads of each kv
-    head), k and v [B, Hkv, S, D]; keys at ``cur_len`` (an int or an
-    int32 scalar tensor on q's device) and past it are masked."""
+    head), k [B, Hkv, S, D], v [B, Hkv, S, Dv]; the output is [B, Hkv,
+    group, Dv].  Keys at ``cur_len`` (an int or an int32 scalar tensor on
+    q's device) and past it are masked, and with a sliding ``window`` the
+    keys below ``cur_len - window`` too (the reference's ``qpos - kpos <
+    window`` at ``qpos = cur_len - 1``)."""
     d = q.shape[-1]
     s = torch.einsum("bkgd,bksd->bkgs", q.to(torch.float32),
                      k.to(torch.float32)) / (d ** 0.5)
-    live = torch.arange(k.shape[2], device=q.device) < cur_len
+    kpos = torch.arange(k.shape[2], device=q.device)
+    live = kpos < cur_len
+    if window is not None:
+        live &= kpos >= cur_len - window
     s = torch.where(live, s, torch.tensor(-1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgs,bksd->bkgd", p,

@@ -1,8 +1,9 @@
-"""GQA/MQA/MHA attention blocks: training, prefill and decode paths.
+"""Attention blocks: GQA/MQA/MHA (with a sliding window) and MLA, in
+training, prefill and decode.
 
-Counterpart of ``repro/models/attention.py`` (its GQA block and its
-differentiable ``chunked_attention``).  ``gqa_apply`` takes one of two
-routes, chosen by grad mode:
+Counterpart of ``repro/models/attention.py`` (its GQA and MLA blocks and
+its differentiable ``chunked_attention``).  ``gqa_apply`` and
+``mla_apply`` take one of two routes, chosen by grad mode:
 
 * when autograd records (grad mode on and q, k or v requiring grad: a
   training step), :func:`chunked_attention`, the reference's own jnp
@@ -14,14 +15,18 @@ routes, chosen by grad mode:
   :func:`repro_torch.kernels.ops.flash_attention`, the port's CUDA
   kernel, which refuses inputs that require grad.
 
-``gqa_decode`` calls :func:`repro_torch.kernels.ops.decode_attention`
-where the reference calls its jnp ``decode_attention``.  MLA waits for
-its own slice.  The chunked route takes the reference's position
-predicate (``make_mask_fn``); the kernels take the mask's static form,
-so the blocks take ``causal`` and an int ``window``.  The prefix-LM mask
-waits for the VLM prefix (``transformer._check_ported`` refuses it), and
-a window at decode raises NotImplementedError: the decode kernel has
-none, as the TPU one has none.
+``gqa_decode`` and ``mla_decode`` call
+:func:`repro_torch.kernels.ops.decode_attention` where the reference
+calls its jnp ``decode_attention``, with the layer's window (the kernel
+takes the window's lower bound from ``cur_len`` on the card).  MLA
+caches only the latent ``[c_kv, k_rope]`` (``kv_lora_rank +
+qk_rope_dim`` a token) and expands the whole cache through ``wkv_b`` at
+every step, as the reference does; its kernels score over ``qk_nope_dim
++ qk_rope_dim`` columns and average ``v_head_dim`` ones (Dv != D).  The
+chunked route takes the reference's position predicate
+(``make_mask_fn``); the kernels take the mask's static form, so the
+blocks take ``causal`` and an int ``window``.  The prefix-LM mask waits
+for the VLM prefix (``transformer._check_ported`` refuses it).
 """
 from __future__ import annotations
 
@@ -217,14 +222,11 @@ def gqa_decode(cfg, p, x, cache: dict, *, window: int | None = None,
     ones); here the cache is a buffer the port owns, so this writes the
     new key and value at ``len`` in place (``index_copy_`` with a device
     index, no host sync) and returns the same tensors with ``len + 1``.
-    The decode kernel reads ``len + 1`` on the card.
+    The decode kernel reads ``len + 1`` on the card, and with a
+    ``window`` leaves out the keys below ``len + 1 - window``.
     """
     B = x.shape[0]
     Hq, Hkv, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if window is not None:
-        raise NotImplementedError(
-            "gqa_decode: the decode kernel has no window, as the TPU one "
-            "has none (ROADMAP A17.2)")
     pos = cache["len"]  # int32 scalar: tokens already in the cache
     positions = pos.expand(B, 1)
     q, k, v = gqa_project(cfg, p, x, positions, rope=rope)
@@ -234,6 +236,113 @@ def gqa_decode(cfg, p, x, cache: dict, *, window: int | None = None,
     cur = pos + 1
     # causal holds for every cached key (kpos < cur_len = qpos + 1)
     out = ops.decode_attention(q.reshape(B, Hkv, Hq // Hkv, Hd), k_cache,
-                               v_cache, cur)
+                               v_cache, cur, window=window)
     out = out.reshape(B, 1, Hq * Hd) @ p["wo"].to(x.dtype)
     return out, {"k": k_cache, "v": v_cache, "len": cur}
+
+
+# ---------------------------------------------------------------------------
+# MLA block (deepseek-v2): latent-compressed KV
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg, stacked: int | None) -> dict:
+    lead = (stacked,) if stacked else ()
+    lx = ("layers",) if stacked else ()
+    D, H = cfg.d_model, cfg.n_heads
+    r, nope, rdim, vdim = (cfg.kv_lora_rank, cfg.qk_nope_dim,
+                           cfg.qk_rope_dim, cfg.v_head_dim)
+    return {
+        "wq": ParamSpec(lead + (D, H * (nope + rdim)), lx + ("embed", "qkv")),
+        "wkv_a": ParamSpec(lead + (D, r + rdim), lx + ("embed", None)),
+        "kv_norm": ParamSpec(lead + (r,), lx + (None,), init="zeros"),
+        "wkv_b": ParamSpec(lead + (r, H * (nope + vdim)), lx + (None, "qkv")),
+        "wo": ParamSpec(lead + (H * vdim, D), lx + ("qkv", "embed")),
+    }
+
+
+def _mla_qkv(cfg, p, x, positions):
+    """x [B, S, D] -> q_nope [B, S, H, nope], q_rope [B, S, H, rdim] (roped
+    per head), c_kv [B, S, r] (rms-normed) and k_rope [B, S, rdim] (one
+    shared head, roped)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    r, nope, rdim = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, S, H, nope + rdim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = common.apply_rope(q_rope.transpose(1, 2), positions[:, None],
+                               cfg.rope_theta).transpose(1, 2)
+    kv = x @ p["wkv_a"].to(dt)
+    c_kv, k_rope = kv[..., :r], kv[..., r:]
+    c_kv = common.rms_norm(c_kv, p["kv_norm"])
+    k_rope = common.apply_rope(k_rope[:, None], positions[:, None],
+                               cfg.rope_theta)[:, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(cfg, p, c_kv, dtype):
+    """Latent [..., r] -> per-head k_nope [..., H, nope] and v [..., H,
+    vdim]."""
+    H, nope, vdim = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    kv = c_kv.to(dtype) @ p["wkv_b"].to(dtype)
+    kv = kv.reshape(*c_kv.shape[:-1], H, nope + vdim)
+    return kv[..., :nope], kv[..., nope:]
+
+
+def _mla_heads(q_nope, q_rope, k_nope, k_rope, v):
+    """q [B, H, Sq, nope + rdim], k [B, H, S, nope + rdim] (the shared
+    k_rope on every head) and v [B, H, S, vdim], each contiguous."""
+    B, S, H, _ = k_nope.shape
+    q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H,
+                                                     k_rope.shape[-1])],
+                  dim=-1).transpose(1, 2)
+    return (q.contiguous(), k.contiguous(), v.transpose(1, 2).contiguous())
+
+
+def mla_apply(cfg, p, x, positions, *, causal: bool = True,
+              window: int | None = None, return_latent: bool = False,
+              skip_info=None):
+    """Full-sequence MLA: :func:`chunked_attention` when autograd
+    records, else the flash kernel with D = nope + rope and Dv = vdim.
+    return_latent: also return the latent ``[c_kv, k_rope]`` [B, S,
+    r + rdim] for the cache."""
+    B, S, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
+    k_nope, v = _mla_expand_kv(cfg, p, c_kv, x.dtype)
+    q, k, v = _mla_heads(q_nope, q_rope, k_nope, k_rope, v)
+    if records(q, k, v):
+        out = chunked_attention(q, k, v, make_mask_fn(causal, window, None),
+                                bq=min(cfg.q_block, S),
+                                bkv=min(cfg.kv_block, S),
+                                skip_info=skip_info)
+    else:
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.v_head_dim)
+    out = out @ p["wo"].to(x.dtype)
+    if return_latent:
+        return out, torch.cat([c_kv, k_rope], dim=-1)
+    return out
+
+
+def mla_decode(cfg, p, x, cache: dict, *, window: int | None = None):
+    """One-token MLA decode.  x: [B, 1, D]; cache: ``{"latent": [B, Smax,
+    r + rdim], "len": int32 scalar on the card}``.  Writes the token's
+    latent at ``len`` in place (as ``gqa_decode`` writes k and v), expands
+    the whole cache through ``wkv_b`` (the reference's algebra) and
+    calls the decode kernel with Hkv = H, group 1, D = nope + rope and
+    Dv = vdim."""
+    B = x.shape[0]
+    H, r, vdim = cfg.n_heads, cfg.kv_lora_rank, cfg.v_head_dim
+    pos = cache["len"]
+    positions = pos.expand(B, 1)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
+    lat = torch.cat([c_kv, k_rope], dim=-1)                 # (B, 1, r+rdim)
+    lat_cache = cache["latent"].index_copy_(
+        1, pos.reshape(1).to(torch.int64), lat)
+    k_nope, v = _mla_expand_kv(cfg, p, lat_cache[..., :r], x.dtype)
+    q, k, v = _mla_heads(q_nope, q_rope, k_nope, lat_cache[..., r:], v)
+    cur = pos + 1
+    out = ops.decode_attention(q, k, v, cur, window=window)  # (B, H, 1, vdim)
+    out = out.reshape(B, 1, H * vdim) @ p["wo"].to(x.dtype)
+    return out, {"latent": lat_cache, "len": cur}

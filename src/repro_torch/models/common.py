@@ -35,7 +35,10 @@ def _init_leaf(gen: torch.Generator, spec: ParamSpec,
                device: torch.device) -> torch.Tensor:
     """The reference's ``_init_leaf`` laws: zeros, ones, ``embed`` (std
     ``scale``) and the fan-in-scaled normal (std ``scale / sqrt(fan_in)``,
-    fan-in the last-but-one dim, so stacked layers keep their own)."""
+    fan-in the last-but-one dim, so stacked layers keep their own).  The
+    draw is scaled in place and cast only when the spec's dtype is not
+    float32, so a float32 leaf exists once: deepseek-moe-16b's stacked
+    expert weights are 19.9 GB each."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
@@ -46,8 +49,8 @@ def _init_leaf(gen: torch.Generator, spec: ParamSpec,
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale / math.sqrt(max(fan_in, 1))
     x = torch.randn(spec.shape, generator=gen, device=device,
-                    dtype=torch.float32)
-    return (x * std).to(spec.dtype)
+                    dtype=torch.float32).mul_(std)
+    return x if spec.dtype == torch.float32 else x.to(spec.dtype)
 
 
 def init_params(gen: torch.Generator, specs: Any, device="cuda") -> Any:

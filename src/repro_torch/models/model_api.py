@@ -1,10 +1,10 @@
 """Unified model API: one facade over the port's model families.
 
-Counterpart of ``repro/models/model_api.py`` for ``family == "dense"``:
-param specs (with ``param_dtype``), init, the training loss, prefill,
-decode and the cache constructor.  Other families raise
-NotImplementedError; the dry-run input specs wait for the dry run
-(ROADMAP A17.10).
+Counterpart of ``repro/models/model_api.py`` for the families ``dense``
+and ``moe`` (deepseek's MoE, with MLA for deepseek-v2-lite): param specs
+(with ``param_dtype``), init, the training loss, prefill, decode and the
+cache constructor.  Other families raise NotImplementedError; the
+dry-run input specs wait for the dry run (ROADMAP A17.10).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ class Model:
 
     @staticmethod
     def from_config(cfg) -> "Model":
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported "
                 "(ROADMAP A17)")

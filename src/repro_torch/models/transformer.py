@@ -1,14 +1,19 @@
-"""Decoder-only LM assembly, dense attention blocks.
+"""Decoder-only LM assembly: attention blocks with a dense or MoE MLP.
 
 Counterpart of ``repro/models/transformer.py`` for the block kind the
-port has: attention (GQA/MQA/MHA) with a dense MLP, uniform over the
-layers (no per-layer window).  Layers are stored stacked on a leading
-"layers" dim, as in the reference, and run by a Python loop
-(``common.scan_layers``); with ``cfg.remat`` each block is checkpointed
-when autograd records, as the reference's scan remats each.  The
-reference's ``logical_constraint`` is dropped: one card, no mesh.
-rwkv, hybrid, MLA and MoE blocks (and MoE's auxiliary losses) wait for
-their own slices.
+port has: attention (GQA/MQA/MHA, or MLA with its latent cache) with a
+dense MLP or the fine-grained MoE, a uniform sliding window or per-layer
+windows (``layer_windows``: host ints, ``GLOBAL_WINDOW`` on the global
+layers).  Layers are stored stacked on a leading "layers" dim, as in the
+reference, with deepseek's ``first_dense_layers`` in a second stack
+(``dense_blocks``), run first; a Python loop runs each stack, and with
+``cfg.remat`` each block is checkpointed when autograd records, as the
+reference's scan remats each.  The MoE blocks' metrics (``moe_lb_loss``,
+``moe_z_loss``, ``moe_drop_frac``) are averaged over the stack's layers,
+and ``lm_loss`` adds the reference's aux terms.  The reference's
+``logical_constraint`` is dropped: one card, no mesh.  The rwkv and
+hybrid blocks and the VLM prefix wait for their own slices
+(``_check_ported``).
 
 Entry points:
   forward()      full-sequence logits
@@ -18,6 +23,8 @@ Entry points:
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -25,23 +32,28 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import records
 from repro_torch.models.common import (ParamSpec, apply_norm, norm_spec,
                                        scan_layers, softcap)
 from repro_torch.models.qhead import tree_leaves
 
+GLOBAL_WINDOW = 2 ** 30  # "no window" on a global layer of a windowed arch
+# the two stacks, in the order they run: (name, dense MLP)
+STACKS = (("dense_blocks", True), ("blocks", False))
+
 
 def _check_ported(cfg) -> None:
-    if cfg.block_kind != "attn" or cfg.attn_kind != "gqa":
+    if cfg.block_kind == "rwkv":
+        raise NotImplementedError(f"{cfg.name}: the rwkv block is not "
+                                  "ported (ROADMAP A17.5)")
+    if cfg.block_kind == "hybrid":
+        raise NotImplementedError(f"{cfg.name}: the hybrid block is not "
+                                  "ported (ROADMAP A17.6)")
+    if cfg.block_kind != "attn" or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: block {cfg.block_kind}/{cfg.attn_kind} is not "
             "ported (ROADMAP A17)")
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE is not ported "
-                                  "(ROADMAP A17.4)")
-    if cfg.global_attn_layers:
-        raise NotImplementedError(f"{cfg.name}: per-layer windows are not "
-                                  "ported (ROADMAP A17.2)")
     if cfg.vis_prefix_len:
         raise NotImplementedError(f"{cfg.name}: the prefix-LM mask is not "
                                   "ported (ROADMAP A17.8)")
@@ -51,27 +63,65 @@ def _check_ported(cfg) -> None:
 # Param specs
 # ---------------------------------------------------------------------------
 
-def _block_specs(cfg, L: int) -> dict:
+def _mix_specs(cfg, L: int) -> dict:
+    if cfg.attn_kind == "mla":
+        return attn_mod.mla_specs(cfg, L)
+    return attn_mod.gqa_specs(cfg, L)
+
+
+def _mlp_specs(cfg, L: int, dense: bool) -> dict:
+    if cfg.n_experts and not dense:
+        return moe_mod.moe_specs(cfg, L)
+    return mlp_mod.mlp_specs(cfg.mlp_kind, cfg.d_model, cfg.d_ff, L)
+
+
+def _block_specs(cfg, L: int, dense_mlp: bool) -> dict:
     return {
         "norm1": norm_spec(cfg.norm_kind, cfg.d_model, L),
-        "mix": attn_mod.gqa_specs(cfg, L),
+        "mix": _mix_specs(cfg, L),
         "norm2": norm_spec(cfg.norm_kind, cfg.d_model, L),
-        "mlp": mlp_mod.mlp_specs(cfg.mlp_kind, cfg.d_model, cfg.d_ff, L),
+        "mlp": _mlp_specs(cfg, L, dense_mlp),
     }
+
+
+def _n_dense(cfg) -> int:
+    return cfg.first_dense_layers if cfg.n_experts else 0
 
 
 def lm_param_specs(cfg) -> dict:
     _check_ported(cfg)
+    n_dense = _n_dense(cfg)
     specs = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                            init="embed"),
-        "blocks": _block_specs(cfg, cfg.n_layers),
+        "blocks": _block_specs(cfg, cfg.n_layers - n_dense, dense_mlp=False),
         "final_norm": norm_spec(cfg.norm_kind, cfg.d_model),
     }
+    if n_dense:
+        specs["dense_blocks"] = _block_specs(cfg, n_dense, dense_mlp=True)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                      ("embed", "vocab"))
     return specs
+
+
+def layer_windows(cfg) -> list | None:
+    """Per-layer attention windows as host ints, or None if attention is
+    uniform: ``GLOBAL_WINDOW`` on ``global_attn_layers``, the sliding
+    window elsewhere."""
+    if not cfg.global_attn_layers:
+        return None
+    return [GLOBAL_WINDOW if i in cfg.global_attn_layers
+            else cfg.sliding_window for i in range(cfg.n_layers)]
+
+
+def _stack_windows(cfg, dense_mlp: bool):
+    """The windows of a stack's layers, in order: the per-layer windows on
+    the main stack, ``cfg.sliding_window`` elsewhere (as the reference's
+    scans pass them)."""
+    windows = None if dense_mlp else layer_windows(cfg)
+    return (itertools.repeat(cfg.sliding_window) if windows is None
+            else iter(windows))
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +148,7 @@ def unembed(cfg, params, x):
 
 
 # ---------------------------------------------------------------------------
-# Full sequence: forward and prefill
+# One block, full sequence: forward and prefill
 # ---------------------------------------------------------------------------
 
 def _positions(x):
@@ -115,45 +165,74 @@ def _static_skip_info(cfg, causal, window, prefix_len):
     return (True, window)
 
 
-def block_prefill(cfg, lp, x, positions):
-    """One block over the full sequence; returns (x, this layer's
-    (k, v) [B, Hkv, S, Hd])."""
-    causal, window = cfg.is_causal_lm, cfg.sliding_window
+def _mlp_apply(cfg, lp, h, dense_mlp: bool):
+    """The block's MLP: (out, metrics), the MoE's metrics or none."""
+    if cfg.n_experts and not dense_mlp:
+        return moe_mod.moe_apply(cfg, lp, h)
+    return mlp_mod.mlp_apply(cfg.mlp_kind, lp, h), {}
+
+
+def block_prefill(cfg, lp, x, positions, window, dense_mlp=False):
+    """One block over the full sequence; returns (x, metrics, this
+    layer's cache entry: (k, v) [B, Hkv, S, Hd], or MLA's latent [B, S,
+    r + rdim])."""
+    causal = cfg.is_causal_lm
+    skip = _static_skip_info(cfg, causal, window, None)
     h = apply_norm(cfg.norm_kind, x, lp["norm1"])
-    mix, kv = attn_mod.gqa_apply(
-        cfg, lp["mix"], h, positions, causal=causal, window=window,
-        return_kv=True,
-        skip_info=_static_skip_info(cfg, causal, window, None))
+    if cfg.attn_kind == "mla":
+        mix, entry = attn_mod.mla_apply(cfg, lp["mix"], h, positions,
+                                        causal=causal, window=window,
+                                        return_latent=True, skip_info=skip)
+    else:
+        mix, entry = attn_mod.gqa_apply(cfg, lp["mix"], h, positions,
+                                        causal=causal, window=window,
+                                        return_kv=True, skip_info=skip)
     x = x + mix
     h2 = apply_norm(cfg.norm_kind, x, lp["norm2"])
-    return x + mlp_mod.mlp_apply(cfg.mlp_kind, lp["mlp"], h2), kv
+    out, metrics = _mlp_apply(cfg, lp["mlp"], h2, dense_mlp)
+    return x + out, metrics, entry
 
 
-def block_apply(cfg, lp, x, positions):
-    """One block over the full sequence (training / forward)."""
-    return block_prefill(cfg, lp, x, positions)[0]
+def block_apply(cfg, lp, x, positions, window, dense_mlp=False):
+    """One block over the full sequence (training / forward): (x,
+    metrics)."""
+    return block_prefill(cfg, lp, x, positions, window, dense_mlp)[:2]
+
+
+def _scan_blocks(cfg, blocks, x, positions, dense_mlp: bool):
+    """Run one stack of blocks: (x, each metric's mean over the layers).
+    When autograd records and ``cfg.remat`` is set, each block is
+    checkpointed: backward keeps its input and recomputes the rest."""
+    windows = _stack_windows(cfg, dense_mlp)
+
+    def body(carry, lp):
+        args = (cfg, lp, carry, positions, next(windows), dense_mlp)
+        if cfg.remat and records(carry, *tree_leaves(lp)):
+            return checkpoint(block_apply, *args, use_reentrant=False)
+        return block_apply(*args)
+
+    x, per_layer = scan_layers(body, x, blocks)
+    return x, {k: torch.stack([m[k] for m in per_layer]).mean()
+               for k in per_layer[0]}
 
 
 def forward_hidden(cfg, params, tokens):
-    """tokens [B, S] -> final-norm hidden states [B, S, D].  When
-    autograd records and ``cfg.remat`` is set, each block is
-    checkpointed: backward keeps its input and recomputes the rest."""
+    """tokens [B, S] -> (final-norm hidden states [B, S, D], the blocks'
+    metrics), ``dense_blocks`` first."""
     x = embed_tokens(cfg, params, tokens)
     positions = _positions(x)
-
-    def body(carry, lp):
-        if cfg.remat and records(carry, *tree_leaves(lp)):
-            return checkpoint(block_apply, cfg, lp, carry, positions,
-                              use_reentrant=False), None
-        return block_apply(cfg, lp, carry, positions), None
-
-    x, _ = scan_layers(body, x, params["blocks"])
-    return apply_norm(cfg.norm_kind, x, params["final_norm"])
+    metrics = {}
+    for name, dense_mlp in STACKS:
+        if name in params:
+            x, m = _scan_blocks(cfg, params[name], x, positions, dense_mlp)
+            metrics.update(m)
+    return apply_norm(cfg.norm_kind, x, params["final_norm"]), metrics
 
 
 def forward(cfg, params, tokens):
-    """tokens [B, S] -> logits [B, S, V]."""
-    return unembed(cfg, params, forward_hidden(cfg, params, tokens))
+    """tokens [B, S] -> logits [B, S, V] (the reference's ``forward``
+    also returns the metrics, which ``forward_hidden`` gives)."""
+    return unembed(cfg, params, forward_hidden(cfg, params, tokens)[0])
 
 
 def _unembed_weight(cfg, params, dtype):
@@ -207,13 +286,15 @@ def blockwise_nll(cfg, params, x, targets):
 def lm_loss(cfg, params, batch):
     """batch ``{tokens, targets, loss_mask}`` -> (loss, metrics): the mean
     NLL over the mask, through ``blockwise_nll`` when ``cfg.ce_block`` is
-    set, else full logits, ``log_softmax`` and a gather."""
+    set, else full logits, ``log_softmax`` and a gather; an MoE adds
+    ``0.01 * moe_lb_loss + 1e-3 * moe_z_loss``, and ``nll`` holds that
+    sum, as the reference's does."""
     _check_ported(cfg)
     if batch.get("patch_embeds") is not None:
         raise NotImplementedError(f"{cfg.name}: the patch-embedding prefix "
                                   "is not ported (ROADMAP A17.8)")
     targets = batch["targets"]
-    x = forward_hidden(cfg, params, batch["tokens"])
+    x, metrics = forward_hidden(cfg, params, batch["tokens"])
     if cfg.ce_block:
         nll = blockwise_nll(cfg, params, x, targets)
     else:
@@ -222,19 +303,45 @@ def lm_loss(cfg, params, batch):
                             targets.to(torch.int64)[..., None])[..., 0]
     mask = batch["loss_mask"].to(torch.float32)
     loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return loss, {"nll": loss}
+    if "moe_lb_loss" in metrics:
+        loss = (loss + 0.01 * metrics["moe_lb_loss"]
+                + 1e-3 * metrics["moe_z_loss"])
+    return loss, dict(metrics, nll=loss)
+
+
+# ---------------------------------------------------------------------------
+# Caches, prefill and decode
+# ---------------------------------------------------------------------------
+
+def _layer_cache_shapes(cfg, batch: int, max_len: int) -> dict:
+    """Shapes of ONE layer's cache (the stack's dim added by the caller):
+    MLA's latent, else k and v."""
+    if cfg.attn_kind == "mla":
+        return {"latent": (batch, max_len, cfg.kv_lora_rank
+                           + cfg.qk_rope_dim)}
+    kv = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {"k": kv, "v": kv}
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
-    """Stacked (n_layers-leading) KV cache, zeros, in the activation
-    dtype, with the shared length as an int32 scalar on the device."""
+    """The stacked caches (``blocks``, and ``dense_blocks`` for deepseek's
+    leading dense layers), zeros in the activation dtype, with the shared
+    length as an int32 scalar on the device."""
     _check_ported(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     dtype = _adtype(cfg)
-    return {"blocks": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)},
-            "len": torch.zeros((), dtype=torch.int32, device=device)}
+    one = _layer_cache_shapes(cfg, batch, max_len)
+    n_dense = _n_dense(cfg)
+
+    def stack(n):
+        return {k: torch.zeros((n,) + sh, dtype=dtype, device=device)
+                for k, sh in one.items()}
+
+    cache = {"blocks": stack(cfg.n_layers - n_dense),
+             "len": torch.zeros((), dtype=torch.int32, device=device)}
+    if n_dense:
+        cache["dense_blocks"] = stack(n_dense)
+    return cache
 
 
 def prefill(cfg, params, tokens, max_len: int):
@@ -247,48 +354,60 @@ def prefill(cfg, params, tokens, max_len: int):
     positions = _positions(x)
     cache = init_cache(cfg, B, max_len, x.device)
 
-    def body(carry, xs):
-        lp, k_l, v_l = xs
-        y, (k, v) = block_prefill(cfg, lp, carry, positions)
-        k_l[:, :, :S] = k
-        v_l[:, :, :S] = v
-        return y, None
+    for name, dense_mlp in STACKS:
+        if name not in params:
+            continue
+        windows = _stack_windows(cfg, dense_mlp)
 
-    x, _ = scan_layers(body, x, (params["blocks"], cache["blocks"]["k"],
-                                 cache["blocks"]["v"]))
+        def body(carry, xs, dense_mlp=dense_mlp, windows=windows):
+            lp, cache_l = xs
+            y, _, entry = block_prefill(cfg, lp, carry, positions,
+                                        next(windows), dense_mlp)
+            if cfg.attn_kind == "mla":
+                cache_l["latent"][:, :S] = entry
+            else:
+                cache_l["k"][:, :, :S] = entry[0]
+                cache_l["v"][:, :, :S] = entry[1]
+            return y, None
+
+        x, _ = scan_layers(body, x, (params[name], cache[name]))
     cache["len"].fill_(S)
     x = apply_norm(cfg.norm_kind, x, params["final_norm"])
     logits = unembed(cfg, params, x[:, -1:])
     return logits[:, 0], cache
 
 
-# ---------------------------------------------------------------------------
-# Decode (one token)
-# ---------------------------------------------------------------------------
-
-def block_decode(cfg, lp, x, cache_l):
-    """x [B, 1, D]; cache_l: one layer's ``{"k", "v", "len"}``."""
+def block_decode(cfg, lp, x, cache_l, pos, window, dense_mlp=False):
+    """x [B, 1, D]; cache_l: one layer's cache entries (written in
+    place); pos: the int32 length on the card."""
     h = apply_norm(cfg.norm_kind, x, lp["norm1"])
-    mix, cache_l = attn_mod.gqa_decode(cfg, lp["mix"], h, cache_l,
-                                       window=cfg.sliding_window)
+    decode = (attn_mod.mla_decode if cfg.attn_kind == "mla"
+              else attn_mod.gqa_decode)
+    mix, _ = decode(cfg, lp["mix"], h, {**cache_l, "len": pos},
+                    window=window)
     x = x + mix
     h2 = apply_norm(cfg.norm_kind, x, lp["norm2"])
-    return x + mlp_mod.mlp_apply(cfg.mlp_kind, lp["mlp"], h2), cache_l
+    out, _ = _mlp_apply(cfg, lp["mlp"], h2, dense_mlp)
+    return x + out
 
 
 def decode_step(cfg, params, tokens, cache):
-    """tokens [B, 1] -> (logits [B, 1, V], cache).  The cache's k/v are
-    written in place at ``len`` (see ``attention.gqa_decode``); the
-    returned cache holds the same buffers and ``len + 1``."""
+    """tokens [B, 1] -> (logits [B, 1, V], cache).  Each layer's cache is
+    written in place at ``len`` (see ``attention.gqa_decode`` and
+    ``mla_decode``); the returned cache holds the same buffers and
+    ``len + 1``."""
     x = embed_tokens(cfg, params, tokens)
     pos = cache["len"]
+    for name, dense_mlp in STACKS:
+        if name not in params:
+            continue
+        windows = _stack_windows(cfg, dense_mlp)
 
-    def body(carry, xs):
-        lp, k_l, v_l = xs
-        return block_decode(cfg, lp, carry, {"k": k_l, "v": v_l, "len": pos})
+        def body(carry, xs, dense_mlp=dense_mlp, windows=windows):
+            lp, cache_l = xs
+            return block_decode(cfg, lp, carry, cache_l, pos, next(windows),
+                                dense_mlp), None
 
-    x, _ = scan_layers(body, x, (params["blocks"], cache["blocks"]["k"],
-                                 cache["blocks"]["v"]))
+        x, _ = scan_layers(body, x, (params[name], cache[name]))
     x = apply_norm(cfg.norm_kind, x, params["final_norm"])
-    return unembed(cfg, params, x), {"blocks": cache["blocks"],
-                                     "len": pos + 1}
+    return unembed(cfg, params, x), {**cache, "len": pos + 1}

@@ -384,13 +384,28 @@ def test_gqa_decode_matches_reference(pos):
 
 
 def test_masks_without_a_kernel_raise():
-    _, tcfg = _cfg()
+    """The prefix-LM mask has no kernel path yet (the VLM prefix, ROADMAP
+    A17.8) and raises; a window at decode now goes to the decode kernel:
+    one step at position 40 of a 48-row cache under window 8 equals the
+    reference's masked decode."""
+    jcfg, tcfg = _cfg()
     with pytest.raises(NotImplementedError, match="prefix-LM"):
         tlm.init_cache(dataclasses.replace(tcfg, vis_prefix_len=2), 1, 8,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="window"):
-        tattn.gqa_decode(tcfg, {}, torch.zeros(1, 1, 64), {
-            "len": torch.tensor(1, dtype=torch.int32)}, window=8)
+    p = _gqa_params(jcfg, 7)
+    (x, kc, vc) = _normal(8, (2, 1, jcfg.d_model), (2, 2, 48, 16),
+                          (2, 2, 48, 16))
+    jmask = jattn.make_mask_fn(True, 8, None)
+    want, _ = jax.jit(lambda p, x, c: jattn.gqa_decode(jcfg, p, x, c,
+                                                       jmask))(
+        p, x, {"k": kc, "v": vc, "len": jnp.int32(40)})
+    got, _ = tattn.gqa_decode(
+        tcfg, {n: torch.from_numpy(w) for n, w in p.items()},
+        torch.from_numpy(x), {"k": torch.from_numpy(kc.copy()),
+                              "v": torch.from_numpy(vc.copy()),
+                              "len": torch.tensor(40, dtype=torch.int32)},
+        window=8)
+    _close(got, want, 2e-5)
 
 
 def _need_cuda():

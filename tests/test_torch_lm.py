@@ -83,13 +83,25 @@ def test_reduced_config_equals_reference():
         jget(ARCH))
 
 
-PORTED = (ARCH, "granite-34b", "phi3-medium-14b")
+ZOO = ("h2o-danube-3-4b", "deepseek-moe-16b", "deepseek-v2-lite-16b")
+PORTED = (ARCH, "granite-34b", "phi3-medium-14b") + ZOO
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in PORTED])
 def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         get_config(arch)
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_config_equals_reference(arch):
+    """The sliding-window, MoE and MLA configs, full and reduced, field
+    for field the reference's."""
+    from repro.configs import get_config as jget
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+        jget(arch))
+    assert dataclasses.asdict(get_reduced_config(arch)) == \
+        dataclasses.asdict(jreduced(arch))
 
 
 def _flat(tree, path=""):
@@ -277,10 +289,11 @@ def test_serve_prompts_equal_reference_cli():
 
 def test_unported_families_raise():
     from repro_torch.configs.base import ArchConfig
-    moe = ArchConfig(name="m", family="moe", n_layers=1, d_model=8,
-                     n_heads=2, n_kv_heads=2, d_ff=8, vocab_size=8)
+    ssm = ArchConfig(name="m", family="ssm", n_layers=1, d_model=8,
+                     n_heads=2, n_kv_heads=2, d_ff=8, vocab_size=8,
+                     block_kind="rwkv")
     with pytest.raises(NotImplementedError):
-        Model.from_config(moe)
-    with pytest.raises(NotImplementedError, match="A17.2"):
+        Model.from_config(ssm)
+    with pytest.raises(NotImplementedError, match="A17.6"):
         transformer.lm_param_specs(dataclasses.replace(
-            get_reduced_config(ARCH), global_attn_layers=(0,)))
+            get_reduced_config(ARCH), block_kind="hybrid"))
