@@ -1,10 +1,9 @@
 """Architecture config schema, a copy of ``repro/configs/base.py``.
 
 One frozen dataclass describes every architecture of the reference's
-model zoo; the port reads the fields of the paths it has ported (the
-dense attention block today) and keeps the rest, so a config means the
-same in both packages.  ``reduced()`` gives the same tiny variant as the
-reference's, for the CPU tests.
+model zoo, and the port reads every field the reference's model path
+reads, so a config means the same in both packages.  ``reduced()`` gives
+the same tiny variant as the reference's, for the CPU tests.
 """
 from __future__ import annotations
 

@@ -184,12 +184,16 @@ def lm_params_from_jax(params, device="cuda") -> dict:
 
 
 def lm_cache_from_jax(cache, device="cuda") -> dict:
-    """The reference LM's cache (``{"blocks": {"k", "v"} or {"latent"},
-    "len"}``, with ``"dense_blocks"`` alike for deepseek's leading dense
-    layers; numpy leaves) as the port's, ``len`` an int32 scalar on
-    ``device``."""
-    out = {name: {k: _lm_leaf(v, device) for k, v in cache[name].items()}
-           for name in ("blocks", "dense_blocks") if name in cache}
+    """The reference LM's cache as the port's, ``len`` an int32 scalar on
+    ``device``: a decoder's ``{"blocks": {...}, "len"}`` (k and v, MLA's
+    latent, the rwkv ``state`` / ``x_prev`` / ``cx_prev``, or the hybrid
+    block's k, v, ``mamba_h`` and ``mamba_conv``; ``"dense_blocks"``
+    alike for deepseek's leading dense layers) or the encoder-decoder's
+    ``{"self_k", "self_v", "cross_k", "cross_v", "len"}``; numpy
+    leaves, each kept in its dtype."""
+    out = {name: ({k: _lm_leaf(v, device) for k, v in val.items()}
+                  if isinstance(val, dict) else _lm_leaf(val, device))
+           for name, val in cache.items() if name != "len"}
     out["len"] = _lm_leaf(np.asarray(cache["len"], np.int32), device)
     return out
 

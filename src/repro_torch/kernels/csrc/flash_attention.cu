@@ -6,12 +6,16 @@
 //
 //   out[b, h] = softmax(mask(q[b, h] k[b, h / group]^T / sqrt(D))) v[b, h / group]
 //
-// with q [B, Hq, S, D], k [B, Hkv, S, D], v [B, Hkv, S, Dv] (Dv may
+// with q [B, Hq, Sq, D], k [B, Hkv, Skv, D], v [B, Hkv, Skv, Dv] (Dv may
 // differ from D: MLA scores over 192 columns and averages 128), group =
 // Hq / Hkv (GQA and MQA through the kv-head map, no broadcast of k or v),
-// a causal mask (qpos >= kpos) and a sliding window (qpos - kpos <
-// window), each optional.  float32 accumulation; output [B, Hq, S, Dv] in
-// q's type.
+// a causal mask (qpos >= kpos), a sliding window (qpos - kpos < window)
+// and a prefix-LM length P (the reference's make_mask_fn: keys below P
+// are visible to every row, so rows below P see exactly [0, P) and rows at
+// or past it [0, P) and their causal window), each optional.  Sq and Skv
+// differ only without the causal mask (cross-attention: whisper's decoder
+// rows over its encoder's frames).  float32 accumulation; output [B, Hq,
+// Sq, Dv] in q's type.
 //
 // Bound: at the serving path's prefill shape (B 4, H 32, S 1024, D 64,
 // bf16, causal) the inputs and the output are 67 MB, 20 us at 3.35 TB/s,
@@ -47,9 +51,12 @@
 //     consumers take turns to issue (named barriers), so that one's
 //     softmax overlaps the other's products.
 // Masks as the TPU kernel: -1e30 where the causal or window mask hides a
-// key, -inf past the end of S; only tiles an edge crosses are masked.  kv
-// tiles hidden from the whole q tile are not loaded, and tiles hidden from
-// one consumer's 64 rows are not computed.  The one numeric change from
+// key past the prefix, -inf past the end of Skv; only tiles an edge
+// crosses are masked (a tile wholly inside the prefix is not).  kv tiles
+// hidden from the whole q tile are not loaded, and tiles hidden from one
+// consumer's 64 rows are not computed; with a prefix a row sweeps from key
+// 0 (to max(row, P - 1) when causal), so a window's lower bound is then
+// applied by the mask alone.  The one numeric change from
 // the float32 arithmetic of the plain version is p's rounding to bf16.
 // By count, the softmax's exponentials (one a score, on the special-
 // function unit: 16,384 a 128 x 128 tile, 1,024 cycles at 16 a cycle)
@@ -104,8 +111,8 @@ template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int hq,
-                       int hkv, int s_len, int d, int dv, int causal,
-                       int window, float scale) {
+                       int hkv, int s_q, int s_kv, int d, int dv, int causal,
+                       int window, int prefix, float scale) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* qs = smem;              // [kBQ][ld], scaled
@@ -119,10 +126,10 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * kBQ;
   const long long bh = static_cast<long long>(b) * hq + h;
   const long long bk = static_cast<long long>(b) * hkv + hk;
-  const long long q_off = bh * s_len * d, k_off = bk * s_len * d;
+  const long long q_off = bh * s_q * d, k_off = bk * s_kv * d;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  attn::load_tiles<T>(q + q_off, nullptr, q0, kBQ, s_len, d, scale, qs, ld,
+  attn::load_tiles<T>(q + q_off, nullptr, q0, kBQ, s_q, d, scale, qs, ld,
                       nullptr, 0);
 
   float m[kRows], l[kRows], acc[kRows][NC];
@@ -134,23 +141,25 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  // kv tiles that some row of this q tile can see
-  const int q_last = min(q0 + kBQ, s_len) - 1;
-  int kt_hi = (s_len + kBKV - 1) / kBKV;
-  if (causal) kt_hi = min(kt_hi, q_last / kBKV + 1);
-  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBKV : 0;
+  // kv tiles that some row of this q tile can see (the prefix's keys
+  // are seen by every row)
+  const int q_last = min(q0 + kBQ, s_q) - 1;
+  int kt_hi = (s_kv + kBKV - 1) / kBKV;
+  if (causal) kt_hi = min(kt_hi, max(q_last, prefix - 1) / kBKV + 1);
+  const int kt_lo =
+      window > 0 && prefix <= 0 ? max(0, q0 - window + 1) / kBKV : 0;
 
   const int tr = tid / 16, tj = tid % 16;  // score block of this thread
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kBKV;
     __syncthreads();  // the last tile's readers are done
     if (dv == d) {
-      attn::load_tiles<T>(k + k_off, v + k_off, k0, kBKV, s_len, d, 1.f, ks,
+      attn::load_tiles<T>(k + k_off, v + k_off, k0, kBKV, s_kv, d, 1.f, ks,
                           ld, vs, d);
     } else {
-      attn::load_tiles<T>(k + k_off, nullptr, k0, kBKV, s_len, d, 1.f, ks,
+      attn::load_tiles<T>(k + k_off, nullptr, k0, kBKV, s_kv, d, 1.f, ks,
                           ld, nullptr, 0);
-      attn::load_tiles<T>(v + bk * s_len * dv, nullptr, k0, kBKV, s_len, dv,
+      attn::load_tiles<T>(v + bk * s_kv * dv, nullptr, k0, kBKV, s_kv, dv,
                           1.f, vs, dv, nullptr, 0);
     }
     __syncthreads();
@@ -179,10 +188,10 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
         const int r = tr + 16 * a, j = tj + 16 * c;
         const int qpos = q0 + r, kpos = k0 + j;
         float x = s[a][c];
-        if (kpos >= s_len) {
+        if (kpos >= s_kv) {
           x = -INFINITY;
-        } else if ((causal && qpos < kpos) ||
-                   (window > 0 && qpos - kpos >= window)) {
+        } else if (kpos >= prefix && ((causal && qpos < kpos) ||
+                                      (window > 0 && qpos - kpos >= window))) {
           x = kMasked;
         }
         ps[r * kLdP + j] = x;
@@ -226,9 +235,9 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qpos = q0 + warp * kRows + i;
-    if (qpos >= s_len) continue;
+    if (qpos >= s_q) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* out = o + (bh * s_len + qpos) * dv;
+    T* out = o + (bh * s_q + qpos) * dv;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = lane + 32 * c;
@@ -239,30 +248,32 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int NC>
 int launch_nc(const void* q, const void* k, const void* v, void* o,
-              int batch, int hq, int hkv, int s_len, int d, int dv,
-              int causal, int window, float scale, cudaStream_t stream) {
+              int batch, int hq, int hkv, int s_q, int s_kv, int d, int dv,
+              int causal, int window, int prefix, float scale,
+              cudaStream_t stream) {
   auto kernel = flash_attention_simt<T, NC>;
   const size_t smem = smem_bytes(d, dv);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s_len + kBQ - 1) / kBQ, hq, batch);
+  const dim3 grid((s_q + kBQ - 1) / kBQ, hq, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, s_len, d, dv,
-      causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, s_q, s_kv, d,
+      dv, causal, window, prefix, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_type(const void* q, const void* k, const void* v, void* o,
-                int batch, int hq, int hkv, int s_len, int d, int dv,
-                int causal, int window, float scale, cudaStream_t stream) {
+                int batch, int hq, int hkv, int s_q, int s_kv, int d, int dv,
+                int causal, int window, int prefix, float scale,
+                cudaStream_t stream) {
 #define FLASH_NC(NC)                                                       \
   case NC:                                                                 \
-    return launch_nc<T, NC>(q, k, v, o, batch, hq, hkv, s_len, d, dv,     \
-                            causal, window, scale, stream);
+    return launch_nc<T, NC>(q, k, v, o, batch, hq, hkv, s_q, s_kv, d, dv, \
+                            causal, window, prefix, scale, stream);
   switch ((dv + 31) / 32) {
     FLASH_NC(1) FLASH_NC(2) FLASH_NC(3) FLASH_NC(4)
     FLASH_NC(5) FLASH_NC(6) FLASH_NC(7) FLASH_NC(8)
@@ -313,18 +324,21 @@ void buffers(int np, int npv, int* nq, int* st) {
 }
 
 // Scales a raw score tile where an edge crosses it to log2 units and
-// masks it: -1e30 where the causal or window mask hides a key, -inf at or
-// past S (this thread's two rows).  Key 8 j + e of the tile is compared
-// with per-thread limits, so each score costs two compares and two
-// selects.  (Off the edges the scale rides in the exponent's FMA; here it
-// is applied first, so that a masked score minus the row maximum is
-// exact and weighs exactly 0 or 1, never an FMA residual of 1e30.)
+// masks it: -1e30 where the causal or window mask hides a key past the
+// prefix, -inf at or past Skv (this thread's two rows).  Key 8 j + e of
+// the tile is compared with per-thread limits, so each score costs three
+// compares and two selects.  (Off the edges the scale rides in the
+// exponent's FMA; here it is applied first, so that a masked score minus
+// the row maximum is exact and weighs exactly 0 or 1, never an FMA
+// residual of 1e30.)
 template <int N>
 __device__ __forceinline__ void mask_edge(float (&s)[N], int k0, int row_a,
-                                          int col_l, int s_len, int causal,
-                                          int window, float scale_log2) {
+                                          int col_l, int s_kv, int causal,
+                                          int window, int prefix,
+                                          float scale_log2) {
   const int base = k0 + col_l;  // key of j = e = 0
-  const int end = s_len - base;
+  const int end = s_kv - base;
+  const int seen = prefix - base;  // keys x < seen are in the prefix
   // key x is hidden from row r when x > r - base (causal) or
   // x <= r - base - window (window)
   const int hi_a = causal ? row_a - base : INT_MAX;
@@ -338,8 +352,8 @@ __device__ __forceinline__ void mask_edge(float (&s)[N], int k0, int row_a,
       const int x = 8 * j + e;
       float& a = s[4 * j + e];
       float& b = s[4 * j + 2 + e];
-      a = (x > hi_a || x <= lo_a) ? kMasked : a * scale_log2;
-      b = (x > hi_b || x <= lo_b) ? kMasked : b * scale_log2;
+      a = (x >= seen && (x > hi_a || x <= lo_a)) ? kMasked : a * scale_log2;
+      b = (x >= seen && (x > hi_b || x <= lo_b)) ? kMasked : b * scale_log2;
       if (x >= end) a = b = -INFINITY;
     }
   }
@@ -354,16 +368,17 @@ struct Item {
 // causal sweeps first), heads fastest, so that neighbours share k and v.
 template <int BKV>
 __device__ __forceinline__ Item work_item(int w, int n_qt, int hq, int batch,
-                                          int s_len, int causal, int window) {
+                                          int s_q, int s_kv, int causal,
+                                          int window, int prefix) {
   Item r;
   const int hb = hq * batch, rem = w % hb;
   r.q0 = (n_qt - 1 - w / hb) * kBQ;
   r.h = rem % hq;
   r.b = rem / hq;
-  const int q_last = min(r.q0 + kBQ, s_len) - 1;
-  int kt_hi = (s_len + BKV - 1) / BKV;
-  if (causal) kt_hi = min(kt_hi, q_last / BKV + 1);
-  r.kt_lo = window > 0 ? max(0, r.q0 - window + 1) / BKV : 0;
+  const int q_last = min(r.q0 + kBQ, s_q) - 1;
+  int kt_hi = (s_kv + BKV - 1) / BKV;
+  if (causal) kt_hi = min(kt_hi, max(q_last, prefix - 1) / BKV + 1);
+  r.kt_lo = window > 0 && prefix <= 0 ? max(0, r.q0 - window + 1) / BKV : 0;
   r.n_tiles = kt_hi - r.kt_lo;
   return r;
 }
@@ -379,8 +394,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
                    __nv_bfloat16* __restrict__ o, int batch, int hq, int hkv,
-                   int s_len, int dv, int causal, int window,
-                   float scale_log2, int st, int nq) {
+                   int s_q, int s_kv, int dv, int causal, int window,
+                   int prefix, float scale_log2, int st, int nq) {
   constexpr uint32_t kKVPanelBytes = BKV * 128;  // one k or v column panel
   constexpr uint32_t kQBytes = NP * kQPanelBytes;
   constexpr int kS = BKV / 2;                    // score registers a thread
@@ -394,7 +409,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
   uint64_t* q_full = empty + st;
   uint64_t* q_empty = q_full + 2;
 
-  const int n_qt = (s_len + kBQ - 1) / kBQ;
+  const int n_qt = (s_q + kBQ - 1) / kBQ;
   const int n_items = n_qt * hq * batch;
 
   if (threadIdx.x == 0) {
@@ -416,8 +431,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
     if (threadIdx.x == 0) {
       int t = 0;  // kv tiles issued so far
       for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
-        const Item item = work_item<BKV>(w, n_qt, hq, batch, s_len, causal,
-                                         window);
+        const Item item = work_item<BKV>(w, n_qt, hq, batch, s_q, s_kv,
+                                         causal, window, prefix);
         const int bq = item.b * hq + item.h;
         const int bk = item.b * hkv + item.h / (hq / hkv);
         const int qb = j % nq;
@@ -469,8 +484,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
     };
 
     for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
-      const Item item = work_item<BKV>(w, n_qt, hq, batch, s_len, causal,
-                                       window);
+      const Item item = work_item<BKV>(w, n_qt, hq, batch, s_q, s_kv,
+                                       causal, window, prefix);
       const int q0 = item.q0, kt_lo = item.kt_lo, n_tiles = item.n_tiles;
       const int qr0 = q0 + 64 * c;  // first q row of this consumer
       // accumulator rows of this thread (wgmma's D layout)
@@ -484,11 +499,12 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
       auto span = [&](int cc) {
         const int r0 = q0 + 64 * cc;
         int lo = 0, hi = n_tiles;
-        if (r0 >= s_len) {
+        if (r0 >= s_q) {
           hi = 0;
         } else {
-          if (causal) hi = min(hi, (r0 + 63) / BKV + 1 - kt_lo);
-          if (window > 0) lo = max(0, r0 - window + 1) / BKV - kt_lo;
+          if (causal) hi = min(hi, max(r0 + 63, prefix - 1) / BKV + 1 - kt_lo);
+          if (window > 0 && prefix <= 0)
+            lo = max(0, r0 - window + 1) / BKV - kt_lo;
         }
         return make_int2(lo, hi);
       };
@@ -564,9 +580,11 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
       auto softmax = [&](int it) {
         const int k0 = (kt_lo + it) * BKV;
         float c_log2 = scale_log2;  // what turns s into log2 units
-        if (k0 + BKV > s_len || (causal && k0 + BKV - 1 > qr0) ||
-            (window > 0 && qr0 + 63 - k0 >= window)) {
-          mask_edge(s, k0, row_a, col_l, s_len, causal, window, scale_log2);
+        if (k0 + BKV > s_kv ||
+            (k0 + BKV > prefix && ((causal && k0 + BKV - 1 > qr0) ||
+                                   (window > 0 && qr0 + 63 - k0 >= window)))) {
+          mask_edge(s, k0, row_a, col_l, s_kv, causal, window, prefix,
+                    scale_log2);
           c_log2 = 1.f;
         }
         float mx_a = s[0], mx_b = s[2];
@@ -689,19 +707,19 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
       const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
       const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
       __nv_bfloat16* ob =
-          o + (static_cast<long long>(item.b) * hq + item.h) * s_len * dv;
+          o + (static_cast<long long>(item.b) * hq + item.h) * s_q * dv;
 #pragma unroll
       for (int p = 0; p < NPV; ++p)
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int col = p * kPanel + 8 * i + col_l;
           if (col >= dv) continue;
-          if (row_a < s_len)
+          if (row_a < s_q)
             *reinterpret_cast<__nv_bfloat162*>(
                 ob + static_cast<long long>(row_a) * dv + col) =
                 __floats2bfloat162_rn(acc[p][4 * i] * inv_a,
                                       acc[p][4 * i + 1] * inv_a);
-          if (row_b < s_len)
+          if (row_b < s_q)
             *reinterpret_cast<__nv_bfloat162*>(
                 ob + static_cast<long long>(row_b) * dv + col) =
                 __floats2bfloat162_rn(acc[p][4 * i + 2] * inv_b,
@@ -713,14 +731,15 @@ flash_attention_tc(const __grid_constant__ CUtensorMap map_q,
 
 template <int NP, int NPV>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              int batch, int hq, int hkv, int s_len, int d, int dv,
-              int causal, int window, float scale, cudaStream_t stream) {
+              int batch, int hq, int hkv, int s_q, int s_kv, int d, int dv,
+              int causal, int window, int prefix, float scale,
+              cudaStream_t stream) {
   constexpr int kBKV = kv_tile(NP, NPV);
   CUtensorMap map_q, map_k, map_v;
-  int err = hopper::make_map_bf16(&map_q, q, batch * hq, s_len, d, kBQ);
-  if (!err) err = hopper::make_map_bf16(&map_k, k, batch * hkv, s_len, d,
+  int err = hopper::make_map_bf16(&map_q, q, batch * hq, s_q, d, kBQ);
+  if (!err) err = hopper::make_map_bf16(&map_k, k, batch * hkv, s_kv, d,
                                         kBKV);
-  if (!err) err = hopper::make_map_bf16(&map_v, v, batch * hkv, s_len, dv,
+  if (!err) err = hopper::make_map_bf16(&map_v, v, batch * hkv, s_kv, dv,
                                         kBKV);
   if (err) return err;
   int nq, st;
@@ -737,12 +756,12 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long items =
-      static_cast<long long>((s_len + kBQ - 1) / kBQ) * hq * batch;
+      static_cast<long long>((s_q + kBQ - 1) / kBQ) * hq * batch;
   if (items > (1ll << 31) - 1) return cudaErrorInvalidValue;
   const int grid = static_cast<int>(std::min<long long>(items, sms));
   kernel<<<grid, kThreads, smem, stream>>>(
       map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), batch, hq, hkv,
-      s_len, dv, causal, window, scale * kLog2e, st, nq);
+      s_q, s_kv, dv, causal, window, prefix, scale * kLog2e, st, nq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -752,61 +771,61 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 // pair when a config needs it.
 template <int NP>
 int launch_np(const void* q, const void* k, const void* v, void* o,
-              int batch, int hq, int hkv, int s_len, int d, int dv,
-              int causal, int window, float scale, cudaStream_t stream) {
+              int batch, int hq, int hkv, int s_q, int s_kv, int d, int dv,
+              int causal, int window, int prefix, float scale,
+              cudaStream_t stream) {
   const int npv = (dv + kPanel - 1) / kPanel;
   if (npv == NP)
-    return launch_tc<NP, NP>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
-                             causal, window, scale, stream);
+    return launch_tc<NP, NP>(q, k, v, o, batch, hq, hkv, s_q, s_kv, d, dv,
+                             causal, window, prefix, scale, stream);
   if constexpr (NP > 1) {
     if (npv == NP - 1)
-      return launch_tc<NP, NP - 1>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
-                                   causal, window, scale, stream);
+      return launch_tc<NP, NP - 1>(q, k, v, o, batch, hq, hkv, s_q, s_kv, d,
+                                   dv, causal, window, prefix, scale, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int hq, int hkv, int s_len, int d, int dv, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int hq, int hkv, int s_q, int s_kv, int d, int dv, int causal,
+           int window, int prefix, float scale, cudaStream_t stream) {
+#define FLASH_NP(NP)                                                        \
+  case NP:                                                                  \
+    return launch_np<NP>(q, k, v, o, batch, hq, hkv, s_q, s_kv, d, dv,     \
+                         causal, window, prefix, scale, stream);
   switch ((d + kPanel - 1) / kPanel) {
-    case 1: return launch_np<1>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
-                                causal, window, scale, stream);
-    case 2: return launch_np<2>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
-                                causal, window, scale, stream);
-    case 3: return launch_np<3>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
-                                causal, window, scale, stream);
-    case 4: return launch_np<4>(q, k, v, o, batch, hq, hkv, s_len, d, dv,
-                                causal, window, scale, stream);
+    FLASH_NP(1) FLASH_NP(2) FLASH_NP(3) FLASH_NP(4)
     default: return cudaErrorInvalidValue;
   }
+#undef FLASH_NP
 }
 
 }  // namespace tc
 
 }  // namespace
 
-// q [batch, hq, s_len, d], k [batch, hkv, s_len, d], v [batch, hkv,
-// s_len, dv], o [batch, hq, s_len, dv]: all contiguous, 16-byte aligned,
-// of one type (bf16 != 0: bfloat16, run on the tensor cores; else
-// float32, run on the SIMT kernel).  d and dv are multiples of 8 in [8,
-// 256], hq a multiple of hkv; window <= 0 means no window.  scale is
-// 1/sqrt(d) in float32.
+// q [batch, hq, s_q, d], k [batch, hkv, s_kv, d], v [batch, hkv, s_kv,
+// dv], o [batch, hq, s_q, dv]: all contiguous, 16-byte aligned, of one
+// type (bf16 != 0: bfloat16, run on the tensor cores; else float32, run
+// on the SIMT kernel).  d and dv are multiples of 8 in [8, 256], hq a
+// multiple of hkv; s_q == s_kv when causal; window <= 0 means no window
+// and prefix <= 0 no prefix.  scale is 1/sqrt(d) in float32.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int batch,
-                                      int hq, int hkv, int s_len, int d,
-                                      int dv, int causal, int window,
-                                      float scale, int bf16, void* stream) {
-  if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv || s_len < 1 || d < 8 ||
-      d > 256 || d % 8 || dv < 8 || dv > 256 || dv % 8 || hq > 65535 ||
-      batch > 65535)
+                                      int hq, int hkv, int s_q, int s_kv,
+                                      int d, int dv, int causal, int window,
+                                      int prefix, float scale, int bf16,
+                                      void* stream) {
+  if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv || s_q < 1 || s_kv < 1 ||
+      (causal && s_q != s_kv) || d < 8 || d > 256 || d % 8 || dv < 8 ||
+      dv > 256 || dv % 8 || hq > 65535 || batch > 65535)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)  // the tensor-core kernel
-    return tc::launch(q, k, v, o, batch, hq, hkv, s_len, d, dv, causal,
-                      window, scale, st);
-  return launch_type<float>(q, k, v, o, batch, hq, hkv, s_len, d, dv, causal,
-                            window, scale, st);
+    return tc::launch(q, k, v, o, batch, hq, hkv, s_q, s_kv, d, dv, causal,
+                      window, prefix, scale, st);
+  return launch_type<float>(q, k, v, o, batch, hq, hkv, s_q, s_kv, d, dv,
+                            causal, window, prefix, scale, st);
 }
 
 extern "C" const char* flash_attention_error(int code) {

@@ -250,16 +250,20 @@ def _check_window(fn: str, window) -> int | None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None
-                    ) -> torch.Tensor:
-    """Blockwise attention forward: q [B, Hq, S, D], k [B, Hkv, S, D] and
-    v [B, Hkv, S, Dv] with ``Hq % Hkv == 0`` (q head h reads kv head
-    ``h // (Hq // Hkv)``), a causal mask and an optional sliding
-    ``window`` (``qpos - kpos < window``).  Any S; the value head dim Dv
-    may differ from D (MLA); float32 accumulation; output [B, Hq, S, Dv]
-    in q's dtype.  In bfloat16 on CUDA, Dv takes as many 64-column
-    panels as D or one fewer (MLA: D 192, Dv 128), the pairs the
-    tensor-core kernel is built for; other pairs raise there.
+                    causal: bool = True, window: int | None = None,
+                    prefix_len: int | None = None) -> torch.Tensor:
+    """Blockwise attention forward: q [B, Hq, Sq, D], k [B, Hkv, Skv, D]
+    and v [B, Hkv, Skv, Dv] with ``Hq % Hkv == 0`` (q head h reads kv
+    head ``h // (Hq // Hkv)``), a causal mask, an optional sliding
+    ``window`` (``qpos - kpos < window``) and an optional ``prefix_len``
+    P (the prefix-LM mask: keys below P visible to every row, and, when
+    causal, rows below P see keys below P only), as
+    ``kernels.ref.attention_ref`` masks.  Any lengths; Sq and Skv may
+    differ only without the causal mask (cross-attention); the value
+    head dim Dv may differ from D (MLA); float32 accumulation; output
+    [B, Hq, Sq, Dv] in q's dtype.  In bfloat16 on CUDA, Dv takes as many
+    64-column panels as D or one fewer (MLA: D 192, Dv 128), the pairs
+    the tensor-core kernel is built for; other pairs raise there.
 
     A forward only: with grad mode on, inputs that require grad raise on
     either device (the CUDA kernel's output has no ``grad_fn``, so a
@@ -271,21 +275,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            "inputs that require grad; differentiate "
                            "through models.attention.chunked_attention")
     kind = _check_attention("flash_attention", q, k, v)
-    if k.shape[2] != q.shape[2]:
-        raise ValueError(f"flash_attention: q and k differ in length: "
-                         f"{q.shape[2]} / {k.shape[2]}")
+    if causal and k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention: a causal call needs q and k of "
+                         f"one length, got {q.shape[2]} / {k.shape[2]}")
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"flash_attention: Hq = {q.shape[1]} is not a "
                          f"multiple of Hkv = {k.shape[1]}")
     window = _check_window("flash_attention", window)
+    if prefix_len is not None and int(prefix_len) < 0:
+        raise ValueError(f"flash_attention: prefix_len must be >= 0, got "
+                         f"{prefix_len}")
+    prefix_len = None if prefix_len is None else int(prefix_len)
     if kind == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             prefix_len=prefix_len)
     panels, v_panels = -(-q.shape[3] // 64), -(-v.shape[3] // 64)
     if q.dtype == torch.bfloat16 and v_panels not in (panels, panels - 1):
         raise ValueError(f"flash_attention: bfloat16 on CUDA takes Dv in "
                          f"as many 64-column panels as D or one fewer, got "
                          f"D {q.shape[3]}, Dv {v.shape[3]}")
-    out = _fa.flash_attention_cuda(q, k, v, causal, window)
+    out = _fa.flash_attention_cuda(q, k, v, causal, window, prefix_len)
     _launched("flash_attention")
     return out
 

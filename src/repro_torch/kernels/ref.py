@@ -6,6 +6,8 @@ them on the card.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 
@@ -69,26 +71,52 @@ def tcam_match_ref(pq: torch.Tensor, query, mask) -> torch.Tensor:
     return ((pq ^ query) & ~mask) == 0
 
 
+def make_mask_fn(causal: bool, window, prefix_len) -> Callable:
+    """The reference's ``make_mask_fn``: mask_fn(qpos, kpos) -> bool,
+    causal ``qpos >= kpos`` and a sliding ``window`` ``qpos - kpos <
+    window``, then with a prefix ``P`` every key below P visible (``|
+    kpos < P``) and, when causal, no key past ``max(qpos, P - 1)``.
+    ``window`` and ``prefix_len`` are None, ints or tensors."""
+
+    def mask_fn(qpos: torch.Tensor, kpos: torch.Tensor) -> torch.Tensor:
+        ok = torch.ones(torch.broadcast_shapes(qpos.shape, kpos.shape),
+                        dtype=torch.bool, device=qpos.device)
+        if causal:
+            ok &= qpos >= kpos
+        if window is not None:
+            ok &= (qpos - kpos) < window
+        if prefix_len is not None:
+            ok |= kpos < prefix_len  # bidirectional over the prefix
+            if causal:
+                ok &= kpos <= torch.clamp(qpos, min=prefix_len - 1)
+        return ok
+
+    return mask_fn
+
+
+def attention_mask(sq: int, skv: int, causal: bool, window, prefix_len,
+                   device=None) -> torch.Tensor:
+    """``make_mask_fn``'s mask over query rows [0, Sq) and keys [0, Skv),
+    [Sq, Skv] bool: what the flash kernel lets each row see."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(skv, device=device)[None, :]
+    return make_mask_fn(causal, window, prefix_len)(qpos, kpos)
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int | None = None
-                  ) -> torch.Tensor:
+                  causal: bool = True, window: int | None = None,
+                  prefix_len: int | None = None) -> torch.Tensor:
     """Attention with the softmax written out, in float32; the output is
-    in q's dtype.  q [B, Hq, S, D], k [B, Hkv, S, D], v [B, Hkv, S, Dv];
-    each kv head serves ``Hq // Hkv`` consecutive q heads; the output is
-    [B, Hq, S, Dv].  Masks: causal ``qpos >= kpos`` and a sliding
-    ``window`` ``qpos - kpos < window``."""
+    in q's dtype.  q [B, Hq, Sq, D], k [B, Hkv, Skv, D], v [B, Hkv, Skv,
+    Dv]; each kv head serves ``Hq // Hkv`` consecutive q heads; the
+    output is [B, Hq, Sq, Dv].  The mask is ``attention_mask``."""
     d = q.shape[-1]
     group = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(group, dim=1).to(torch.float32)
     v = v.repeat_interleave(group, dim=1).to(torch.float32)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k) / (d ** 0.5)
-    pos = torch.arange(q.shape[2], device=q.device)
-    mask = torch.ones(q.shape[2], q.shape[2], dtype=torch.bool,
-                      device=q.device)
-    if causal:
-        mask &= pos[:, None] >= pos[None, :]
-    if window is not None:
-        mask &= (pos[:, None] - pos[None, :]) < window
+    mask = attention_mask(q.shape[2], k.shape[2], causal, window,
+                          prefix_len, q.device)
     s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)

@@ -1,8 +1,10 @@
 """Serving launcher: batched prefill + greedy decode with KV caches.
 
-Counterpart of ``repro/launch/serve.py`` for the ported (dense) archs.
-Prompts are ``prng.randint`` draws, equal to the reference CLI's for the
-same ``--seed``; params are drawn from a ``torch.Generator`` seeded with
+Counterpart of ``repro/launch/serve.py``, for every arch of the zoo.
+Prompts are ``prng.randint`` draws, and whisper's frame embeddings and
+paligemma's patch embeddings ``prng.normal`` draws, from the reference
+CLI's keys, so they equal its inputs for the same ``--seed``; params
+are drawn from a ``torch.Generator`` seeded with
 ``--seed`` (the reference's init laws, torch's numbers).  One untimed
 ``generate`` first builds the kernels and warms the libraries (its tokens
 are the printed sample); then a prefill is timed, and the ``gen - 1``
@@ -11,7 +13,8 @@ after a synchronize.  Prints the prefill time, the decode time per token
 and the aggregate tokens/s.  (The reference CLI divides its whole first
 ``generate``, prefill and compilation included, by ``gen``.)
 
-Example (CPU, reduced):
+Example (CPU, reduced; any arch id, e.g. rwkv6-7b, hymba-1.5b,
+whisper-tiny, paligemma-3b):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --reduced --device cpu --batch 2 --prompt-len 8 --gen 4
 """
@@ -33,6 +36,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def cli_inputs(cfg, seed: int, batch: int, prompt_len: int,
+               device="cpu") -> dict:
+    """The CLI's inputs, from ``split(key(seed + 1), 3)`` as the reference
+    CLI draws them: prompts from the first key, whisper's frame
+    embeddings [B, enc_seq, D] from the second and paligemma's patch
+    embeddings [B, vis_prefix_len, D] from the third (float32
+    normals)."""
+    k_tok, k_aud, k_vis = prng.split(prng.key(seed + 1), 3)
+    out = {"tokens": prng.randint(k_tok, (batch, prompt_len), 0,
+                                  cfg.vocab_size, device=device)}
+    if cfg.family == "audio":
+        out["frames"] = prng.normal(k_aud, (batch, cfg.enc_seq, cfg.d_model),
+                                    device=device)
+    if cfg.vis_prefix_len:
+        out["patch_embeds"] = prng.normal(
+            k_vis, (batch, cfg.vis_prefix_len, cfg.d_model), device=device)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b")
@@ -50,14 +72,11 @@ def main(argv=None):
     model = Model.from_config(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init_params(gen, device)
-    max_len = args.prompt_len + args.gen + 1
 
-    k_tok = prng.split(prng.key(args.seed + 1), 3)[0]
     B = args.batch
-    prompts = prng.randint(k_tok, (B, args.prompt_len), 0, cfg.vocab_size,
-                           device=device)
-    batch = {"tokens": prompts}
+    batch = cli_inputs(cfg, args.seed, B, args.prompt_len, device)
     engine = Engine(model, params)
+    max_len = engine.cache_len(args.prompt_len, args.gen)
 
     res = engine.generate(batch, args.gen)  # warm-up
     _sync(device)

@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/launch/train.py``, with the same flags plus
 ``--device`` (``cuda`` by default; without a card it raises, pass
-``--device cpu``).  Runs any ported ``--arch`` (full or ``--reduced``)
+``--device cpu``).  Runs any decoder-only ``--arch`` (full or
+``--reduced``; whisper-tiny, an encoder-decoder, is refused: the
+reference's per-sequence loss has no audio path)
 with the prioritized sequence-replay data pipeline (``--sampler uniform
 | per | amper-fr | amper-k``), periodic atomic checkpoints in the
 reference's format, auto-resume from the latest checkpoint, and a
@@ -85,6 +87,13 @@ def build(args, device):
     """The run's pieces: (cfg, model, step_fn, data, state, data_state)."""
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the launcher trains decoder-only LMs on token "
+            "sequences (its per-sequence loss is transformer.forward, as "
+            "the reference's); an encoder-decoder trains through "
+            "Model.loss and train/train_step.py with a batch that holds "
+            "frames")
     model = Model.from_config(cfg)
     opt = AdamW(cosine_schedule(args.lr, 20, args.steps))
     step_fn = ts_mod.make_train_step(model, opt,

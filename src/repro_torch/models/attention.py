@@ -1,5 +1,5 @@
-"""Attention blocks: GQA/MQA/MHA (with a sliding window) and MLA, in
-training, prefill and decode.
+"""Attention blocks: GQA/MQA/MHA (with a sliding window, a prefix-LM
+mask, cross-attention) and MLA, in training, prefill and decode.
 
 Counterpart of ``repro/models/attention.py`` (its GQA and MLA blocks and
 its differentiable ``chunked_attention``).  ``gqa_apply`` and
@@ -25,8 +25,13 @@ every step, as the reference does; its kernels score over ``qk_nope_dim
 + qk_rope_dim`` columns and average ``v_head_dim`` ones (Dv != D).  The
 chunked route takes the reference's position predicate
 (``make_mask_fn``); the kernels take the mask's static form, so the
-blocks take ``causal`` and an int ``window``.  The prefix-LM mask waits
-for the VLM prefix (``transformer._check_ported`` refuses it).
+blocks take ``causal``, an int ``window`` (``GLOBAL_WINDOW``, a global
+layer's, goes to the kernels as no window: it hides no key) and an int
+``prefix_len`` (paligemma's patch prefix at prefill: the keys below it
+are visible to every row, and rows inside it see only it).
+``gqa_apply`` takes ``kv_override`` (whisper's cross-attention: the
+encoder's k and v, of another length than q, without a mask) and
+``rope=False``.
 """
 from __future__ import annotations
 
@@ -37,40 +42,24 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import make_mask_fn
 from repro_torch.models import common
 from repro_torch.models.common import ParamSpec
 
 NEG_INF = -1e30
+GLOBAL_WINDOW = 2 ** 30  # "no window" on a global layer of a windowed arch
+
+
+def kernel_window(window):
+    """A layer's window as the kernels take it: None for none, and for
+    ``GLOBAL_WINDOW``, which hides no key of any sequence they take."""
+    return None if window is None or window >= GLOBAL_WINDOW else window
 
 
 def records(*tensors) -> bool:
     """True when autograd records an op on ``tensors``: grad mode is on
     and one of them requires grad."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-# ---------------------------------------------------------------------------
-# Mask predicates
-# ---------------------------------------------------------------------------
-
-def make_mask_fn(causal: bool, window, prefix_len) -> Callable:
-    """Returns mask_fn(qpos, kpos) -> bool; ``window`` and ``prefix_len``
-    are None, ints or tensors."""
-
-    def mask_fn(qpos: torch.Tensor, kpos: torch.Tensor) -> torch.Tensor:
-        ok = torch.ones(torch.broadcast_shapes(qpos.shape, kpos.shape),
-                        dtype=torch.bool, device=qpos.device)
-        if causal:
-            ok &= qpos >= kpos
-        if window is not None:
-            ok &= (qpos - kpos) < window
-        if prefix_len is not None:
-            ok |= kpos < prefix_len  # bidirectional over the prefix
-            if causal:
-                ok &= kpos <= torch.clamp(qpos, min=prefix_len - 1)
-        return ok
-
-    return mask_fn
 
 
 # ---------------------------------------------------------------------------
@@ -191,21 +180,29 @@ def gqa_project(cfg, p, x, positions, *, rope: bool = True):
 
 
 def gqa_apply(cfg, p, x, positions, *, causal: bool = True,
-              window: int | None = None, rope: bool = True,
-              return_kv: bool = False, skip_info=None):
+              window: int | None = None, prefix_len: int | None = None,
+              rope: bool = True, kv_override=None, return_kv: bool = False,
+              skip_info=None):
     """Full-sequence GQA/MQA/MHA attention: :func:`chunked_attention`
     (blocks ``cfg.q_block`` / ``cfg.kv_block``, ``skip_info`` as there)
-    when autograd records, else the flash kernel.  return_kv: also return
-    (k, v) for the cache."""
+    when autograd records, else the flash kernel.  kv_override: (k, v)
+    [B, Hkv, Skv, Hd] from an encoder for cross-attention (no block
+    skip).  return_kv: also return (k, v) for the cache."""
     B, S, _ = x.shape
     q, k, v = gqa_project(cfg, p, x, positions, rope=rope)
+    if kv_override is not None:
+        k, v = kv_override
+        skip_info = None
     if records(q, k, v):
-        out = chunked_attention(q, k, v, make_mask_fn(causal, window, None),
+        out = chunked_attention(q, k, v,
+                                make_mask_fn(causal, window, prefix_len),
                                 bq=min(cfg.q_block, S),
-                                bkv=min(cfg.kv_block, S),
+                                bkv=min(cfg.kv_block, k.shape[2]),
                                 skip_info=skip_info)
     else:
-        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        out = ops.flash_attention(q, k, v, causal=causal,
+                                  window=kernel_window(window),
+                                  prefix_len=prefix_len)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
     out = out @ p["wo"].to(x.dtype)
     if return_kv:
@@ -236,7 +233,7 @@ def gqa_decode(cfg, p, x, cache: dict, *, window: int | None = None,
     cur = pos + 1
     # causal holds for every cached key (kpos < cur_len = qpos + 1)
     out = ops.decode_attention(q.reshape(B, Hkv, Hq // Hkv, Hd), k_cache,
-                               v_cache, cur, window=window)
+                               v_cache, cur, window=kernel_window(window))
     out = out.reshape(B, 1, Hq * Hd) @ p["wo"].to(x.dtype)
     return out, {"k": k_cache, "v": v_cache, "len": cur}
 
@@ -301,8 +298,8 @@ def _mla_heads(q_nope, q_rope, k_nope, k_rope, v):
 
 
 def mla_apply(cfg, p, x, positions, *, causal: bool = True,
-              window: int | None = None, return_latent: bool = False,
-              skip_info=None):
+              window: int | None = None, prefix_len: int | None = None,
+              return_latent: bool = False, skip_info=None):
     """Full-sequence MLA: :func:`chunked_attention` when autograd
     records, else the flash kernel with D = nope + rope and Dv = vdim.
     return_latent: also return the latent ``[c_kv, k_rope]`` [B, S,
@@ -312,12 +309,15 @@ def mla_apply(cfg, p, x, positions, *, causal: bool = True,
     k_nope, v = _mla_expand_kv(cfg, p, c_kv, x.dtype)
     q, k, v = _mla_heads(q_nope, q_rope, k_nope, k_rope, v)
     if records(q, k, v):
-        out = chunked_attention(q, k, v, make_mask_fn(causal, window, None),
+        out = chunked_attention(q, k, v,
+                                make_mask_fn(causal, window, prefix_len),
                                 bq=min(cfg.q_block, S),
                                 bkv=min(cfg.kv_block, S),
                                 skip_info=skip_info)
     else:
-        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        out = ops.flash_attention(q, k, v, causal=causal,
+                                  window=kernel_window(window),
+                                  prefix_len=prefix_len)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.v_head_dim)
     out = out @ p["wo"].to(x.dtype)
     if return_latent:
@@ -343,6 +343,7 @@ def mla_decode(cfg, p, x, cache: dict, *, window: int | None = None):
     k_nope, v = _mla_expand_kv(cfg, p, lat_cache[..., :r], x.dtype)
     q, k, v = _mla_heads(q_nope, q_rope, k_nope, lat_cache[..., r:], v)
     cur = pos + 1
-    out = ops.decode_attention(q, k, v, cur, window=window)  # (B, H, 1, vdim)
+    out = ops.decode_attention(q, k, v, cur,
+                               window=kernel_window(window))  # (B, H, 1, vdim)
     out = out.reshape(B, 1, H * vdim) @ p["wo"].to(x.dtype)
     return out, {"latent": lat_cache, "len": cur}

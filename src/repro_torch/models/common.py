@@ -1,4 +1,5 @@
-"""Shared model machinery: param specs, init, norms, RoPE.
+"""Shared model machinery: param specs, init, norms, RoPE, sinusoidal
+positions.
 
 Counterpart of ``repro/models/common.py``.  Parameters are plain nested
 dicts of tensors, declared by :class:`ParamSpec` leaves (shape, logical
@@ -132,6 +133,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_embedding(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position embedding: positions [...]
+    -> float32 [..., d], sines then cosines."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    args = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:

@@ -5,7 +5,8 @@ decode step and donates the cache; here the model writes the cache in
 place (``models/attention.py::gqa_decode``), so a generate allocates it
 once, at prefill.  A decode step never waits on the host: the cache
 length stays on the card and the greedy choice is an ``argmax`` there.
-``generate`` also offers temperature sampling and an early-stop token.
+``generate`` also offers temperature sampling and an early-stop token,
+and makes room in the cache for a VLM's patch prefix.
 The two calls carry the profiler spans ``serve_prefill`` and
 ``serve_decode``.
 """
@@ -43,11 +44,18 @@ class Engine:
         with span("serve_decode"):
             return self.model.decode_step(self.params, tokens, cache)
 
+    def cache_len(self, prompt_len: int, gen_len: int) -> int:
+        """The cache length a generate of ``gen_len`` tokens after a
+        ``prompt_len``-token prompt needs: the prompt, the generated
+        tokens, one spare, and a VLM's patch prefix
+        (``repro/serving/engine.py``'s ``max_len``)."""
+        return prompt_len + gen_len + 1 + self.model.cfg.vis_prefix_len
+
     def generate(self, batch: dict, gen_len: int, *,
                  temperature: float = 0.0,
                  key: Optional[torch.Tensor] = None,
                  stop_token: Optional[int] = None) -> GenerationResult:
-        max_len = batch["tokens"].shape[1] + gen_len + 1
+        max_len = self.cache_len(batch["tokens"].shape[1], gen_len)
         logits, cache = self.prefill(batch, max_len)
         B = batch["tokens"].shape[0]
         tok = self._choose(logits.reshape(B, -1), temperature, key, 0)

@@ -384,14 +384,28 @@ def test_gqa_decode_matches_reference(pos):
 
 
 def test_masks_without_a_kernel_raise():
-    """The prefix-LM mask has no kernel path yet (the VLM prefix, ROADMAP
-    A17.8) and raises; a window at decode now goes to the decode kernel:
-    one step at position 40 of a 48-row cache under window 8 equals the
+    """No mask is left without a kernel path, so none raises: the
+    prefix-LM mask (the VLM prefix) goes to the flash kernel with its
+    ``prefix_len``, and a window at decode goes to the decode kernel: one
+    step at position 40 of a 48-row cache under window 8 equals the
     reference's masked decode."""
     jcfg, tcfg = _cfg()
-    with pytest.raises(NotImplementedError, match="prefix-LM"):
-        tlm.init_cache(dataclasses.replace(tcfg, vis_prefix_len=2), 1, 8,
-                       device="cpu")
+    cache = tlm.init_cache(dataclasses.replace(tcfg, vis_prefix_len=2), 1,
+                           8, device="cpu")
+    assert tuple(cache["blocks"]["k"].shape[1:]) == (1, 2, 8, 16)
+    from repro_torch.models.model_api import Model
+    params = Model.from_config(tcfg).init_params(
+        torch.Generator().manual_seed(0), device="cpu")
+    seen = []
+    real = ops.flash_attention
+    try:
+        ops.flash_attention = lambda *a, **kw: seen.append(
+            kw["prefix_len"]) or real(*a, **kw)
+        tlm.prefill(tcfg, params, torch.zeros(1, 6, dtype=torch.int32), 12,
+                    extra_embeds=torch.zeros(1, 2, tcfg.d_model))
+    finally:
+        ops.flash_attention = real
+    assert seen == [2] * tcfg.n_layers
     p = _gqa_params(jcfg, 7)
     (x, kc, vc) = _normal(8, (2, 1, jcfg.d_model), (2, 2, 48, 16),
                           (2, 2, 48, 16))

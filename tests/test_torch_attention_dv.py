@@ -147,8 +147,8 @@ def test_flash_wrapper_refuses_unbuilt_panel_pairs(monkeypatch, dtype, d, dv,
     calls = []
     monkeypatch.setattr(ops, "_check_attention", lambda fn, q, k, v: "cuda")
     monkeypatch.setattr(ops._fa, "flash_attention_cuda",
-                        lambda q, k, v, causal, window: calls.append(
-                            v.shape[3]) or q)
+                        lambda q, k, v, causal, window, prefix_len=None:
+                        calls.append(v.shape[3]) or q)
     monkeypatch.setattr(ops, "_launched", lambda name: None)
     dt = getattr(torch, dtype)
     q, k = torch.zeros(1, 2, 8, d, dtype=dt), torch.zeros(1, 2, 8, d, dtype=dt)

@@ -241,10 +241,28 @@ def test_lm_loss_in_bfloat16_matches_reference():
 
 
 def test_lm_loss_refuses_the_patch_prefix():
+    """The loss keeps the patch prefix out: with ``patch_embeds`` it is
+    the masked mean NLL of the text positions of the forward over
+    [prefix + text] (the prefix in the forward, never in the loss); and
+    the audio family's loss is ``encdec.encdec_loss``."""
     _, tcfg, _, tparams, _, tbatch = _lm_setup(dtype="float32")
-    with pytest.raises(NotImplementedError, match="A17.8"):
-        ttr.lm_loss(tcfg, tparams, dict(tbatch, patch_embeds=torch.zeros(
-            2, 4, tcfg.d_model)))
+    patches = torch.randn(2, 4, tcfg.d_model,
+                          generator=torch.Generator().manual_seed(0))
+    loss, _ = ttr.lm_loss(tcfg, tparams, dict(tbatch, patch_embeds=patches))
+    logits = ttr.forward(tcfg, tparams, tbatch["tokens"],
+                         extra_embeds=patches)[:, 4:]
+    nll = -torch.gather(torch.log_softmax(logits, -1), -1, tbatch[
+        "targets"].to(torch.int64)[..., None])[..., 0]
+    mask = tbatch["loss_mask"]
+    torch.testing.assert_close(loss, (nll * mask).sum() / mask.sum(),
+                               rtol=1e-6, atol=1e-6)
+    from repro_torch.models import encdec
     audio = dataclasses.replace(tcfg, family="audio")
-    with pytest.raises(NotImplementedError, match="A17.7"):
+    calls = []
+    real = encdec.encdec_loss
+    try:
+        encdec.encdec_loss = lambda cfg, p, b: calls.append(cfg) or (0, {})
         Model(audio).loss(tparams, tbatch)
+    finally:
+        encdec.encdec_loss = real
+    assert calls == [audio]
