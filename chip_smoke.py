@@ -69,7 +69,14 @@ rwkv6-7b (its chunked WKV at the config's chunk of 128), hymba-1.5b
 against a float32 forward, trains them (whisper at full depth, the
 others at two layers), and holds the flash kernel's prefix and
 cross-attention lengths and both kernels at the four families' shapes
-against the plain versions.  Steps per second are timed over steady
+against the plain versions; then the dry run (``launch/dryrun.py``):
+the paper's own cell, the sharded AMPER-fr draw over 2^28 priorities
+with a batch of 65,536, on both production meshes (16 shards of 2^24
+rows, 32 of 2^23) in the ``broadcast``, ``kernel`` and ``fused`` modes,
+bit for bit alike, with ``multi_query_match`` and ``rank_select`` held
+and timed at a shard's shape, and the LM sweep (every arch x shape
+cell traced on ``meta``) in processes of their own beside the kernel
+phases.  Steps per second are timed over steady
 learn steps after each run (set-up and warm-up are reported apart), with
 the host time spent in the PRNG beside them.  Each phase prints one JSON
 line; the line before the last lists the kernels with their timings and
@@ -79,7 +86,7 @@ the CPU: without a CUDA device the script exits with code 2.
 
 ``--phases`` picks a subset (device,match,sample,rank,graph,prng,tcam,
 flash,decode,fused,kernel,sharded,fig9,launch_budget,table1,pixel,resume,
-runtime,serve,lm_train,lm_zoo,lm_families) for debugging; every phase runs by
+runtime,serve,lm_train,lm_zoo,lm_families,dryrun) for debugging; every phase runs by
 default.  Each training phase's line says whether its steps were captured
 (``"captured"``).  ``runtime_split`` (named in
 ``--phases`` only) splits the runtime's time: each stage alone, then the
@@ -122,7 +129,7 @@ SHARDS = 4                   # logical shards of the sharded phase, on one card
 PHASES = ("device", "match", "sample", "rank", "graph", "prng", "tcam",
           "flash", "decode", "fused", "kernel", "sharded", "fig9",
           "launch_budget", "table1", "pixel", "resume", "runtime", "serve",
-          "lm_train", "lm_zoo", "lm_families")
+          "lm_train", "lm_zoo", "lm_families", "dryrun")
 ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
 # The reference's kernel sweep (tests/test_kernels.py) and GQA group 4 at
@@ -4212,6 +4219,273 @@ def phase_lm_families(state: dict) -> None:
           "served": served, "trained": trained})
 
 
+DRY_TABLE_LOG2 = 28          # the reference's AMPER cell: 2^28 priorities
+DRY_BATCH = 65_536           # its batch
+DRY_MODES = ("broadcast", "kernel", "fused")
+DRY_TIMED = 20               # steady draws timed a mode (the median)
+DRY_SWEEP_DIR = os.path.join(ROOT, "build", "dryrun")
+DRY_SWEEP_TIMEOUT = 600      # seconds the LM sweep may take from its start
+DRY_SWEEP_WORKERS = 7        # sweep processes at once (the machine's cores
+# but the smoke's own)
+DRY_SWEEP_BY_SHAPE = ("hymba-1.5b", "rwkv6-7b")  # a process a cell: the
+# long scans (a meta op a step) make their cells the sweep's longest
+DRY_REPLACES = {"multi_query_match": "src/repro/kernels/tcam_match.py:73",
+                "rank_select": "src/repro/kernels/amper_sample.py:276"}
+
+
+class LmSweep:
+    """The LM sweep: every arch x shape cell of ``python -m
+    repro_torch.launch.dryrun`` (traced on ``meta``, the single-pod
+    mesh), as one invocation an arch (``--arch A``; a cell, ``--shape S``
+    too, for ``DRY_SWEEP_BY_SHAPE``, longest first),
+    ``DRY_SWEEP_WORKERS`` at a time, each a process at the lowest CPU
+    priority that sees no card (it runs nothing there) with one CPU
+    thread.  ``run_phases`` starts it after the build and waits for it
+    before the first phase that times the host, so that it overlaps only
+    the kernel phases, whose times are the card's."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.procs, self.done, self.threads = [], [], []
+        self.stopped = False
+        self.t0 = self.end = None
+
+    def start(self) -> None:
+        import threading
+
+        from repro_torch.configs import ARCH_IDS
+        from repro_torch.models.model_api import SHAPE_CELLS
+
+        os.makedirs(DRY_SWEEP_DIR, exist_ok=True)
+        jobs = [(a, sh) for a in DRY_SWEEP_BY_SHAPE for sh in SHAPE_CELLS]
+        jobs += [(a, None) for a in ARCH_IDS if a not in DRY_SWEEP_BY_SHAPE]
+        env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+               "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+        self.t0 = time.perf_counter()
+
+        def worker():
+            while True:
+                with self.lock:
+                    if self.stopped or not jobs:
+                        return
+                    arch, shape = jobs.pop(0)
+                    name = arch + (f"-{shape}" if shape else "")
+                    out = os.path.join(DRY_SWEEP_DIR, name + ".json")
+                    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--arch", arch, "--out", out]
+                    cmd += ["--shape", shape] if shape else []
+                    with open(out + ".log", "w") as log:
+                        proc = subprocess.Popen(cmd, stdout=log,
+                                                stderr=subprocess.STDOUT,
+                                                cwd=ROOT, env=env)
+                    with contextlib.suppress(OSError):
+                        os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+                    self.procs.append(proc)
+                rc = proc.wait()
+                with self.lock:
+                    self.done.append((name, rc, out))
+
+        self.threads = [threading.Thread(target=worker, daemon=True)
+                        for _ in range(DRY_SWEEP_WORKERS)]
+        for t in self.threads:
+            t.start()
+
+    def wait(self) -> None:
+        """Start the sweep if it has not started, and wait for its end."""
+        if self.t0 is None:
+            self.start()
+        for t in self.threads:
+            t.join(timeout=max(0.0, DRY_SWEEP_TIMEOUT
+                               - (time.perf_counter() - self.t0)))
+            if t.is_alive():
+                fail("dryrun", f"the LM sweep ran past {DRY_SWEEP_TIMEOUT} s")
+        if self.end is None:
+            self.end = time.perf_counter()
+
+    def stop(self) -> None:
+        """Start no more sweep processes and kill those still running."""
+        with self.lock:
+            self.stopped = True
+            procs = list(self.procs)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+    def report(self) -> dict:
+        """Wait for the sweep; its cell count, errors, skips and seconds
+        (fails the phase on an error or a non-zero exit)."""
+        self.wait()
+        results = []
+        for name, rc, out in sorted(self.done):
+            if rc != 0 or not os.path.exists(out):
+                with open(out + ".log") as f:
+                    tail = f.read()[-600:]
+                fail("dryrun", f"the LM sweep's {name} exited {rc}: {tail}")
+            with open(out) as f:
+                results += json.load(f)
+        errors = [f"{r['arch']} x {r['shape']}: {r.get('error')}"
+                  for r in results if r["status"] == "error"]
+        if errors:
+            fail("dryrun", f"the LM sweep's errors: {errors[:3]}")
+        return {"cells": len(results),
+                "ok": sum(r["status"] == "ok" for r in results),
+                "errors": len(errors),
+                "skips": {f"{r['arch']} x {r['shape']}": r["reason"]
+                          for r in results if r["status"] == "skip"},
+                "seconds": self.end - self.t0,
+                "processes": len(self.done), "workers": DRY_SWEEP_WORKERS,
+                "trace_s_sum": sum(r.get("trace_s", 0.0) for r in results),
+                "out": os.path.relpath(DRY_SWEEP_DIR, ROOT)}
+
+
+def dry_kernel_rows(state: dict, cell, launches: dict) -> dict:
+    """``multi_query_match`` and ``rank_select`` on shard 0 of the
+    single-pod cell (2^24 rows, the draw's m = 20 ranges, 65,536 ranks),
+    held exactly against their plain versions and timed beside them; the
+    kernels-line rows at this shape, with ``launches`` (the single-pod
+    draws', whose shards have this shape)."""
+    from repro_torch import prng
+    from repro_torch.core.amper import fr_intervals, group_representatives
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import multi_query_match_ref, rank_select_ref
+
+    pq, valid = cell.pq[0], cell.valid[0]
+    kq, _ = prng.split(cell.key)  # the draw's ranges come from kq
+    lo, hi = (t.to(pq.device) for t in fr_intervals(
+        group_representatives(kq, cell.cfg), cell.cfg))
+    sel, counts = ops.multi_query_match(pq, valid, lo, hi)
+    sel_p, counts_p = multi_query_match_ref(pq, valid, lo, hi)
+    members = int(sel_p.sum())
+    rank = rank_cases(members, DRY_BATCH, seed=7)
+    idx, cnt = ops.rank_select(pq, valid, lo, hi, rank)
+    idx_p, cnt_p = rank_select_ref(pq, valid, lo, hi, rank)
+    torch.cuda.synchronize()
+    if not (torch.equal(sel, sel_p) and torch.equal(counts, counts_p)):
+        fail("dryrun", "multi_query_match != plain on a 2^24-row shard")
+    if not (torch.equal(idx, idx_p) and torch.equal(cnt, cnt_p)):
+        fail("dryrun", f"rank_select != plain on a 2^24-row shard at "
+             f"{DRY_BATCH} ranks: {int((idx != idx_p).sum())} differ")
+    rows = {}
+    for name, fn, plain, moved, err in (
+            ("multi_query_match",
+             lambda: ops.multi_query_match(pq, valid, lo, hi),
+             lambda: multi_query_match_ref(pq, valid, lo, hi),
+             nbytes(pq, valid, lo, hi, sel, counts),
+             max(max_abs_diff(sel, sel_p), max_abs_diff(counts, counts_p))),
+            ("rank_select", lambda: ops.rank_select(pq, valid, lo, hi, rank),
+             lambda: rank_select_ref(pq, valid, lo, hi, rank),
+             nbytes(pq, valid, lo, hi, rank, idx, cnt),
+             max(max_abs_diff(idx, idx_p), max_abs_diff(cnt, cnt_p)))):
+        key = f"{name}@2^24"
+        rows[key] = {
+            "name": f"{name} (AMPER cell: one 2^24-row shard"
+                    + (f", {DRY_BATCH} ranks)" if name == "rank_select"
+                       else ", m = 20)"),
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": DRY_REPLACES[name],
+            "max_abs_err": err, "ms": device_time_ms(fn),
+            "plain_ms": device_time_ms(plain, calls=10, reps=3),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None}
+        state["kernels"][key] = rows[key]
+        state["launches"][key] = launches[name]
+    return {"members": members, **{k: {f: v[f] for f in ("ms", "plain_ms",
+                                                         "bound_ms")}
+                                   for k, v in rows.items()}}
+
+
+def phase_dryrun(state: dict, sweep: LmSweep) -> None:
+    """The dry run (``launch/dryrun.py``): the paper's own workload, the
+    sharded AMPER-fr draw over 2^28 priorities with a batch of 65,536, on
+    both production meshes (16 shards of 2^24 rows, 32 of 2^23), through
+    ``run_amper_cell`` and then in each of ``DRY_MODES`` on one table:
+    ``kernel`` and ``fused`` equal to ``broadcast`` bit for bit, one
+    ``multi_query_match`` (and in ``fused`` one ``rank_select``) a shard
+    a draw, the steady draw timed; the two kernels at the new shape held
+    and timed; then the LM sweep's report (``LmSweep``)."""
+    from repro_torch.core import sharded as shc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    dev = torch.device("cuda")
+    names = ("multi_query_match", "rank_select")
+    launches = dict.fromkeys(names, 0)
+    meshes, rows = {}, None
+    for multi_pod in (False, True):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        report = dryrun.run_amper_cell(multi_pod, DRY_TABLE_LOG2, DRY_BATCH,
+                                       device="cuda")
+        cli_s = time.perf_counter() - t0
+        if report["status"] != "ok":
+            fail("dryrun", f"run_amper_cell({multi_pod}): "
+                 f"{report.get('error')} {report.get('traceback', '')[-600:]}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_production_mesh(multi_pod=multi_pod, device=dev)
+        cell = dryrun.amper_cell(mesh, DRY_TABLE_LOG2, DRY_BATCH, dev)
+        axes = [a for a in ("pod", "data") if a in mesh.axis_names]
+        draws = {m: shc.sharded_sample_fr(mesh, cell.cfg._replace(
+            fr_mode=m), DRY_BATCH, axis_names=axes) for m in DRY_MODES}
+        want = draws["broadcast"](cell.pq, cell.valid, cell.key)
+        if [int(want.min()), int(want.max())] != report["draw_index_range"]:
+            fail("dryrun", f"run_amper_cell drew {report['draw_index_range']}"
+                 f", the same cell {[int(want.min()), int(want.max())]}")
+        modes = {}
+        for m in DRY_MODES:
+            before = {k: ops.launches[k] for k in names}
+            got = draws[m](cell.pq, cell.valid, cell.key)
+            torch.cuda.synchronize()
+            per_draw = {k: ops.launches[k] - before[k] for k in names}
+            if not torch.equal(got, want):
+                fail("dryrun", f"{m} != broadcast on the 2^28 cell "
+                     f"({'multi' if multi_pod else 'single'}-pod): "
+                     f"{int((got != want).sum())} of {DRY_BATCH} differ")
+            expect = {"broadcast": (0, 0), "kernel": (cell.n_shards, 0),
+                      "fused": (cell.n_shards, cell.n_shards)}[m]
+            if tuple(per_draw[k] for k in names) != expect:
+                fail("dryrun", f"{m}: launches a draw {per_draw}, want "
+                     f"{dict(zip(names, expect))}")
+            times = []
+            for _ in range(DRY_TIMED):
+                t1 = time.perf_counter()
+                draws[m](cell.pq, cell.valid, cell.key)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            modes[m] = {"launches_a_draw": per_draw,
+                        "draw_ms_median": float(np.median(times)),
+                        "draw_ms_range": [min(times), max(times)]}
+        mesh_launches = {k: ops.launches[k] for k in names}
+        for k in names:
+            launches[k] += mesh_launches[k]
+        shard_bytes = report["memory"]["argument_bytes_per_dev"]
+        meshes[report["mesh"]] = {
+            "n_shards": cell.n_shards, "rows_per_shard": report[
+                "rows_per_shard"], "compile_s": report["compile_s"],
+            "run_amper_cell_s": cli_s,
+            "shard_bytes": shard_bytes,
+            "bound_ms_a_shard": shard_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms_table": report["memory"]["table_bytes"]
+            / HBM_BYTES_PER_S * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "modes": modes, "modes_equal_broadcast": True}
+        if not multi_pod:
+            rows = dry_kernel_rows(state, cell, mesh_launches)
+        del cell, draws, want
+        torch.cuda.empty_cache()
+    for k in names:
+        state["launches"][k] = state["launches"].get(k, 0) + launches[k]
+    emit({"phase": "dryrun", "ok": True, "card": state["smi"],
+          "table_log2": DRY_TABLE_LOG2, "batch": DRY_BATCH, "amper": meshes,
+          "launches": launches, "kernels_at_2^24": rows,
+          "lm_sweep": sweep.report()})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4236,6 +4510,17 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    sweep = LmSweep() if "dryrun" in phases else None
+    try:
+        return run_phases(phases, args, sweep)
+    finally:
+        if sweep is not None:
+            sweep.stop()
+
+
+def run_phases(phases, args, sweep: LmSweep | None) -> int:
+    """Run the named phases in order and print the closing lines; the LM
+    sweep (for ``dryrun``) runs beside the kernel phases."""
     state = {"smi": nvidia_smi_line(), "kernels": {}, "launches": {}}
     for name, fn in (("device", phase_device), ("match", phase_match),
                      ("sample", phase_sample), ("rank", phase_rank),
@@ -4245,6 +4530,10 @@ def main(argv=None) -> int:
                      ("decode", phase_decode)):
         if name in phases:
             fn(state)
+        if name == "device" and sweep is not None:
+            sweep.start()
+    if sweep is not None:
+        sweep.wait()
     trace_dir = args.trace_dir if args.profile else None
     if "fused" in phases:
         train_phase(state, "fused", 500, {"amper_sample": 1}, trace_dir,
@@ -4283,6 +4572,8 @@ def main(argv=None) -> int:
         phase_lm_zoo(state)
     if "lm_families" in phases:
         phase_lm_families(state)
+    if "dryrun" in phases:
+        phase_dryrun(state, sweep)
     emit({"phase": "profiler", "ok": True, "sessions_a_reading":
           PROFILER_SESSIONS, "retaken": PROFILER_RETAKES})
     rows = []

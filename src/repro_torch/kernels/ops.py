@@ -6,6 +6,12 @@ lie: on the CPU it runs the kernel's plain PyTorch version, on a CUDA
 device it launches the hand-written kernel, and anywhere else it raises.
 There is no fallback: a kernel that fails to build or launch raises.
 
+The two attention wrappers also take ``meta`` tensors, the dry run's
+(``launch/dryrun.py``): after the same checks they return an empty
+``meta`` tensor of the kernel's output shape, run nothing, count no
+launch, and append the call's shapes to the list that
+:func:`record_meta_calls` opened, if one is open.
+
 ``launches`` counts kernel launches per wrapper (never plain runs, nor
 calls that raise), so a run can show that its path really went through
 the kernels.  A wrapper called while its stream is captured into a CUDA
@@ -13,6 +19,9 @@ graph launches nothing: it adds to ``recorded`` instead, and whoever
 replays the graph counts the launches of each replay (``replayed``).
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -55,10 +64,37 @@ def replayed(counts: dict) -> None:
         launches[name] += n
 
 
-def _device_kind(fn: str, tensors, aligned: dict | None = None) -> str:
+_META = threading.local()  # .calls: the list record_meta_calls opened
+
+
+@contextlib.contextmanager
+def record_meta_calls():
+    """Collect, in a list it yields, one ``(wrapper name, {argument:
+    shape or value})`` entry for each call that reaches an attention
+    wrapper's meta branch inside the block (this thread only)."""
+    calls: list = []
+    prev = getattr(_META, "calls", None)
+    _META.calls = calls
+    try:
+        yield calls
+    finally:
+        _META.calls = prev
+
+
+def _meta_call(name: str, out: torch.Tensor, **args) -> torch.Tensor:
+    """The meta branch's result: ``out``, with the call recorded."""
+    calls = getattr(_META, "calls", None)
+    if calls is not None:
+        calls.append((name, args))
+    return out
+
+
+def _device_kind(fn: str, tensors, aligned: dict | None = None,
+                 meta: bool = False) -> str:
     """Check that ``tensors`` share one device and are contiguous, and (on
     CUDA) that each tensor of ``aligned`` (``{name: (tensor, bytes)}``)
-    starts on its boundary; returns the device type."""
+    starts on its boundary; returns the device type, ``"meta"`` only
+    where ``meta`` allows it."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{fn}: tensors on several devices: {devices}")
@@ -66,7 +102,7 @@ def _device_kind(fn: str, tensors, aligned: dict | None = None) -> str:
         raise ValueError(f"{fn}: tensors must be contiguous")
     device = tensors[0].device
     kind = device.type
-    if kind not in ("cpu", "cuda"):
+    if kind not in ("cpu", "cuda") and not (meta and kind == "meta"):
         raise RuntimeError(f"{fn}: no kernel for device {device}; "
                            "use CPU tensors for the plain version")
     for name, (t, align) in (aligned or {}).items():
@@ -220,7 +256,7 @@ def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
     dtype, 4-D, k and v of one batch, head count and length, q and k of
     one batch and head dim, each head dim (D of q and k, Dv of v) a
     multiple of 8 up to 256, one device, contiguous, on CUDA 16-byte
-    aligned); returns the device type."""
+    aligned); returns the device type, ``"meta"`` included."""
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{fn}: q, k, v must share one dtype, float32 or "
@@ -239,7 +275,8 @@ def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{fn}: {name} must be a multiple of 8 in "
                              f"[8, 256], got {x}")
     return _device_kind(fn, (q, k, v),
-                        {"q": (q, 16), "k": (k, 16), "v": (v, 16)})
+                        {"q": (q, 16), "k": (k, 16), "v": (v, 16)},
+                        meta=True)
 
 
 def _check_window(fn: str, window) -> int | None:
@@ -269,7 +306,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     either device (the CUDA kernel's output has no ``grad_fn``, so a
     training step routed here would lose every attention weight's
     gradient; ``models.attention.chunked_attention`` is the
-    differentiable route)."""
+    differentiable route).  On ``meta`` tensors the CUDA checks run too
+    and nothing else (the module docstring's meta branch)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention: a forward-only kernel got "
                            "inputs that require grad; differentiate "
@@ -294,6 +332,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: bfloat16 on CUDA takes Dv in "
                          f"as many 64-column panels as D or one fewer, got "
                          f"D {q.shape[3]}, Dv {v.shape[3]}")
+    if kind == "meta":
+        return _meta_call(
+            "flash_attention", q.new_empty(q.shape[:3] + v.shape[3:]),
+            q=tuple(q.shape), k=tuple(k.shape), v=tuple(v.shape),
+            dtype=q.dtype, causal=causal, window=window,
+            prefix_len=prefix_len)
     out = _fa.flash_attention_cuda(q, k, v, causal, window, prefix_len)
     _launched("flash_attention")
     return out
@@ -309,7 +353,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``cur_len`` is an int32 scalar tensor on the cache's device, which
     the kernel reads there (no host sync; the window's bound comes from
     it on the card).  Any group.  Returns [B, Hkv, group, Dv] in q's
-    dtype."""
+    dtype (on ``meta``, an empty one: the module docstring's meta
+    branch)."""
     kind = _check_attention("decode_attention", q, k, v)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"decode_attention: q and k differ in kv heads: "
@@ -325,6 +370,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window = _check_window("decode_attention", window)
     if kind == "cpu":
         return decode_attention_ref(q, k, v, cur_len, window)
+    if kind == "meta":
+        return _meta_call(
+            "decode_attention", q.new_empty(q.shape[:3] + v.shape[3:]),
+            q=tuple(q.shape), k=tuple(k.shape), v=tuple(v.shape),
+            dtype=q.dtype, window=window)
     out = _da.decode_attention_cuda(q, k, v, cur_len, window)
     _launched("decode_attention")
     return out

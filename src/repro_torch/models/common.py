@@ -4,8 +4,9 @@ positions.
 Counterpart of ``repro/models/common.py``.  Parameters are plain nested
 dicts of tensors, declared by :class:`ParamSpec` leaves (shape, logical
 axes, init law, dtype) in the reference's layout: weights ``(in, out)``,
-per-layer params stacked on a leading "layers" dim.  The logical axes are
-kept for parity; one card needs no mesh, so nothing reads them.
+per-layer params stacked on a leading "layers" dim.  One card needs no
+mesh, so only the dry run reads the logical axes (``launch/dryrun.py``:
+each leaf's shard shape under the rules of ``distributed/sharding.py``).
 """
 from __future__ import annotations
 
@@ -73,6 +74,19 @@ def init_params(gen: torch.Generator, specs: Any, device="cuda") -> Any:
         return _init_leaf(gen, node, device)
 
     return build(specs)
+
+
+def abstract_params(specs: Any) -> Any:
+    """The param tree as empty ``meta`` tensors (shapes and dtypes, no
+    memory), keys in ``init_params``'s order: the dry run's params."""
+    if isinstance(specs, dict):
+        return {k: abstract_params(specs[k]) for k in sorted(specs)}
+    return torch.empty(specs.shape, dtype=specs.dtype, device="meta")
+
+
+def param_axes(specs: Any) -> Any:
+    """The logical-axes tree parallel to the param tree."""
+    return map_specs(lambda sp: sp.axes, specs)
 
 
 # ---------------------------------------------------------------------------

@@ -151,6 +151,15 @@ def encdec_loss(cfg, params, batch):
 # Serving
 # ---------------------------------------------------------------------------
 
+def encdec_cache_axes(cfg) -> dict:
+    """Logical axes of the stacked decode caches."""
+    return {"self_k": ("layers", "batch", None, "kv_seq", None),
+            "self_v": ("layers", "batch", None, "kv_seq", None),
+            "cross_k": ("layers", "batch", None, "kv_seq", None),
+            "cross_v": ("layers", "batch", None, "kv_seq", None),
+            "len": ()}
+
+
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     """Per decoder layer (stacked): the self-attention's k and v over
     ``max_len`` positions, the cross-attention's over ``enc_seq`` frames,

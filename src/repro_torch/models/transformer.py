@@ -401,6 +401,25 @@ def _layer_cache_shapes(cfg, batch: int, max_len: int) -> dict:
     return {"k": (kv, dt), "v": (kv, dt)}
 
 
+def cache_axes(cfg) -> dict:
+    """Logical axes of one layer's cache entries (the stack's "layers"
+    added by the caller); the kv sequence takes "kv_seq", which the serve
+    rules map to "model" (split-KV decode)."""
+    if cfg.block_kind == "rwkv":
+        return {"state": ("batch", "heads", None, None),
+                "x_prev": ("batch", None, "embed_act"),
+                "cx_prev": ("batch", None, "embed_act")}
+    if cfg.block_kind == "hybrid":
+        return {"k": ("batch", None, "kv_seq", None),
+                "v": ("batch", None, "kv_seq", None),
+                "mamba_h": ("batch", "qkv", None),
+                "mamba_conv": ("batch", None, "qkv")}
+    if cfg.attn_kind == "mla":
+        return {"latent": ("batch", "kv_seq", None)}
+    return {"k": ("batch", None, "kv_seq", None),
+            "v": ("batch", None, "kv_seq", None)}
+
+
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     """The stacked caches (``blocks``, and ``dense_blocks`` for deepseek's
     leading dense layers), zeros (each in its dtype), with the shared

@@ -6,9 +6,9 @@ the loss's gradients by autograd (``Model.loss``, whose attention takes
 the differentiable chunked route), accumulated in float32 over
 ``microbatches`` slices of the batch, then one optimizer update, which
 writes the params and moments in place (the reference's jitted step
-donates its state).  The reference's sharding helpers
-(``train_state_axes``, ``abstract_train_state``) describe a mesh the
-port does not have (ROADMAP A14) and are not ported.
+donates its state).  ``abstract_train_state`` (the state as empty
+``meta`` tensors) and ``train_state_axes`` (its logical axes) are what
+the dry run traces the step against (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.qhead import tree_leaves
+from repro_torch.models.qhead import tree_leaves, tree_map
+from repro_torch.train.optimizer import AdamWState
 
 
 class TrainState(NamedTuple):
@@ -34,6 +35,33 @@ def init_train_state(model, optimizer, gen: torch.Generator,
     params = model.init_params(gen, device)
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=device),
                       params=params, opt_state=optimizer.init(params))
+
+
+def abstract_train_state(model, optimizer) -> TrainState:
+    """The train state as empty ``meta`` tensors: the params, AdamW's
+    float32 moments and, under mixed precision, its float32 masters."""
+    params = model.abstract_params()
+
+    def f32(tree):
+        return tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                              device="meta"), tree)
+
+    def scalar():
+        return torch.empty((), dtype=torch.int32, device="meta")
+
+    master = f32(params) if optimizer.mixed_precision else None
+    return TrainState(step=scalar(), params=params,
+                      opt_state=AdamWState(m=f32(params), v=f32(params),
+                                           count=scalar(), master=master))
+
+
+def train_state_axes(model, optimizer=None) -> TrainState:
+    """Logical-axes tree for the full train state (for shardings)."""
+    axes = model.param_axes()
+    mixed = bool(optimizer is not None and optimizer.mixed_precision)
+    return TrainState(step=(), params=axes,
+                      opt_state=AdamWState(m=axes, v=axes, count=(),
+                                           master=axes if mixed else None))
 
 
 def _unflatten_like(tree, leaves):

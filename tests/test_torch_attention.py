@@ -135,8 +135,15 @@ def test_wrappers_refuse_bad_arguments():
     assert ops.decode_attention(torch.zeros(1, 2, 17, 256), torch.zeros(
         1, 2, 8, 256), torch.zeros(1, 2, 8, 256), torch.tensor(
             3, dtype=torch.int32)).shape == (1, 2, 17, 256)
-    with pytest.raises(RuntimeError, match="no kernel"):
-        ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    # meta tensors (the dry run's) take the meta branch after the same
+    # checks: an empty output, no launch
+    before = dict(ops.launches)
+    out = ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert ops.launches == before
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"),
+                            window=0)
 
 
 def _kv_tile(d):
