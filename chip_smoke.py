@@ -22,8 +22,13 @@ standard 1M-transition replay memory, measures Fig. 9 on the card (the
 port's sum-tree and cumsum PER per batch at 5k-1M rows beside the AM
 latency model's modeled numbers), counts the kernel launches of a
 fused draw and of a captured step against the committed launch budget
-(``python -m repro_torch.analysis --launch-budget``), trains the paper's
-learning path
+(``python -m repro_torch.analysis --launch-budget``), runs the port's
+analysis gate on the card (the AST lint and the trace rules against
+``analysis-baseline-torch.json``, the trainer's step captured exactly
+once) and the examples' twins (``examples/torch_*.py``: quickstart, the
+cart-pole sampler table, LM training and serving, each timed, the
+quickstart's means on the card held against the CPU's), trains the
+paper's learning path
 (AMPER-k on Acrobot and AMPER-fr through the draw kernel on MountainCar,
 two seeds in lockstep through ``train_many``, each held bit for bit
 against ``train`` of one seed) and holds AMPER-k's three kNN modes on
@@ -85,8 +90,9 @@ failed phase exits non-zero without that line.  There is no fallback to
 the CPU: without a CUDA device the script exits with code 2.
 
 ``--phases`` picks a subset (device,match,sample,rank,graph,prng,tcam,
-flash,decode,fused,kernel,sharded,fig9,launch_budget,table1,pixel,resume,
-runtime,serve,lm_train,lm_zoo,lm_families,dryrun) for debugging; every phase runs by
+flash,decode,fused,kernel,sharded,fig9,launch_budget,analysis,examples,
+table1,pixel,resume,runtime,serve,lm_train,lm_zoo,lm_families,dryrun) for
+debugging; every phase runs by
 default.  Each training phase's line says whether its steps were captured
 (``"captured"``).  ``runtime_split`` (named in
 ``--phases`` only) splits the runtime's time: each stage alone, then the
@@ -128,7 +134,8 @@ SEED = 0
 SHARDS = 4                   # logical shards of the sharded phase, on one card
 PHASES = ("device", "match", "sample", "rank", "graph", "prng", "tcam",
           "flash", "decode", "fused", "kernel", "sharded", "fig9",
-          "launch_budget", "table1", "pixel", "resume", "runtime", "serve",
+          "launch_budget", "analysis", "examples", "table1", "pixel",
+          "resume", "runtime", "serve",
           "lm_train", "lm_zoo", "lm_families", "dryrun")
 ARCH = "stablelm-1.6b"       # launch/serve.py's default arch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 64
@@ -931,7 +938,7 @@ def phase_prng(state: dict) -> None:
         k = kh.to(dev)
         for n in PRNG_SPLITS:
             check(f"split {seed} {n}", ops.prng_split(k, (n,)),
-                  kp.split_ref(k, (n,)), prng.split(kh, n) if n <= 500
+                  kp.split_ref(k, (n,)), prng.split(kh, n) if n <= 500  # repro: noqa[PRNG-REUSE] one key, each version
                   else None)
         for d in PRNG_FOLDS:
             check(f"fold_in {seed} {d}", ops.prng_fold_in(k, d),
@@ -939,16 +946,16 @@ def phase_prng(state: dict) -> None:
         for shape in PRNG_SHAPES:
             small = len(shape) == 0 or shape[0] <= 64
             check(f"bits {seed} {shape}", ops.prng_bits(k, shape),
-                  kp.bits_ref(k, shape), prng.bits(kh, shape) if small
+                  kp.bits_ref(k, shape), prng.bits(kh, shape) if small  # repro: noqa[PRNG-REUSE] one key, each version
                   else None)
             for lo, hi in ((0.0, 1.0), (-0.05, 0.05)):
                 check(f"uniform {seed} {shape} {lo} {hi}",
                       ops.prng_uniform(k, shape, lo, hi),
                       kp.uniform_ref(k, shape, lo, hi),
-                      prng.uniform(kh, shape, lo, hi) if small else None)
+                      prng.uniform(kh, shape, lo, hi) if small else None)  # repro: noqa[PRNG-REUSE] one key, each version
             for lo, hi in PRNG_BOUNDS:
                 want = kp.randint_ref(k, shape, lo, hi)
-                host = prng.randint(kh, shape, lo, hi) if small else None
+                host = prng.randint(kh, shape, lo, hi) if small else None  # repro: noqa[PRNG-REUSE] one key, each version
                 check(f"randint {seed} {shape} [{lo}, {hi})",
                       ops.prng_randint(k, shape, lo, hi), want, host)
                 check(f"randint card bounds {seed} {shape} [{lo}, {hi})",
@@ -966,11 +973,11 @@ def phase_prng(state: dict) -> None:
               kp.fold_in_ref(kb, 9), prng.fold_in(kb_h, 9))
         check(f"{name} uniform", ops.prng_uniform(kb, (4,), -0.05, 0.05),
               kp.uniform_ref(kb, (4,), -0.05, 0.05),
-              prng.uniform(kb_h, (4,), -0.05, 0.05))
+              prng.uniform(kb_h, (4,), -0.05, 0.05))  # repro: noqa[PRNG-REUSE] one key, each version
         check(f"{name} randint", ops.prng_randint(kb, (), 0, 10),
-              kp.randint_ref(kb, (), 0, 10), prng.randint(kb_h, (), 0, 10))
+              kp.randint_ref(kb, (), 0, 10), prng.randint(kb_h, (), 0, 10))  # repro: noqa[PRNG-REUSE] one key, each version
         check(f"{name} bits", ops.prng_bits(kb, (64,)),
-              kp.bits_ref(kb, (64,)), prng.bits(kb_h, (64,)))
+              kp.bits_ref(kb, (64,)), prng.bits(kb_h, (64,)))  # repro: noqa[PRNG-REUSE] one key, each version
     # the module's dispatch: a key on the card goes to the kernel
     before = ops.launches["prng"]
     k = prng.key(11).to(dev)
@@ -1797,6 +1804,139 @@ def phase_launch_budget(state: dict) -> None:
                             for k, v in counts.items()},
           "this_process": here, "budgets": launches.BUDGETS,
           "budget_card": launches.BUDGET_CARD, "card": state["smi"]})
+
+
+# The analysis gate, as the repo runs it on the CPU (README), here with
+# RECOMPILE's card half: the trainer's runner captures its step once.
+ANALYSIS_PATHS = ("src/repro_torch", "tests/test_torch_*.py",
+                  "examples/torch_*.py", "chip_smoke.py")
+ANALYSIS_BASELINE = "analysis-baseline-torch.json"
+# The examples' twins on the card (each in a process of its own, at its
+# default --device cuda): name, arguments.  The cart-pole twin's steps
+# keep its four samplers under about a minute; the LM twin trains the
+# reduced stablelm; the serve twin runs two of the reference example's
+# archs reduced.
+EXAMPLES_LM_CKPT = os.path.join(ROOT, "build", "examples_lm_ckpt")
+EXAMPLES = (
+    ("torch_quickstart", []),
+    ("torch_dqn_cartpole", ["--num-envs", "16", "--steps", "400"]),
+    ("torch_lm_train", ["--steps", "20", "--ckpt-dir", EXAMPLES_LM_CKPT]),
+    ("torch_serve_decode", ["--arch", "hymba-1.5b"]),
+    ("torch_serve_decode", ["--arch", "rwkv6-7b"]))
+EXAMPLES_TIMEOUT = 300
+QUICKSTART_PER_TOL = 1e-3  # as tests/test_torch_examples.py's PER_TOL
+
+
+def src_env() -> dict:
+    return {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+
+
+def phase_analysis(state: dict) -> None:
+    """``python -m repro_torch.analysis`` over the port, its tests, its
+    examples and this script against ``analysis-baseline-torch.json``,
+    in a process of its own on the card: the AST lint, DTYPE-WIDE,
+    RECOMPILE's CPU half and its card half (the trainer's runner over
+    two ``advance`` calls, new keys, beta values and buffer contents at
+    every steady step: exactly one capture).  Any finding or a non-zero
+    exit fails the run."""
+    import glob
+
+    paths = [p for pattern in ANALYSIS_PATHS
+             for p in sorted(glob.glob(os.path.join(ROOT, pattern)))]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", *paths,
+         "--baseline", os.path.join(ROOT, ANALYSIS_BASELINE),
+         "--format", "json"], capture_output=True, text=True, timeout=600,
+        cwd=ROOT, env=src_env())
+    wall_s = time.perf_counter() - t0
+    try:
+        payload = json.loads(out.stdout)
+    except ValueError:
+        fail("analysis", f"exit {out.returncode}, no findings payload: "
+             f"{out.stderr.strip()[-600:]}")
+    if out.returncode != 0 or payload["total"] != 0:
+        fail("analysis", f"exit {out.returncode}: {payload['findings'][:5]}")
+    card = payload.get("recompile_card", {})
+    if "skipped" in card:
+        fail("analysis", f"RECOMPILE's card half skipped: {card['skipped']}")
+    last = list(card.values())[-1]
+    if last["captures"] != 1 or last["graph_replays"] == 0:
+        fail("analysis", f"the runner's captures over two advances: {card}")
+    emit({"phase": "analysis", "ok": True, "exit": out.returncode,
+          "paths": len(paths), "findings": payload["total"],
+          "counts": payload["counts"], "baselined": payload["suppressed"],
+          "captures": last["captures"], "recompile_card": card,
+          "xla_float_f64_outputs": payload["xla_float_f64_outputs"],
+          "wall_s": wall_s, "card": state["smi"]})
+
+
+# A twin's process: its module run as a library, ``main(argv)`` called,
+# and what ``main`` returns (the table's rows unrounded, the quickstart's
+# means, an exit code) printed as the last line.
+RUN_TWIN = ("import json, runpy, sys; twin = runpy.run_path(sys.argv[1]); "
+            "print(json.dumps(twin['main'](sys.argv[2:])))")
+
+
+def twin_path(name: str) -> str:
+    return os.path.join(ROOT, "examples", f"{name}.py")
+
+
+def example_run(name: str, args: list) -> dict:
+    """One twin in a process of its own: exit code (non-zero, or a
+    non-zero code from ``main``, fails the phase), wall seconds, its
+    printed table and what ``main`` returned."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", RUN_TWIN, twin_path(name), *args],
+        capture_output=True, text=True, timeout=EXAMPLES_TIMEOUT, cwd=ROOT,
+        env=src_env())
+    wall_s = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines or lines[-1] in ("1", "2"):
+        fail("examples", f"{name} {' '.join(args)} exited {out.returncode}: "
+             f"{out.stderr.strip()[-600:]} {lines[-3:]}")
+    return {"twin": name, "args": args, "exit": out.returncode,
+            "wall_s": wall_s, "stdout": lines[:-1],
+            "returned": json.loads(lines[-1])}
+
+
+def phase_examples(state: dict) -> None:
+    """Each example twin on the card (``EXAMPLES``): its table, what its
+    ``main`` returned and its wall seconds.  The quickstart's means on
+    the card are held against its run on the CPU in this process: the
+    buffer's, AMPER's and the replay cycle's equal, PER's within
+    ``QUICKSTART_PER_TOL`` (the cumulative sums round differently)."""
+    import contextlib
+    import io
+    import math
+    import runpy
+
+    runs = [example_run(name, args) for name, args in EXAMPLES]
+    shutil.rmtree(EXAMPLES_LM_CKPT, ignore_errors=True)
+    rows = runs[1]["returned"]
+    if [r["sampler"] for r in rows] != ["uniform", "per-sumtree", "amper-k",
+                                        "amper-fr"] or not all(
+            math.isfinite(r["frames_per_s"]) for r in rows):
+        fail("examples", f"the cart-pole twin's rows: {rows}")
+    if not rows[-1]["captured"]:
+        fail("examples", "the cart-pole twin's fused AMPER-fr step was not "
+             "captured")
+    card = runs[0]["returned"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = runpy.run_path(twin_path("torch_quickstart"))["main"](
+            ["--device", "cpu"])
+    for name in ("buffer", "AMPER-fr", "AMPER-k", "replay_reward",
+                 "max_priority"):
+        if card[name] != host[name]:
+            fail("examples", f"quickstart {name}: card {card[name]} != "
+                 f"CPU {host[name]}")
+    if abs(card["PER"] - host["PER"]) > QUICKSTART_PER_TOL:
+        fail("examples", f"quickstart PER: card {card['PER']}, CPU "
+             f"{host['PER']}")
+    emit({"phase": "examples", "ok": True, "card": state["smi"],
+          "runs": runs, "quickstart_cpu": host,
+          "wall_s": sum(r["wall_s"] for r in runs)})
 
 
 def same_agent_state(a, b) -> bool:
@@ -4554,6 +4694,10 @@ def run_phases(phases, args, sweep: LmSweep | None) -> int:
         phase_fig9(state)
     if "launch_budget" in phases:
         phase_launch_budget(state)
+    if "analysis" in phases:
+        phase_analysis(state)
+    if "examples" in phases:
+        phase_examples(state)
     if "table1" in phases:
         phase_table1(state)
     if "pixel" in phases:

@@ -1,25 +1,32 @@
 """Findings model shared by every analysis layer.
 
 Counterpart of ``repro/analysis/findings.py``: its ``Finding``,
-``Baseline`` and ``findings_json``, copied (the port imports nothing of
-``repro``), so a finding, a baseline file and the JSON payload are the
-same in both packages.  The reference's inline ``# repro: noqa``
-suppression serves its source lint, which has no port (ROADMAP A16).
+``Baseline``, ``findings_json`` and inline suppression, copied (the port
+imports nothing of ``repro``), so a finding, a baseline file, a noqa
+comment and the JSON payload are the same in both packages.
 
-A :class:`Finding` is one violation of one rule at one location (the
-port's rules name a pseudo-location: the checked log or profile).  A
-committed baseline JSON holds accepted findings; entries match on
-``(rule, path, message)`` as a multiset, NOT on line numbers, so
-unrelated edits moving code around do not resurrect them, while a *new*
-instance of a baselined pattern still fails.
+A :class:`Finding` is one violation of one rule at one source location
+(trace, graph and lock rules use a pseudo-location naming the checked
+entry point).  The CLI subtracts two suppression mechanisms:
+
+* inline ``# repro: noqa[RULE]`` (or bare ``# repro: noqa``) on the
+  flagged line — for violations that are *intentional at that site*;
+* a committed baseline JSON — for findings accepted for now that must
+  not grow.  Entries match on ``(rule, path, message)`` as a multiset,
+  NOT on line numbers, so unrelated edits moving code around do not
+  resurrect them, while a *new* instance of a baselined pattern in the
+  same file still fails.
 """
 from __future__ import annotations
 
 import json
+import re
 from collections import Counter
 from dataclasses import asdict, dataclass, field
 
 BASELINE_VERSION = 1
+_NOQA_RE = re.compile(
+    r"#\s*repro:\s*noqa(?:\[(?P<rules>[A-Za-z0-9_,\- ]+)\])?")
 
 
 @dataclass(frozen=True)
@@ -42,6 +49,32 @@ class Finding:
     def render(self) -> str:
         return (f"{self.path}:{self.line}:{self.col}: {self.rule} "
                 f"{self.message}")
+
+
+def noqa_rules_for_line(source_line: str) -> set[str] | None:
+    """Rules suppressed by an inline comment on ``source_line``: None
+    when there is no noqa comment, the empty set for a blanket
+    ``# repro: noqa`` (every rule), else the named rules (upper-cased)."""
+    m = _NOQA_RE.search(source_line)
+    if m is None:
+        return None
+    rules = m.group("rules")
+    if rules is None:
+        return set()
+    return {r.strip().upper() for r in rules.split(",") if r.strip()}
+
+
+def apply_noqa(findings: list[Finding],
+               source_lines: list[str]) -> list[Finding]:
+    """Drop findings whose source line carries a matching noqa comment."""
+    out = []
+    for f in findings:
+        if 1 <= f.line <= len(source_lines):
+            rules = noqa_rules_for_line(source_lines[f.line - 1])
+            if rules is not None and (not rules or f.rule in rules):
+                continue
+        out.append(f)
+    return out
 
 
 @dataclass

@@ -503,12 +503,14 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
             # rows (None where a step did not learn)
             self.metrics = {"return_mean": [], "beta": [], "loss": []}
             self.idx = [] if record_idx else None
-            # captured: a graph exists; capture_s: the warm-up step and the
-            # capture, synchronized; replay_launches: the kernel launches
-            # the graph holds, which each replay adds to ops.launches
+            # captured: a graph exists; captures: graphs captured (the
+            # trace rules' RECOMPILE holds it at one a run); capture_s: the
+            # warm-up step and the capture, synchronized; replay_launches:
+            # the kernel launches the graph holds, which each replay adds
+            # to ops.launches
             self.graph, self.info = None, {
-                "captured": False, "graph_replays": 0, "eager_steps": 0,
-                "capture_s": 0.0, "replay_launches": {}}
+                "captured": False, "captures": 0, "graph_replays": 0,
+                "eager_steps": 0, "capture_s": 0.0, "replay_launches": {}}
             self.state = state
             if capture:
                 self._load(state)
@@ -628,6 +630,7 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
                 self._body()
             self.graph.instantiate()
             torch.cuda.synchronize(dev)
+            self.info["captures"] += 1
             self.info.update(
                 captured=True, capture_s=time.perf_counter() - t0,
                 replay_launches={k: v - before[k]

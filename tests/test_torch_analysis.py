@@ -9,8 +9,9 @@
   places it, but for the modules named in ``DIFFERENCES``, each with the
   reason (a module the port lacks, or an import the port adds).
 * ``python -m repro_torch.analysis``: the reference's exit codes (0
-  clean, 1 findings, 2 usage); the reference's lint and its other trace
-  rules are not ported, and their flags exit 2 naming ROADMAP A16.
+  clean, 1 findings, 2 usage) on lock logs, source paths (the port's
+  lint), ``--format prom`` and ``--write-baseline``; ``--bench`` exits 2
+  with its reason (``tests/test_torch_lint.py`` holds the lint itself).
 * ``--launch-budget`` without CUDA skips with its reason (exit 2),
   never passes.
 """
@@ -149,13 +150,27 @@ def test_cli_exit_codes(tmp_path):
     Baseline.from_findings(locks.check_log(str(cyc))).save(str(base))
     assert cli.main(["--lock-log", str(cyc), "--baseline", str(base)]) == 0
     assert cli.main([]) == 2
-    for args in (["src"], ["--no-trace"], ["--bench", "BENCH_sampling.json"]):
+    # nothing to lint, or the reference's budget file: usage errors
+    for args in (["--no-trace"], ["--bench", "BENCH_sampling.json"]):
         assert cli.main(args) == 2, args
-    out = _cli("src", "--no-trace")
-    assert out.returncode == 2 and "A16" in out.stderr
-    for args in (["--bogus"], ["--format", "prom", "--lock-log", str(cyc)],
-                 ["--write-baseline", "x.json"]):
-        assert _cli(*args).returncode == 2, args
+    out = _cli("--bench", "BENCH_sampling.json")
+    assert out.returncode == 2 and "launches.py" in out.stderr
+    # a source path runs the port's lint: clean 0, a finding 1
+    fix = os.path.join(ROOT, "tests", "fixtures", "lint_torch")
+    out = _cli(os.path.join(fix, "clean.py"), "--no-trace")
+    assert out.returncode == 0, out.stderr
+    out = _cli(os.path.join(fix, "wallclock.py"), "--no-trace")
+    assert out.returncode == 1 and "WALL-CLOCK" in out.stdout
+    for args, rc in ((["--bogus"], 2), (["--write-baseline", "x.json"], 2),
+                     (["--format", "prom", "--lock-log", str(cyc)], 1)):
+        assert _cli(*args).returncode == rc, args
+    written = tmp_path / "written.json"
+    assert cli.main(["--lock-log", str(cyc), "--write-baseline",
+                     str(written)]) == 0
+    assert cli.main(["--lock-log", str(cyc), "--baseline",
+                     str(written)]) == 0
+    out = _cli("--lock-log", str(cyc), "--format", "prom")
+    assert "repro_analysis_findings_lock_order_total 1.0" in out.stdout
     out = _cli("--dead-modules")
     assert out.returncode == 0 and "repro_torch.runtime.service" in out.stdout
     out = _cli("--lock-log", str(cyc), "--format", "json")

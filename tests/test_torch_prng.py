@@ -38,7 +38,7 @@ def test_key_split_fold_in(seed):
     for num in (2, 3, (2, 3)):
         fresh = jax.random.key(seed)  # one split per key object
         assert _same_bits(jax.random.key_data(jax.random.split(fresh, num)),
-                          prng.split(kt, num))
+                          prng.split(kt, num))  # repro: noqa[PRNG-REUSE] one key, each version
     for d in (0, 1, 7, 2 ** 32 - 1):
         assert _same_bits(jax.random.key_data(jax.random.fold_in(k, d)),
                           prng.fold_in(kt, d))
@@ -66,7 +66,7 @@ def test_batched_keys_match_per_key_draws():
     batched = prng.uniform(keys, (4,), -0.05, 0.05)
     for i in range(5):
         assert torch.equal(batched[i], prng.uniform(keys[i], (4,), -0.05, 0.05))
-    assert torch.equal(prng.split(keys)[2], prng.split(keys[2]))
+    assert torch.equal(prng.split(keys)[2], prng.split(keys[2]))  # repro: noqa[PRNG-REUSE] one key, each version
 
 
 def test_randint_tensor_bound_stays_put():
@@ -112,4 +112,4 @@ def test_bernoulli_single_and_batched_keys(seed, p):
     got = prng.bernoulli(prng.split(kt, 6), p)
     assert got.dtype == torch.bool and _same_bits(want, got)
     want = jax.vmap(lambda kk: jax.random.bernoulli(kk, p, (4,)))(keys)
-    assert _same_bits(want, prng.bernoulli(prng.split(kt, 6), p, (4,)))
+    assert _same_bits(want, prng.bernoulli(prng.split(kt, 6), p, (4,)))  # repro: noqa[PRNG-REUSE] one key, each version

@@ -53,7 +53,7 @@ def test_plain_split_fold_in_equal_numpy_and_jax(seed):
     k = prng.key(seed)
     for n in SPLITS:
         got = kp.split_ref(k, (n,))
-        _eq(got, prng.split(k, n))
+        _eq(got, prng.split(k, n))  # repro: noqa[PRNG-REUSE] one key, each version
         _eq(got, jax.random.key_data(jax.random.split(_jkey(k), n)))
         _eq(ops.prng_split(k, (n,)), got)
     for d in FOLDS:
@@ -73,12 +73,12 @@ def test_plain_draws_equal_numpy_and_jax(seed, shape):
     _eq(ops.prng_bits(k, shape), got)
     for lo, hi in ((0.0, 1.0), (-0.05, 0.05)):
         got = kp.uniform_ref(k, shape, lo, hi)
-        _eq(got, prng.uniform(k, shape, lo, hi))
+        _eq(got, prng.uniform(k, shape, lo, hi))  # repro: noqa[PRNG-REUSE] one key, each version
         _eq(got, jax.random.uniform(_jkey(k), shape, minval=lo, maxval=hi))
         _eq(ops.prng_uniform(k, shape, lo, hi), got)
     for lo, hi in BOUNDS:
         got = kp.randint_ref(k, shape, lo, hi)
-        _eq(got, prng.randint(k, shape, lo, hi))
+        _eq(got, prng.randint(k, shape, lo, hi))  # repro: noqa[PRNG-REUSE] one key, each version
         _eq(got, jax.random.randint(_jkey(k), shape, lo, hi))
         _eq(ops.prng_randint(k, shape, lo, hi), got)
         _eq(kp.randint_ref(k, shape, torch.tensor(lo, dtype=torch.int64),
@@ -93,9 +93,9 @@ def test_plain_batched_keys_equal_numpy():
         _eq(kp.split_ref(kb, (3,)), prng.split(kb, 3))
         _eq(kp.fold_in_ref(kb, 9), prng.fold_in(kb, 9))
         _eq(kp.uniform_ref(kb, (4,), -0.05, 0.05),
-            prng.uniform(kb, (4,), -0.05, 0.05))
-        _eq(kp.randint_ref(kb, (), 0, 10), prng.randint(kb, (), 0, 10))
-        _eq(kp.bits_ref(kb, (64,)), prng.bits(kb, (64,)))
+            prng.uniform(kb, (4,), -0.05, 0.05))  # repro: noqa[PRNG-REUSE] one key, each version
+        _eq(kp.randint_ref(kb, (), 0, 10), prng.randint(kb, (), 0, 10))  # repro: noqa[PRNG-REUSE] one key, each version
+        _eq(kp.bits_ref(kb, (64,)), prng.bits(kb, (64,)))  # repro: noqa[PRNG-REUSE] one key, each version
         _eq(jax.random.key_data(jax.vmap(lambda x: jax.random.split(x, 3))(
             _jkey(kb))), kp.split_ref(kb, (3,)))
 
@@ -106,7 +106,7 @@ def test_cpu_keys_run_the_plain_versions_and_launch_nothing():
     assert not prng._on_card(k)
     _eq(ops.prng_split(k, (2,)), prng.split(k))
     _eq(ops.prng_randint(k, (5,), 0, torch.tensor(9)),
-        prng.randint(k, (5,), 0, 9))
+        prng.randint(k, (5,), 0, 9))  # repro: noqa[PRNG-REUSE] one key, each version
     assert ops.launches == before
     with pytest.raises(TypeError, match="int64"):
         ops.prng_bits(k.to(torch.int32), (2,))
