@@ -81,7 +81,12 @@ rows, 32 of 2^23) in the ``broadcast``, ``kernel`` and ``fused`` modes,
 bit for bit alike, with ``multi_query_match`` and ``rank_select`` held
 and timed at a shard's shape, and the LM sweep (every arch x shape
 cell traced on ``meta``) in processes of their own beside the kernel
-phases.  Steps per second are timed over steady
+phases; and the process mesh (phase ``mesh``): the sharded DQN on 2
+``torch.distributed`` ranks and the 2^28-row cell on 4, each bit for bit
+against one process, the cell's draws at NCCL world size 1, a
+full-width deepseek-moe-16b layer through the explicit-collective
+dispatch on a 2 x 2 mesh of 4 ranks, and the int8 and float32 pod
+gradient sync of stablelm-1.6b over 2 ranks.  Steps per second are timed over steady
 learn steps after each run (set-up and warm-up are reported apart), with
 the host time spent in the PRNG beside them.  Each phase prints one JSON
 line; the line before the last lists the kernels with their timings and
@@ -90,10 +95,9 @@ failed phase exits non-zero without that line.  There is no fallback to
 the CPU: without a CUDA device the script exits with code 2.
 
 ``--phases`` picks a subset (device,match,sample,rank,graph,prng,tcam,
-flash,decode,fused,kernel,sharded,fig9,launch_budget,analysis,examples,
-table1,pixel,resume,runtime,serve,lm_train,lm_zoo,lm_families,dryrun) for
-debugging; every phase runs by
-default.  Each training phase's line says whether its steps were captured
+flash,decode,fused,kernel,sharded,mesh,fig9,launch_budget,analysis,
+examples,table1,pixel,resume,runtime,serve,lm_train,lm_zoo,lm_families,
+dryrun) for debugging; every phase runs by default.  Each training phase's line says whether its steps were captured
 (``"captured"``).  ``runtime_split`` (named in
 ``--phases`` only) splits the runtime's time: each stage alone, then the
 service in five settings.
@@ -133,7 +137,7 @@ F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 SEED = 0
 SHARDS = 4                   # logical shards of the sharded phase, on one card
 PHASES = ("device", "match", "sample", "rank", "graph", "prng", "tcam",
-          "flash", "decode", "fused", "kernel", "sharded", "fig9",
+          "flash", "decode", "fused", "kernel", "sharded", "mesh", "fig9",
           "launch_budget", "analysis", "examples", "table1", "pixel",
           "resume", "runtime", "serve",
           "lm_train", "lm_zoo", "lm_families", "dryrun")
@@ -4626,6 +4630,358 @@ def phase_dryrun(state: dict, sweep: LmSweep) -> None:
           "lm_sweep": sweep.report()})
 
 
+# --- the process mesh (phase ``mesh``) ----------------------------------------
+#
+# Ranks are spawned processes (``launch.mesh.run_ranks``) that share the one
+# card: ``gloo`` with CUDA tensors (NCCL refuses two ranks on one card), and
+# NCCL at world size 1.  The kernels are built in this process first, so the
+# ranks load the built libraries.  Every function a rank runs is defined at
+# module level here and imports only torch and the port.
+
+MESH_DQN_STEPS = 300      # (a): agent steps a mode (learn_start 100)
+MESH_DQN_TIMED = 100      # the last of them, timed
+MESH_DQN_RANKS = 2        # (a) and (e): ranks (2 shards each in (a))
+MESH_CELL_RANKS = 4       # (b) and (d): ranks (4 of the 16 shards each)
+MESH_CELL_MODES = ("kernel", "fused")
+MESH_CELL_TIMED = 10      # (b), (c): draws timed a mode
+MESH_MOE_ARCH = "deepseek-moe-16b"
+MESH_MOE_TOKENS = (4, 256)
+MESH_MOE_TOL = 1e-5       # (d): atol = rtol against one process
+MESH_POD_ARCH, MESH_POD_LAYERS = "stablelm-1.6b", 2
+MESH_POD_BATCH = (2, 128)  # (e): sequences a pod, tokens
+MESH_RANK_TIMEOUT = 400.0
+
+
+def fingerprint(t: torch.Tensor) -> int:
+    """An exact fingerprint of a tensor's bits (sum of each element's bits
+    times its position, in wrapping int64), computed on its device."""
+    flat = t.detach().contiguous().reshape(-1)
+    as_int = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+              8: torch.int64}[flat.element_size()]
+    bits = flat.view(as_int).to(torch.int64)
+    pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+    return int((bits * pos).sum())
+
+
+def mesh_dqn_run(mesh, mode: str) -> dict:
+    """(a) on ``mesh``: the ``sharded`` phase's agent (CartPole, 16 envs,
+    batch 64, hidden 128, 1M rows on 4 shards, AMPER-fr in ``mode``)
+    through ``runner`` (eager), ``MESH_DQN_STEPS`` steps from ``SEED``; its
+    draws, a params fingerprint, the returns, the launches and the steps/s
+    of the last ``MESH_DQN_TIMED`` steps."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.models.qhead import tree_leaves
+    from repro_torch.rl.dqn import DQNConfig, make_dqn
+
+    cfg = DQNConfig(env="cartpole", num_envs=16, replay_size=N_ROWS,
+                    batch=64, hidden=128, v_max=8.0, learn_start=100,
+                    sampler="amper-fr-sharded", amper_fr_mode=mode)
+    dqn = make_dqn(cfg, device=mesh.home, mesh=mesh)
+    key = prng.key(SEED)
+    ops.reset_launches()
+    run = dqn.runner(dqn.init(key), key, MESH_DQN_STEPS, capture=False,
+                     record_idx=True)
+    run.advance(MESH_DQN_STEPS - MESH_DQN_TIMED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run.advance(MESH_DQN_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"idx": torch.stack([i for i in run.idx if i is not None]).cpu(),
+            "params": [fingerprint(t) for t in tree_leaves(st.params)],
+            "returns": st.last_returns.cpu(),
+            "launches": {k: v for k, v in ops.launches.items() if v},
+            "steps_per_s": MESH_DQN_TIMED / dt,
+            "held_rows": int(st.buffer.storage["obs"].shape[0])}
+
+
+def mesh_cell_draws(mesh) -> dict:
+    """(b), (c) on ``mesh``: the dry run's 2^28-row cell (the shards this
+    process holds), drawn in ``MESH_CELL_MODES``: the first draw, its
+    launches, and ``MESH_CELL_TIMED`` timed draws (ms)."""
+    from repro_torch.core import sharded as shc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    cell = dryrun.amper_cell(mesh, DRY_TABLE_LOG2, DRY_BATCH, mesh.home)
+    axes = [a for a in ("pod", "data") if a in mesh.axis_names]
+    out = {"held": len(cell.pq)}
+    for m in MESH_CELL_MODES:
+        draw = shc.sharded_sample_fr(mesh, cell.cfg._replace(fr_mode=m),
+                                     DRY_BATCH, axis_names=axes)
+        ops.reset_launches()
+        idx = draw(cell.pq, cell.valid, cell.key)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launches.items() if v}
+        times = []
+        for _ in range(MESH_CELL_TIMED):
+            t0 = time.perf_counter()
+            draw(cell.pq, cell.valid, cell.key)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[m] = {"idx": idx.cpu(), "launches_a_draw": launches,
+                  "draw_ms_median": float(np.median(times)),
+                  "draw_ms_range": [min(times), max(times)]}
+    return out
+
+
+def mesh_moe_run(mesh) -> dict:
+    """(d) on the 2 x 2 ``mesh``: one deepseek-moe-16b MoE layer at full
+    width (float32 weights and tokens from ``SEED``) through
+    ``moe_apply`` under the training rules: output, metrics, ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import common
+    from repro_torch.models import moe as moe_mod
+
+    cfg = get_config(MESH_MOE_ARCH)
+    dev = mesh.home
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = common.init_params(gen, moe_mod.moe_specs(cfg, None), dev)
+    x = torch.randn(*MESH_MOE_TOKENS, cfg.d_model, generator=gen,
+                    device=dev)
+    with shd.use_rules(shd.ShardingRules(mesh, shd.TRAIN_RULES)):
+        out, metrics = moe_mod.moe_apply(cfg, params, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moe_mod.moe_apply(cfg, params, x)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"out": out.cpu(), "metrics": {k: float(v)
+                                          for k, v in metrics.items()},
+            "ms": ms}
+
+
+def mesh_pod_run(mesh) -> dict:
+    """(e) on the ("pod",) ``mesh``: stablelm-1.6b at full width and
+    ``MESH_POD_LAYERS`` layers (params and tokens from ``SEED``), each
+    pod's gradient on its ``MESH_POD_BATCH`` half of the batch, synced by
+    ``grad_fn_with_pod_sync`` (int8 and float32): fingerprints and ms."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import grad_fn_with_pod_sync
+    from repro_torch.models.model_api import Model
+    from repro_torch.models.qhead import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(MESH_POD_ARCH),
+                              n_layers=MESH_POD_LAYERS)
+    model = Model.from_config(cfg)
+    dev = mesh.home
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = model.init_params(gen, dev)
+    b, s = MESH_POD_BATCH
+    n_pod = mesh.shape["pod"]
+    tok = torch.randint(0, cfg.vocab_size, (n_pod * b, s + 1),
+                        generator=gen, device=dev)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:],
+             "loss_mask": torch.ones(n_pod * b, s, device=dev)}
+
+    def grad_fn(p, piece):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        loss, _ = model.loss(p, piece)
+        return list(torch.autograd.grad(loss, tree_leaves(p)))
+
+    out = {"n_params": sum(t.numel() for t in tree_leaves(params))}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for compress in (True, False):
+            fn = grad_fn_with_pod_sync(grad_fn, mesh, compress=compress)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            synced = fn(params, batch)
+            torch.cuda.synchronize()
+            out[f"compress={compress}"] = {
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "fingerprints": [fingerprint(t) for t in synced],
+                "finite": all(bool(torch.isfinite(t).all()) for t in synced)}
+            del synced
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def mesh_ranks_dqn(rank: int, world: int, dev) -> dict:
+    """The ranks of (a) and (e)."""
+    from repro_torch.launch.mesh import make_process_mesh
+
+    out = {}
+    replay = make_process_mesh((SHARDS,), ("data",), backend="gloo",
+                               device=dev)
+    for m in ("kernel", "fused"):
+        out[m] = mesh_dqn_run(replay, m)
+    pods = make_process_mesh((world,), ("pod",), backend="gloo", device=dev)
+    out["pod"] = mesh_pod_run(pods)
+    return out
+
+
+def mesh_ranks_cell(rank: int, world: int, dev) -> dict:
+    """The ranks of (b) and (d)."""
+    from repro_torch.launch.mesh import make_process_mesh
+
+    prod = make_process_mesh((16, 16), ("data", "model"), backend="gloo",
+                             device=dev)
+    out = {"cell": mesh_cell_draws(prod)}
+    moe = make_process_mesh((2, 2), ("data", "model"), backend="gloo",
+                            device=dev)
+    out["moe"] = mesh_moe_run(moe)
+    return out
+
+
+def mesh_ranks_nccl(rank: int, world: int, dev) -> dict:
+    """The rank of (c): the cell's draws over a 16 x 16 process mesh of
+    one NCCL rank, every shard local."""
+    from repro_torch.launch.mesh import make_process_mesh
+
+    prod = make_process_mesh((16, 16), ("data", "model"), backend="nccl",
+                             device=dev)
+    return mesh_cell_draws(prod)
+
+
+def mesh_launches(state: dict, runs, want: dict) -> dict:
+    """The kernels' launches summed over ``runs`` (one dict a rank), held
+    to ``want`` and added to the kernels line's counts."""
+    got = {}
+    for r in runs:
+        for k, v in r.items():
+            got[k] = got.get(k, 0) + v
+    for k, v in want.items():
+        if got.get(k, 0) != v:
+            fail("mesh", f"{k} launched {got.get(k, 0)} times, want {v}")
+        state["launches"][k] = state["launches"].get(k, 0) + got[k]
+    return got
+
+
+def phase_mesh(state: dict) -> None:
+    """The process mesh: (a) the ``sharded`` phase's DQN on 2 ranks x 2
+    shards in ``kernel`` and ``fused`` against one process, bit for bit;
+    (b) the dry run's 2^28-row cell on 16 shards over 4 ranks in both
+    modes against one process, bit for bit; (c) the same draws at NCCL
+    world size 1; (d) a full-width deepseek-moe-16b MoE layer over a
+    2 x 2 ("data", "model") mesh of 4 ranks against the 4 slots in one
+    process; (e) ``grad_fn_with_pod_sync`` on stablelm-1.6b's 2-layer
+    gradients over 2 pods against one process."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_production_mesh, run_ranks
+    from repro_torch.rl.dqn import DQNConfig
+
+    build.build_all()  # the ranks find the libraries built
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    # the single-process twins
+    one = {m: mesh_dqn_run(Mesh([cuda] * SHARDS), m) for m in ("kernel",
+                                                               "fused")}
+    one["cell"] = mesh_cell_draws(make_production_mesh(device=cuda))
+    torch.cuda.empty_cache()
+    one["moe"] = mesh_moe_run(Mesh(np.full((2, 2), cuda, dtype=object),
+                                   ("data", "model")))
+    one["pod"] = mesh_pod_run(Mesh([cuda] * MESH_DQN_RANKS, ("pod",)))
+    torch.cuda.empty_cache()
+    learn = sum(1 for t in range(MESH_DQN_STEPS) if t >= 100
+                and t % DQNConfig.train_every == 0)
+    t0 = time.perf_counter()
+    two = run_ranks(mesh_ranks_dqn, MESH_DQN_RANKS, backend="gloo",
+                    device="cuda", timeout=MESH_RANK_TIMEOUT)
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = run_ranks(mesh_ranks_cell, MESH_CELL_RANKS, backend="gloo",
+                     device="cuda", timeout=MESH_RANK_TIMEOUT)
+    four_s = time.perf_counter() - t0
+    nccl = run_ranks(mesh_ranks_nccl, 1, backend="nccl", device="cuda",
+                     timeout=MESH_RANK_TIMEOUT)[0]
+    # (a)
+    dqn = {}
+    for m in ("kernel", "fused"):
+        for r, got in enumerate(two):
+            g, o = got[m], one[m]
+            if not np.array_equal(g["idx"], o["idx"].numpy()):
+                fail("mesh", f"(a) {m}: rank {r}'s draws != one process's")
+            if g["params"] != o["params"]:
+                fail("mesh", f"(a) {m}: rank {r}'s params != one process's")
+            if not np.array_equal(g["returns"].view(np.int32),
+                                  o["returns"].numpy().view(np.int32)):
+                fail("mesh", f"(a) {m}: rank {r}'s returns != one process's")
+            if g["held_rows"] != N_ROWS // MESH_DQN_RANKS:
+                fail("mesh", f"(a) rank {r} holds {g['held_rows']} rows")
+        per_step = {"kernel": {"multi_query_match": SHARDS},
+                    "fused": {"multi_query_match": SHARDS,
+                              "rank_select": SHARDS}}[m]
+        want = {k: v * learn for k, v in per_step.items()}
+        if any(o["launches"].get(k) != v for k, v in want.items()):
+            fail("mesh", f"(a) {m}: one process launched {o['launches']}")
+        got = mesh_launches(state, [g[m]["launches"] for g in two], want)
+        dqn[m] = {"bit_identical": True, "learn_steps": learn,
+                  "draws_compared": int(o["idx"].numel()),
+                  "steps_per_s_ranks": [g[m]["steps_per_s"] for g in two],
+                  "steps_per_s_one_process": o["steps_per_s"],
+                  "launches_ranks": got}
+    # (b), (c)
+    cell = {}
+    for m in MESH_CELL_MODES:
+        want = one["cell"][m]["idx"].numpy()
+        for r, got in enumerate(four):
+            if not np.array_equal(got["cell"][m]["idx"], want):
+                fail("mesh", f"(b) {m}: rank {r}'s draw != one process's")
+        if not np.array_equal(nccl[m]["idx"], want):
+            fail("mesh", f"(c) {m}: the NCCL world-1 draw != one process's")
+        per_draw = {"multi_query_match": 16} if m == "kernel" else \
+            {"multi_query_match": 16, "rank_select": 16}
+        got = mesh_launches(state, [g["cell"][m]["launches_a_draw"]
+                                    for g in four], per_draw)
+        mesh_launches(state, [nccl[m]["launches_a_draw"]], per_draw)
+        cell[m] = {"bit_identical": True, "launches_a_draw_ranks": got,
+                   "draw_ms_median_ranks": [g["cell"][m]["draw_ms_median"]
+                                            for g in four],
+                   "draw_ms_range_ranks": [g["cell"][m]["draw_ms_range"]
+                                           for g in four],
+                   "draw_ms_median_one_process": one["cell"][m][
+                       "draw_ms_median"],
+                   "draw_ms_median_nccl_world_1": nccl[m]["draw_ms_median"]}
+    # (d)
+    want = one["moe"]["out"].numpy()
+    moe = {"tol": MESH_MOE_TOL, "ms_one_process": one["moe"]["ms"],
+           "ms_ranks": [g["moe"]["ms"] for g in four],
+           "metrics": one["moe"]["metrics"]}
+    for r, got in enumerate(four):
+        out = got["moe"]["out"]
+        err = float(np.abs(out - want).max())
+        if not np.isfinite(out).all() or not np.allclose(
+                out, want, atol=MESH_MOE_TOL, rtol=MESH_MOE_TOL):
+            fail("mesh", f"(d) rank {r}'s MoE output off by {err}")
+        for k, v in got["moe"]["metrics"].items():
+            if not np.isclose(v, one["moe"]["metrics"][k],
+                              atol=MESH_MOE_TOL, rtol=MESH_MOE_TOL):
+                fail("mesh", f"(d) rank {r}'s {k} {v} != "
+                     f"{one['moe']['metrics'][k]}")
+        moe.setdefault("max_abs_err", []).append(err)
+        moe.setdefault("bit_identical", []).append(
+            bool(np.array_equal(out.view(np.int32), want.view(np.int32))))
+    moe["drop_frac"] = one["moe"]["metrics"]["moe_drop_frac"]
+    # (e)
+    pod = {"n_params": one["pod"]["n_params"]}
+    for c in ("compress=True", "compress=False"):
+        for r, got in enumerate(two):
+            g = got["pod"][c]
+            if not g["finite"] or g["fingerprints"] != \
+                    one["pod"][c]["fingerprints"]:
+                fail("mesh", f"(e) {c}: rank {r}'s synced gradients != "
+                     "one process's")
+        pod[c] = {"bit_identical": True, "ms_one_process":
+                  one["pod"][c]["ms"], "ms_ranks": [g["pod"][c]["ms"]
+                                                    for g in two]}
+    cfg = get_config(MESH_MOE_ARCH)
+    emit({"phase": "mesh", "ok": True, "card": state["smi"],
+          "backend": {"ranks": "gloo (CUDA tensors)", "nccl": "world 1"},
+          "a_dqn": dqn, "b_cell": cell, "d_moe": {
+              **moe, "d_model": cfg.d_model, "experts": cfg.n_experts,
+              "top_k": cfg.moe_top_k, "tokens": list(MESH_MOE_TOKENS)},
+          "e_pod_sync": pod, "spawn_s": {"2_ranks": two_s, "4_ranks": four_s},
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4690,6 +5046,8 @@ def run_phases(phases, args, sweep: LmSweep | None) -> int:
                     trace_dir, mesh=mesh, sampler="amper-fr-sharded",
                     amper_fr_mode="fused")
         per_sharded_run(mesh)
+    if "mesh" in phases:
+        phase_mesh(state)
     if "fig9" in phases:
         phase_fig9(state)
     if "launch_budget" in phases:

@@ -9,6 +9,21 @@ buffer reads the priorities only through the sampler's dense
 ``priorities`` view, and keeps the transitions themselves on the
 sampler's (lead) device.
 
+On a process mesh (a sharded sampler over ``Mesh(..., group=...)``) the
+transitions are partitioned like the priority table, as the reference's
+``storage_sharding`` keeps them: each rank stores only the rows of the
+shards it holds (``storage`` leaves of ``row_hi - row_lo`` rows), a ring
+arc writes each row on its owner alone, and ``sample`` gathers the
+batch's rows from their owners as bytes, so every rank gets the same
+batch bit for bit (a stored ``-0.0`` stays ``-0.0``).  The write stamps
+and the host counters are the same on every rank and stay whole; the
+new-entry max priority comes from TD errors every rank computes alike,
+so it is the global max on every rank.  :meth:`ReplayBuffer.dense` and
+:meth:`ReplayBuffer.partition` turn the storage into the global table
+and back, for checkpoints and tests.  The frame store needs the rows
+around each anchor and is not partitioned: it is refused on a process
+mesh.
+
 The buffer stores a dict of tensors with a leading capacity dim.  New
 transitions enter with the running maximum priority; sampled ones get
 their priority rewritten from the fresh TD error.  Every slot carries a
@@ -28,12 +43,14 @@ the state passed in must not be used afterwards.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.core.per import importance_from_selected
-from repro_torch.core.samplers import masked_update
+from repro_torch.core.samplers import masked_update, on_meta
+from repro_torch.distributed.collectives import exchange
 from repro_torch.obs.tracing import span
 from repro_torch.xla_float import fma32
 
@@ -208,6 +225,29 @@ class ReplayBuffer:
                     "write head)")
         self.accumulator = (NStepAccumulator(n_step, gamma)
                             if n_step > 1 else None)
+        mesh = getattr(sampler, "mesh", None)
+        self.partitioned = mesh is not None and mesh.group is not None
+        self.row_lo, self.row_hi = 0, capacity
+        if self.partitioned:
+            if frame_store is not None:
+                raise ValueError("the frame store is not partitioned: a "
+                                 "process mesh takes flat transitions only")
+            rows = sampler.rows()
+            self.row_lo = rows[0][0] if rows else 0
+            self.row_hi = rows[-1][1] if rows else 0
+            if any(a[1] != b[0] for a, b in zip(rows, rows[1:])):
+                raise ValueError(f"the shards held here are not one row "
+                                 f"range: {rows}")
+
+    def on_meta(self) -> "ReplayBuffer":
+        """A twin on the meta device that holds every row in one process
+        (the form a checkpoint saves): its ``init`` allocates no memory."""
+        twin = copy.copy(self)
+        twin.sampler = on_meta(self.sampler)
+        twin.device = twin.sampler.device
+        twin.partitioned = False
+        twin.row_lo, twin.row_hi = 0, self.capacity
+        return twin
 
     def nstep_init(self, example: dict):
         if self.accumulator is None:
@@ -231,7 +271,8 @@ class ReplayBuffer:
                     f"frame leaf shape {tuple(frame.shape)} != "
                     f"FrameStore.frame_shape "
                     f"{tuple(self.frame_store.frame_shape)}")
-        storage = {k: torch.zeros((self.capacity,) + tuple(v.shape),
+        held = self.row_hi - self.row_lo
+        storage = {k: torch.zeros((held,) + tuple(v.shape),
                                   dtype=v.dtype, device=self.device)
                    for k, v in example.items()}
         return ReplayState(
@@ -257,9 +298,17 @@ class ReplayBuffer:
                 f"add_batch of {b} transitions exceeds capacity "
                 f"{self.capacity}: ring slots would collide within one write")
         idx = (state.pos + torch.arange(b, device=self.device)) % self.capacity
+        if self.partitioned:  # the arc's rows held here, from host ints
+            mine = [j for j in range(b)
+                    if self.row_lo <= (state.pos + j) % self.capacity
+                    < self.row_hi]
+            src = torch.tensor(mine, dtype=torch.int64, device=self.device)
+            dst = idx[src] - self.row_lo
+        else:
+            src, dst = None, idx
         for k, x in transitions.items():
-            state.storage[k][idx] = x.to(self.device,
-                                         state.storage[k].dtype)
+            x = x.to(self.device, state.storage[k].dtype)
+            state.storage[k][dst] = x if src is None else x[src]
         sampler_state = self.sampler.update(
             state.sampler_state, idx, state.max_priority.expand(b))
         # int32 stamps wrap; the generation words count signed rollovers.
@@ -409,6 +458,8 @@ class ReplayBuffer:
         idx_l = idx.to(torch.int64)
         if self.frame_store is not None:
             batch_tree = self.materialize(state, idx_l)
+        elif self.partitioned:
+            batch_tree = self._gather_rows(state, idx_l)
         else:
             batch_tree = {k: buf[idx_l] for k, buf in state.storage.items()}
         prios = self.sampler.priorities(state.sampler_state)
@@ -417,6 +468,60 @@ class ReplayBuffer:
         w = importance_from_selected(prios[idx_l], prios.sum(), size,
                                      self.beta if beta is None else beta)
         return idx, batch_tree, w
+
+    def _gather_rows(self, state: ReplayState, idx: torch.Tensor) -> dict:
+        """Rows ``idx`` of the partitioned storage on every rank, exactly:
+        each rank reads the rows it holds (the others clamped), every
+        leaf's bytes go in one all-gather, and each row is taken from the
+        rank that owns it."""
+        mesh = self.sampler.mesh
+        held = max(self.row_hi - self.row_lo, 1)
+        local = (idx - self.row_lo).clamp(0, held - 1)
+        b = idx.shape[0]
+        parts, layout = [], []
+        for k, buf in state.storage.items():
+            rows = (buf[local] if buf.shape[0] else torch.zeros(
+                (b,) + tuple(buf.shape[1:]), dtype=buf.dtype,
+                device=buf.device))
+            raw = rows.reshape(b, -1).contiguous().view(torch.uint8)
+            parts.append(raw)
+            layout.append((k, raw.shape[1], buf.dtype, tuple(buf.shape[1:])))
+        packed = torch.cat(parts, 1)
+        every = exchange(mesh, [packed], list(range(mesh.world)),
+                         packed.shape, torch.uint8)
+        shard_rank = torch.tensor(self.sampler.owners, device=idx.device)
+        rank = shard_rank[idx // self.sampler.n_local]
+        picked = torch.stack(every)[rank, torch.arange(b, device=idx.device)]
+        out, at = {}, 0
+        for k, width, dtype, shape in layout:
+            out[k] = (picked[:, at:at + width].contiguous().view(dtype)
+                      .reshape((b,) + shape))
+            at += width
+        return out
+
+    def dense(self, state: ReplayState) -> ReplayState:
+        """``state`` with the whole ``[capacity]`` storage on every rank
+        (the others' rows gathered bit for bit); unchanged unless the
+        storage is partitioned."""
+        if not self.partitioned:
+            return state
+        s = self.sampler
+        n = s.n_local
+        storage = {}
+        for k, buf in state.storage.items():
+            blocks = [buf[j * n:(j + 1) * n] for j in range(len(s.local))]
+            storage[k] = torch.cat(exchange(
+                s.mesh, blocks, s.owners, (n,) + tuple(buf.shape[1:]),
+                buf.dtype))
+        return state._replace(storage=storage)
+
+    def partition(self, state: ReplayState) -> ReplayState:
+        """The inverse of :meth:`dense`: only the rows held here kept."""
+        if not self.partitioned:
+            return state
+        return state._replace(storage={
+            k: buf[self.row_lo:self.row_hi].to(self.device, copy=True)
+            for k, buf in state.storage.items()})
 
     def stamps(self, state: ReplayState, idx: torch.Tensor) -> torch.Tensor:
         """Write stamp pairs ``int32[..., 2]`` (counter, generation) of

@@ -16,7 +16,11 @@ kwargs vocabulary and ignore what they do not consume:
 Seven kinds are registered: ``uniform``, ``per-sumtree``, ``per-cumsum``
 (alias ``per``), ``amper-k``, ``amper-fr``, and the sharded fronts
 ``amper-fr-sharded`` and ``per-sharded`` (``mesh`` and ``axis_names``
-besides).
+besides).  Their ``mesh`` is a single-process mesh or a process mesh
+(:func:`repro_torch.launch.mesh.make_process_mesh`, every rank building
+the same sampler); without one they take ``default_mesh(device)``: a 1-D
+``("data",)`` mesh in this process over every visible card for a CUDA
+``device``, else over ``device`` alone.
 """
 from __future__ import annotations
 
@@ -71,11 +75,10 @@ def masked_update(sampler: Sampler, state: Any, idx: torch.Tensor,
 def on_meta(sampler: Sampler) -> Sampler:
     """A copy of ``sampler`` whose state lives on the meta device (every
     shard of a sharded one): its ``init()`` allocates no memory."""
-    meta = torch.device("meta")
+    if hasattr(sampler, "on_meta"):  # sharded: every shard, one process
+        return sampler.on_meta()
     twin = copy.copy(sampler)
-    twin.device = meta
-    if hasattr(twin, "devices"):
-        twin.devices = [meta] * len(twin.devices)
+    twin.device = torch.device("meta")
     return twin
 
 

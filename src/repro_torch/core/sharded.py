@@ -25,6 +25,12 @@ the ``rank_select`` kernel, which turns each shard's owned draws into
 local indices in one pass without a compacted CSP.  All five give
 bit-identical draws.
 
+On a process mesh (``Mesh(..., group=...)``) every rank runs the same
+draw for the shards it holds: the kernels run on its own shards only,
+the S counts are all-gathered and the owned draws psummed across the
+ranks, so each rank ends with the whole batch, equal bit for bit to the
+single-process mesh's.
+
 Two things differ from the single-device sampler, exactly as in the
 reference: the key tree (``kq, kpick = split(key)``, then ``kpick, kfb =
 split(kpick)``; the representatives come from ``kq``), and the empty-CSP
@@ -37,10 +43,12 @@ they were given.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import operator
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -48,7 +56,7 @@ from repro_torch.core import quantize as qz
 from repro_torch.core.amper import (FR_MODES, AmperConfig, AmperState,
                                     fr_intervals, fr_match,
                                     group_representatives, last_writer)
-from repro_torch.distributed.collectives import all_gather, psum
+from repro_torch.distributed.collectives import all_gather, exchange, psum
 from repro_torch.distributed.sharding import Mesh
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import nonzero_static
@@ -97,22 +105,29 @@ def _local_match_fr(pq_local: torch.Tensor, valid_local: torch.Tensor,
 
 
 def _fr_sample_body(cfg: AmperConfig, batch: int, mesh: Mesh,
-                    devices: Sequence[torch.device], local_cap: int):
+                    axes: Sequence[str], local_cap: int):
     """The sharded AMPER-fr draw: ``body(pq_shards, valid_shards, key) ->
-    int32[batch]`` global indices on the mesh's lead device."""
+    int32[batch]`` global indices on ``mesh.home``, where the shards are
+    the ones this process holds (``Mesh.local_shards``); a process that
+    holds none takes the shard length from ``cfg.capacity``."""
+    devices = mesh.shard_devices(axes)
     n_shards = len(devices)
+    local = mesh.local_shards(axes)
+    local_devices = [devices[s] for s in local]
 
     def body(pq_shards, valid_shards, key):
-        n_local = pq_shards[0].shape[0]
+        n_local = (pq_shards[0].shape[0] if len(pq_shards)
+                   else cfg.capacity // n_shards)
         kq, kpick = prng.split(key)
         kpick, kfb = prng.split(kpick)  # the fallback gets its own key
         v_rep = group_representatives(kq, cfg)  # identical on all shards
-        ranges = _ranges_on(v_rep, cfg, devices)
+        ranges = _ranges_on(v_rep, cfg, local_devices)
         selected = [_local_match_fr(pq, valid, v_rep, ranges[d], cfg)
-                    for pq, valid, d in zip(pq_shards, valid_shards, devices)]
+                    for pq, valid, d in zip(pq_shards, valid_shards,
+                                            local_devices)]
         counts = all_gather(mesh, [
             torch.clamp(sel.sum(dtype=torch.int32), max=local_cap)
-            for sel in selected])
+            for sel in selected], axes, torch.int32)
         cum = torch.cumsum(counts, 0, dtype=torch.int32)
         total = cum[-1]
 
@@ -124,25 +139,25 @@ def _fr_sample_body(cfg: AmperConfig, batch: int, mesh: Mesh,
         offset = u - start[owner.clamp(0, n_shards - 1).to(torch.int64)]
 
         contribs = []
-        for me, d in enumerate(devices):
+        for j, (me, d) in enumerate(zip(local, local_devices)):
             off = offset.to(d)
             if cfg.fr_mode == "fused":
                 # rank r in index order IS nonzero(selected)[r]
                 local_pick, _cnt = ops.rank_select(
-                    pq_shards[me], valid_shards[me], *ranges[d], off)
+                    pq_shards[j], valid_shards[j], *ranges[d], off)
             else:
-                loc_idx = nonzero_static(selected[me], local_cap, fill=0)
+                loc_idx = nonzero_static(selected[j], local_cap, fill=0)
                 local_pick = loc_idx[off.clamp(0, local_cap - 1)
                                      .to(torch.int64)]
             mine = owner.to(d) == me
             contribs.append(torch.where(
                 mine, local_pick.to(torch.int32) + me * n_local,
                 torch.zeros_like(off)))
-        picked = psum(mesh, contribs)
+        picked = psum(mesh, contribs, axes, (batch,), torch.int32)
 
         # Empty CSP: uniform over the whole global table.
         fb = prng.randint(kfb, (batch,), 0, n_local * n_shards,
-                          device=mesh.lead)
+                          device=mesh.home)
         return torch.where(total > 0, picked, fb).to(torch.int32)
 
     return body
@@ -155,39 +170,43 @@ def sharded_sample_fr(mesh: Mesh, cfg: AmperConfig, batch: int,
 
     Returns ``fn(pq_shards, valid_shards, key) -> int32[batch]`` global
     indices, where ``pq_shards``/``valid_shards`` hold one equal-length
-    tensor per shard of ``axis_names``, in shard order, on its device.
+    tensor per shard of ``axis_names`` this process holds
+    (``Mesh.local_shards``: every shard on a single-process mesh), in
+    shard order, on its device.
     """
     axes = resolve_axes(mesh, axis_names)
-    devices = mesh.shard_devices(axes)
-    return _fr_sample_body(cfg, batch, mesh, devices,
+    return _fr_sample_body(cfg, batch, mesh, axes,
                            _local_csp_capacity(mesh, axes, cfg,
                                                local_csp_capacity))
 
 
-def _per_sample_body(batch: int, mesh: Mesh,
-                     devices: Sequence[torch.device]):
+def _per_sample_body(batch: int, mesh: Mesh, axes: Sequence[str]):
     """The sharded hierarchical-cumsum PER draw: ``body(p_shards, key) ->
-    int32[batch]`` on the lead device."""
+    int32[batch]`` on ``mesh.home``, over the shards this process holds."""
+    devices = mesh.shard_devices(axes)
     n_shards = len(devices)
+    local = mesh.local_shards(axes)
 
     def body(p_shards, key):
-        n_local = p_shards[0].shape[0]
         local_cum = [torch.cumsum(p, 0) for p in p_shards]
-        totals = all_gather(mesh, [c[-1] for c in local_cum])
+        n_local = p_shards[0].shape[0] if len(p_shards) else 0
+        totals = all_gather(mesh, [c[-1] for c in local_cum], axes,
+                            torch.float32)
         cum_tot = torch.cumsum(totals, 0)
         grand = torch.clamp(cum_tot[-1], min=1e-12)
 
-        u = prng.uniform(key, (batch,), device=mesh.lead) * grand
+        u = prng.uniform(key, (batch,), device=mesh.home) * grand
         owner = torch.searchsorted(cum_tot, u, right=True)
         start = cum_tot - totals
         local_u = u - start[owner.clamp(0, n_shards - 1)]
         contribs = []
-        for me, d in enumerate(devices):
-            loc = torch.searchsorted(local_cum[me], local_u.to(d), right=True)
+        for j, me in enumerate(local):
+            d = devices[me]
+            loc = torch.searchsorted(local_cum[j], local_u.to(d), right=True)
             loc = loc.clamp(0, n_local - 1).to(torch.int32)
             contribs.append(torch.where(owner.to(d) == me, loc + me * n_local,
                                         torch.zeros_like(loc)))
-        return psum(mesh, contribs).to(torch.int32)
+        return psum(mesh, contribs, axes, (batch,), torch.int32)
 
     return body
 
@@ -195,18 +214,18 @@ def _per_sample_body(batch: int, mesh: Mesh,
 def sharded_sample_per(mesh: Mesh, batch: int,
                        axis_names: Sequence[str] = ("pod", "data")):
     """Contrast baseline: hierarchical cumsum PER on the same sharded
-    table.  Returns ``fn(p_shards, key) -> int32[batch]``."""
-    axes = resolve_axes(mesh, axis_names)
-    return _per_sample_body(batch, mesh, mesh.shard_devices(axes))
+    table.  Returns ``fn(p_shards, key) -> int32[batch]`` over the
+    shards this process holds."""
+    return _per_sample_body(batch, mesh, resolve_axes(mesh, axis_names))
 
 
 def repartition(sampler, state):
     """Move a sampler state onto ``sampler``'s shard layout.
 
-    A per-shard state (any shard count) or a dense one is gathered field
-    by field and split again over ``sampler``'s shards: values, and so
-    the CSP membership and the sampling law, are unchanged.  For an
-    unsharded sampler it is the identity.
+    A per-shard state of one process (any shard count) or a dense one is
+    gathered field by field and split again over ``sampler``'s shards:
+    values, and so the CSP membership and the sampling law, are
+    unchanged.  For an unsharded sampler it is the identity.
     """
     if not hasattr(sampler, "from_dense"):
         return state
@@ -230,8 +249,10 @@ def _write_rows(buf: torch.Tensor, local: torch.Tensor, keep: torch.Tensor,
 
 
 class _Shards:
-    """What both sharded samplers share: the mesh, the shard devices, and
-    the split of a global row index into (shard, local row)."""
+    """What both sharded samplers share: the mesh, the shards this
+    process holds and their devices, and the split of a global row index
+    into (shard, local row).  Per-shard state tuples hold this process's
+    shards only, in shard order."""
 
     def _setup(self, capacity: int, mesh: Mesh, axis_names: Sequence[str]):
         self.capacity = capacity
@@ -244,29 +265,59 @@ class _Shards:
                 f"capacity {capacity} not divisible by the "
                 f"{self.n_shards} shards of mesh axes {self.axis_names}")
         self.n_local = capacity // self.n_shards
-        self.device = mesh.lead
+        self.local = mesh.local_shards(self.axis_names)
+        self.local_devices = [self.devices[s] for s in self.local]
+        self.owners = [mesh.owner(s)
+                       for s in mesh.shard_slots(self.axis_names)]
+        self.device = mesh.home
+
+    def on_meta(self):
+        """A twin on the meta device over a single-process mesh of the
+        same shape, holding every shard: its ``init()`` allocates no
+        memory."""
+        meta = torch.device("meta")
+        twin = copy.copy(self)
+        twin._setup(self.capacity,
+                    Mesh(np.full(self.mesh.devices.shape, meta, dtype=object),
+                         self.mesh.axis_names), self.axis_names)
+        return twin
+
+    def rows(self) -> list[tuple[int, int]]:
+        """The global row range ``[lo, hi)`` of each shard held here."""
+        return [(s * self.n_local, (s + 1) * self.n_local)
+                for s in self.local]
 
     def _zeros(self, dtype) -> tuple[torch.Tensor, ...]:
         return tuple(torch.zeros(self.n_local, dtype=dtype, device=d)
-                     for d in self.devices)
+                     for d in self.local_devices)
 
     def _split(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        """A global ``[capacity]`` tensor as fresh per-shard tensors."""
-        return tuple(x[s * self.n_local:(s + 1) * self.n_local]
-                     .to(d, copy=True) for s, d in enumerate(self.devices))
+        """A global ``[capacity]`` tensor as fresh tensors of the shards
+        held here."""
+        return tuple(x[lo:hi].to(d, copy=True)
+                     for (lo, hi), d in zip(self.rows(), self.local_devices))
 
     def _write(self, bufs, idx: torch.Tensor, values: torch.Tensor) -> None:
-        """Write ``values`` at global rows ``idx`` across the shards."""
+        """Write ``values`` at global rows ``idx`` on the shards held
+        here."""
         idx = idx.to(torch.int64)
         shard, local = idx // self.n_local, idx % self.n_local
-        for s, (buf, d) in enumerate(zip(bufs, self.devices)):
+        for s, buf, d in zip(self.local, bufs, self.local_devices):
             _write_rows(buf, local.to(d), (shard == s).to(d), values.to(d))
 
-    def _gather(self, parts) -> torch.Tensor:
+    def _gather(self, parts, dtype: torch.dtype) -> torch.Tensor:
+        """The global ``[capacity]`` ``dtype`` tensor on ``self.device``,
+        from the shards held here (a process mesh gathers the others'
+        bits)."""
+        parts = list(parts)
+        if self.mesh.group is not None:
+            parts = exchange(self.mesh, parts, self.owners, (self.n_local,),
+                             dtype)
         return torch.cat([p.to(self.device) for p in parts])
 
     def _sum(self, parts) -> torch.Tensor:
-        return all_gather(self.mesh, [p.sum() for p in parts]).sum()
+        return all_gather(self.mesh, [p.sum() for p in parts],
+                          self.axis_names, torch.float32).sum()
 
 
 class ShardedAmperState(NamedTuple):
@@ -306,16 +357,16 @@ class ShardedAmperSampler(_Shards):
         return ShardedAmperState(pq=self._split(pq), valid=self._split(valid))
 
     def to_dense(self, state: ShardedAmperState) -> AmperState:
-        """The global (pq, valid) table on the lead device: the inverse of
+        """The global (pq, valid) table on ``mesh.home``: the inverse of
         :meth:`from_dense`, and the form a checkpoint stores (the
         reference's sharded state is one global ``AmperState``)."""
-        return AmperState(pq=self._gather(state.pq),
-                          valid=self._gather(state.valid))
+        return AmperState(pq=self._gather(state.pq, torch.int32),
+                          valid=self._gather(state.valid, torch.bool))
 
     def priorities(self, state: ShardedAmperState) -> torch.Tensor:
         return self._gather(
-            qz.dequantize(pq, self.cfg.v_max, self.cfg.frac_bits) * valid
-            for pq, valid in zip(state.pq, state.valid))
+            (qz.dequantize(pq, self.cfg.v_max, self.cfg.frac_bits) * valid
+             for pq, valid in zip(state.pq, state.valid)), torch.float32)
 
     def total(self, state: ShardedAmperState) -> torch.Tensor:
         return self._sum(
@@ -335,7 +386,7 @@ class ShardedAmperSampler(_Shards):
     def sample(self, state: ShardedAmperState, key: torch.Tensor, batch: int,
                stratified: bool = True) -> torch.Tensor:
         del stratified  # CSP sampling is uniform by construction
-        body = _fr_sample_body(self.cfg, batch, self.mesh, self.devices,
+        body = _fr_sample_body(self.cfg, batch, self.mesh, self.axis_names,
                                self.local_csp_capacity)
         with span("sharded_sample"):
             return body(state.pq, state.valid, key)
@@ -346,10 +397,11 @@ class ShardedAmperSampler(_Shards):
         single-device ``build_csp_fr(...).selected``."""
         kq, _ = prng.split(key)
         v_rep = group_representatives(kq, self.cfg)
-        ranges = _ranges_on(v_rep, self.cfg, self.devices)
+        ranges = _ranges_on(v_rep, self.cfg, self.local_devices)
         return self._gather(
-            _local_match_fr(pq, valid, v_rep, ranges[d], self.cfg)
-            for pq, valid, d in zip(state.pq, state.valid, self.devices))
+            (_local_match_fr(pq, valid, v_rep, ranges[d], self.cfg)
+             for pq, valid, d in zip(state.pq, state.valid,
+                                     self.local_devices)), torch.bool)
 
 
 class ShardedPERState(NamedTuple):
@@ -374,15 +426,16 @@ class ShardedPERSampler(_Shards):
         return ShardedPERState(priorities=self._split(priorities))
 
     def to_dense(self, state: ShardedPERState) -> ShardedPERState:
-        """The global priority table on the lead device (the inverse of
+        """The global priority table on ``mesh.home`` (the inverse of
         :meth:`from_dense`), as the reference's ``ShardedPERState``."""
-        return ShardedPERState(priorities=self._gather(state.priorities))
+        return ShardedPERState(priorities=self._gather(state.priorities,
+                                                       torch.float32))
 
     def total(self, state: ShardedPERState) -> torch.Tensor:
         return self._sum(state.priorities)
 
     def priorities(self, state: ShardedPERState) -> torch.Tensor:
-        return self._gather(state.priorities)
+        return self._gather(state.priorities, torch.float32)
 
     def update(self, state: ShardedPERState, idx: torch.Tensor,
                priority: torch.Tensor) -> ShardedPERState:
@@ -392,5 +445,5 @@ class ShardedPERSampler(_Shards):
     def sample(self, state: ShardedPERState, key: torch.Tensor, batch: int,
                stratified: bool = True) -> torch.Tensor:
         del stratified  # the sharded law draws global uniforms
-        return _per_sample_body(batch, self.mesh, self.devices)(
+        return _per_sample_body(batch, self.mesh, self.axis_names)(
             state.priorities, key)

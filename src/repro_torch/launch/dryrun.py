@@ -35,7 +35,7 @@ are global; the per-device roofline divides them by the mesh's device
 count, and each leaf's per-device argument bytes come from its shard
 shape under the logical-axis rules (``_divisible_sharding``).  The
 collective bytes and ``temp_bytes_per_dev`` need a per-device sharded
-program, which comes with the multi-process mesh (ROADMAP A14): they are
+program, which comes with the rules' sharding (ROADMAP A14b): they are
 null until then, with that reason.
 
 ``run_amper_cell`` builds the sharded AMPER-fr sampler
@@ -79,8 +79,8 @@ from repro_torch.train.optimizer import AdamW, cosine_schedule
 
 MAX_TRACED_LAYERS = 12   # deeper stacks: two depths, extrapolated
 AMPER_SEED = 0           # the AMPER cell's table and key
-NULL_UNTIL_MESH = ("needs a per-device sharded program: the multi-process "
-                   "mesh, ROADMAP A14")
+NULL_UNTIL_MESH = ("needs a per-device sharded program: the rules' "
+                   "sharding, ROADMAP A14b")
 
 
 def _divisible_sharding(rules: shd.ShardingRules, spec_axes,
@@ -434,7 +434,10 @@ def amper_cell(mesh, table_log2: int, batch: int,
     uniform in [0, V_max) from one generator on ``device`` seeded with
     ``AMPER_SEED``, and key ``prng.key(AMPER_SEED)``.  Another mode draws
     from the same table through ``sharded_sample_fr`` with
-    ``cfg._replace(fr_mode=...)``."""
+    ``cfg._replace(fr_mode=...)``.  On a process mesh each rank keeps
+    only the shards it holds (the generator still runs over every shard,
+    so each holds the rows the single-process cell holds); ``n_shards``
+    counts every shard."""
     from repro_torch.core import quantize as qz
     from repro_torch.core import sharded as shc
     from repro_torch.core.amper import AmperConfig
@@ -444,14 +447,18 @@ def amper_cell(mesh, table_log2: int, batch: int,
     cfg = AmperConfig(capacity=n, m=20, lam_fr=2.0,
                       csp_capacity=int(n * 0.15))
     draw = shc.sharded_sample_fr(mesh, cfg, batch, axis_names=axes)
-    devices = mesh.shard_devices(shc.resolve_axes(mesh, axes))
+    resolved = shc.resolve_axes(mesh, axes)
+    devices = mesh.shard_devices(resolved)
+    held = set(mesh.local_shards(resolved))
     n_local = n // len(devices)
     gen = torch.Generator(device=device).manual_seed(AMPER_SEED)
     pq, valid = [], []
-    for d in devices:  # shard by shard: the whole float table never lives
+    for s, d in enumerate(devices):  # shard by shard: the whole float
+        # table never lives
         p = torch.rand(n_local, generator=gen, device=device) * cfg.v_max
-        pq.append(qz.quantize(p, cfg.v_max, cfg.frac_bits).to(d))
-        valid.append(torch.ones(n_local, dtype=torch.bool, device=d))
+        if s in held:
+            pq.append(qz.quantize(p, cfg.v_max, cfg.frac_bits).to(d))
+            valid.append(torch.ones(n_local, dtype=torch.bool, device=d))
     return AmperCell(draw, tuple(pq), tuple(valid), prng.key(AMPER_SEED),
                      cfg, len(devices))
 

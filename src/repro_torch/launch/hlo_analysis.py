@@ -11,8 +11,8 @@ writes; this module turns those counts into the roofline.
   dense bf16 rate and memory rate at 700 W), where the reference fixes
   TPU v5e's.
 * The collective term is null: the reference parses it from the sharded
-  program's collectives (``collective_bytes``), and the port has no
-  sharded program until the multi-process mesh (ROADMAP A14).  The
+  program's collectives (``collective_bytes``), and the port traces no
+  program sharded by the rules yet (ROADMAP A14b).  The
   reference's ``analyze`` reads a compiled executable and has no
   counterpart either; the dry run builds its reports with
   :class:`Roofline`.
@@ -36,7 +36,7 @@ H100_HBM_BW = 3.35e12           # B/s
 class Roofline:
     """All quantities are PER-DEVICE (the dry run divides the traced
     global counts by the mesh's device count).  ``coll_bytes_per_dev``
-    is None until the port has a sharded program (ROADMAP A14); then
+    is None until the port has a sharded program (ROADMAP A14b); then
     ``link_bw`` rates it."""
 
     flops: float                  # per-device traced flops (+ corrections)

@@ -4,10 +4,11 @@ Counterpart of ``repro/models/moe.py``: n shared experts always active
 plus E routed experts with top-k softmax gating, a capacity-limited
 scatter / gather dispatch with Mesh-TF positions from a cumsum (no
 (T, E, C) one-hot), and the load-balance and router-z aux losses as
-metrics.  The reference takes its ``shard_map`` dispatch only under an
-active mesh, which one card has not, so ``moe_apply`` always takes the
-scatter dispatch here, as the reference does without a mesh; the
-explicit-collective dispatch waits for the mesh (ROADMAP A14).
+metrics.  ``moe_apply`` takes the explicit-collective dispatch
+(:func:`moe_apply_shard_map`) exactly when the reference does:
+``cfg.moe_dispatch == "shard_map"`` under active sharding rules
+(``distributed.sharding.use_rules``); otherwise, as with no rules
+active, the scatter dispatch.
 
 The dispatch keeps the reference's semantics to the entry: a float32
 router, top-k of the softmax with the gates renormalised, token groups
@@ -54,9 +55,131 @@ def _capacity(n_tokens: int, cfg) -> int:
 
 
 def moe_apply(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """x: [B, S, D] -> (out [B, S, D], metrics): the scatter dispatch (see
-    the module docstring for the reference's mesh-only route)."""
+    """x: [B, S, D] -> (out [B, S, D], metrics): the shard-map dispatch
+    under active rules when the config names it, else the scatter one."""
+    from repro_torch.distributed.sharding import active_rules
+
+    if (getattr(cfg, "moe_dispatch", "scatter") == "shard_map"
+            and active_rules() is not None):
+        return moe_apply_shard_map(cfg, p, x)
     return moe_apply_scatter(cfg, p, x)
+
+
+def moe_apply_shard_map(cfg, p: dict, x: torch.Tensor
+                        ) -> tuple[torch.Tensor, dict]:
+    """The explicit-collective dispatch over the active rules' mesh
+    (counterpart of the reference's ``moe_apply_shard_map``, forward
+    only): x [B, S, D] whole on every rank -> (out [B, S, D], metrics),
+    whole on every rank.
+
+    Tokens split over the data axes ("pod", "data": G token groups),
+    experts over "model".  Each slot this process holds runs the
+    reference's per-slot body:
+
+      * route its token group and build the group's own (E, Cl, D)
+        capacity slice (positions are prefix sums inside the group);
+      * all-gather its E / |model| experts' slices over the data axes ->
+        (E_loc, G * Cl, D), and run those experts' FFNs;
+      * all-gather its token group's slice from every expert owner over
+        "model" -> (E, Cl, D), and combine its tokens' K picks;
+      * the three metrics, ``pmean``-ed over every slot.
+
+    The token groups' outputs are gathered so that every rank returns
+    the whole output.  Where ``T % G`` or ``E % |model|`` the reference
+    runs its scatter dispatch, and so does this.
+    """
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import active_rules
+
+    mesh = active_rules().mesh
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.moe_top_k
+    T = B * S
+    dt = x.dtype
+    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    G = 1
+    for a in dp_axes:
+        G *= mesh.shape[a]
+    n_model = mesh.shape.get("model", 1)
+    if T % G or E % n_model:
+        return moe_apply_scatter(cfg, p, x)
+    Cl = max(-(-_capacity(T, cfg) // G), K)
+    E_loc = E // n_model
+    Tl = T // G
+    xt_all = x.reshape(T, D)
+
+    def token_group(slot: int) -> int:
+        c = mesh.coords(slot)
+        g = 0
+        for a in dp_axes:
+            g = g * mesh.shape[a] + c[a]
+        return g
+
+    slots = list(mesh.local_slots)
+    routed, mine, stats = {}, [], []
+    for slot in slots:
+        dev = mesh.devices.flat[slot]
+        g, me = token_group(slot), mesh.coords(slot).get("model", 0)
+        xt = xt_all[g * Tl:(g + 1) * Tl].to(dev)
+        logits, probs, gate_vals, expert_ids = route(cfg, xt,
+                                                     p["router"].to(dev))
+        flat_e = expert_ids.T.reshape(Tl * K)            # k-major
+        eq = F.one_hot(flat_e, E)
+        pos = torch.gather(torch.cumsum(eq, 0) - eq, 1, flat_e[:, None])[:, 0]
+        keep = pos < Cl
+        slot_of = torch.where(keep, flat_e * Cl + pos,
+                              torch.full_like(pos, E * Cl))
+        token_of = torch.arange(Tl, device=dev).repeat(K)
+        buf = torch.zeros((E * Cl + 1, D), dtype=dt, device=dev).index_copy(
+            0, slot_of, torch.where(keep[:, None], xt[token_of], 0))
+        buf = buf[:-1].reshape(E, Cl, D)
+        mine.append(buf[me * E_loc:(me + 1) * E_loc].contiguous())
+        routed[slot] = (keep, slot_of, gate_vals, g, me, dev)
+        ce = F.one_hot(expert_ids, E).sum(1).to(torch.float32).mean(0)
+        stats.append(torch.stack([
+            E * torch.sum(probs.mean(0) * ce) / K,
+            torch.mean(torch.logsumexp(logits, -1) ** 2),
+            1.0 - keep.to(torch.float32).mean()]))
+
+    # my experts' slices from every token group: (E_loc, G * Cl, D)
+    gathered = col.all_gather_groups(mesh, mine, dp_axes, dim=1)
+    sliced = []
+    for slot, xin in zip(slots, gathered):
+        _, _, _, g, me, dev = routed[slot]
+        experts = slice(me * E_loc, (me + 1) * E_loc)
+        h = torch.bmm(xin, p["w_gate"][experts].to(dev, dt))
+        u = torch.bmm(xin, p["w_up"][experts].to(dev, dt))
+        eo = torch.bmm(F.silu(h) * u, p["w_down"][experts].to(dev, dt))
+        sliced.append(eo.reshape(E_loc, G, Cl, D)[:, g].contiguous())
+    # my token group's slice from every expert owner: (E, Cl, D)
+    every = col.all_gather_groups(mesh, sliced, ("model",), dim=0) \
+        if "model" in mesh.axis_names else sliced
+
+    shards = mesh.shard_slots(dp_axes) if dp_axes else [0]
+    outs = []
+    for slot, eo_all in zip(slots, every):
+        if slot not in shards:
+            continue  # its token group's output is its model-0 twin's
+        keep, slot_of, gate_vals, g, me, dev = routed[slot]
+        picked = eo_all.reshape(E * Cl, D)[torch.clamp(slot_of,
+                                                       max=E * Cl - 1)]
+        contrib = torch.where(keep[:, None],
+                              picked * gate_vals.T.reshape(-1)[:, None].to(dt),
+                              0).reshape(K, Tl, D)
+        out = contrib[0]
+        for k in range(1, K):
+            out = out + contrib[k]
+        outs.append(out)
+    groups = col.exchange(mesh, outs, [mesh.owner(s) for s in shards],
+                          (Tl, D), dt)
+    out = torch.cat([o.to(mesh.home) for o in groups])
+    st = col.pmean(mesh, stats, mesh.axis_names, (3,), torch.float32)
+    if cfg.n_shared_experts:
+        out = out + mlp_mod.mlp_apply("swiglu", p["shared"],
+                                      xt_all.to(mesh.home))
+    metrics = {"moe_lb_loss": st[0], "moe_z_loss": st[1],
+               "moe_drop_frac": st[2]}
+    return out.reshape(B, S, D), metrics
 
 
 def route(cfg, xt: torch.Tensor, router: torch.Tensor):

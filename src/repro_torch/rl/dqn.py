@@ -47,6 +47,15 @@ path reaches the CUDA kernels.  The default, "broadcast", is what the
 reference's DQN always uses.  The ``per-*`` kinds (``per-sharded``
 included) weight the TD loss by their importance weights.
 
+On a process mesh (``make_dqn(cfg, mesh=...)`` with a sharded sampler
+over ``Mesh(..., group=...)``) every rank runs this same program on the
+same keys (SPMD): the env, the Q-net and its Adam are replicated, the
+priority table and the transitions are split over the ranks, and the
+draws and batches reach every rank whole, so every rank's params,
+returns and draws are the same, and equal to the single-process mesh's
+bit for bit.  Such a run is eager (a CUDA-graph capture is refused), and
+``train_ckpt`` saves from rank 0 the dense view every rank builds.
+
 Scheduling counts loop iterations, not frames: ``learn_start``,
 ``train_every``, ``target_sync`` and ``eps_decay_steps`` are iterations,
 each of which collects ``num_envs`` transitions.
@@ -180,8 +189,9 @@ class DQN(NamedTuple):
 def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
     """Build the agent on ``device``.  ``mesh`` (a
     :class:`~repro_torch.distributed.sharding.Mesh`) goes to the sharded
-    sampler kinds, e.g. S shards of the replay on one card; its lead
-    device must be ``device``."""
+    sampler kinds, e.g. S shards of the replay on one card, or a process
+    mesh whose ranks each build this agent (module docstring); its
+    ``home`` device must be ``device``."""
     dev = resolve_device(device)
     env = envs_mod.make_env(cfg.env)
     venv = envs_mod.VectorEnv(env, cfg.num_envs, dev)
@@ -212,8 +222,9 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
     # Compare concrete devices ("cuda" and "cuda:0" are one card).
     if (torch.empty(0, device=sampler.device).device
             != torch.empty(0, device=dev).device):
-        raise ValueError(f"the sampler's (lead) device {sampler.device} is "
-                         f"not the agent's device {dev}")
+        raise ValueError(f"the sampler's (home) device {sampler.device} "
+                         f"is not the agent's device {dev}")
+    process_mesh = mesh is not None and mesh.group is not None
     is_per = cfg.sampler.startswith("per")
     frame_store = (FrameStore(history_len=cfg.history_len,
                               frame_shape=obs_shape, stride=cfg.num_envs,
@@ -462,7 +473,7 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
                    and getattr(sampler, "variant", None) == "fr"
                    and getattr(getattr(sampler, "cfg", None), "fr_mode",
                                None) == "fused")
-    capturable = static_path and dev.type == "cuda"
+    capturable = static_path and dev.type == "cuda" and not process_mesh
 
     class Runner:
         """The step loop of one run of ``n_steps`` from ``key`` (what
@@ -491,6 +502,11 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
                      n_steps: int, capture: bool | None = None,
                      record_idx: bool = False):
             capture = capturable if capture is None else capture
+            if capture and process_mesh:
+                raise ValueError(
+                    "a process mesh runs its steps eagerly: CUDA-graph "
+                    "capture is refused (each rank's collectives cross "
+                    "processes, which a graph cannot replay)")
             if capture and not static_path:
                 raise ValueError(
                     "capture needs sampler 'amper-fr' with amper_fr_mode "
@@ -743,10 +759,16 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
             t = min(n_steps, t + manager.save_interval)
             state = r.advance(t)
             if manager.should_save(t) or t == n_steps:
-                manager.save(t, state._replace(
-                    buffer=rck.dense_view(rb, state.buffer)),
-                    meta={"n_steps": n_steps, "step": t})
-            if manager.preempted and t < n_steps:
+                # every rank of a process mesh builds the dense view (a
+                # collective); rank 0 writes it
+                dense = state._replace(buffer=rck.dense_view(rb, state.buffer))
+                if not process_mesh or mesh.rank == 0:
+                    manager.save(t, dense,
+                                 meta={"n_steps": n_steps, "step": t})
+                if process_mesh:
+                    _barrier(mesh)
+            if _preempted(manager, mesh if process_mesh else None) \
+                    and t < n_steps:
                 break
         return state, r.metrics, t
 
@@ -795,6 +817,25 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
                beta_at=beta_at,
                q_apply=q_apply, example_transition=example_transition,
                init_obs=init_obs)
+
+
+def _barrier(mesh) -> None:
+    import torch.distributed as dist
+
+    dist.barrier(group=mesh.group)
+
+
+def _preempted(manager, mesh) -> bool:
+    """``manager.preempted``, on a process mesh rank 0's reading on every
+    rank (so that all ranks stop at the same step)."""
+    if mesh is None:
+        return manager.preempted
+    import torch.distributed as dist
+
+    flag = [manager.preempted if mesh.rank == 0 else None]
+    dist.broadcast_object_list(flag, src=dist.get_global_rank(mesh.group, 0),
+                               group=mesh.group)
+    return bool(flag[0])
 
 
 def _assign(dst, src) -> None:

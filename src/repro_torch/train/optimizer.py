@@ -10,9 +10,10 @@ donates its state; the returned trees hold the same tensors.
 
 The int8 compressor (``quantize_int8``, ``dequantize_int8``,
 ``ef_compress_tree``) is pure and gives the reference's integers bit for
-bit.  The reference wires it into a cross-pod gradient sync
-(``distributed/collectives.py``), which needs the multi-process mesh
-(ROADMAP A14); here it stands alone.
+bit.  The reference's cross-pod gradient sync
+(``distributed/collectives.py::psum_int8_mean``) uses ``quantize_int8``
+without error feedback, and so does the port's; ``ef_compress_tree``
+stands alone in both packages.
 """
 from __future__ import annotations
 

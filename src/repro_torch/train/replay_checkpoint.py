@@ -5,7 +5,7 @@ Counterpart of ``repro/train/replay_checkpoint.py``, on the generic layer
 
 * **Sampler-state coverage.**  :func:`replay_target` builds the restore
   target from the target buffer's ``init`` on the meta device
-  (:func:`~repro_torch.core.samplers.on_meta` for the sampler),
+  (:meth:`~repro_torch.core.replay_buffer.ReplayBuffer.on_meta`),
   so restore validates a checkpoint against the sampler kind, capacity
   and n-step horizon configured now.
 * **Elastic sharded restore.**  A sharded sampler's per-shard state is
@@ -28,14 +28,11 @@ Counterpart of ``repro/train/replay_checkpoint.py``, on the generic layer
 """
 from __future__ import annotations
 
-import copy
 from typing import Any
-
-import torch
 
 from repro_torch.core.replay_buffer import (ReplayState, dirty_arcs,
                                             rows_to_ranges)
-from repro_torch.core.samplers import abstract_state, on_meta
+from repro_torch.core.samplers import abstract_state
 from repro_torch.train import checkpoint as ck
 
 _U32 = 1 << 32
@@ -105,7 +102,10 @@ def replay_dirty(rb, state: Any, marks: dict, priority_rows=None) -> Any:
 
 def dense_view(rb, state: ReplayState) -> ReplayState:
     """``state`` as a checkpoint stores it: a sharded sampler's per-shard
-    state becomes its dense global table; anything else is unchanged."""
+    state becomes its dense global table, and storage partitioned over a
+    process mesh the whole ring (on every rank); anything else is
+    unchanged."""
+    state = rb.dense(state)
     if hasattr(rb.sampler, "to_dense"):
         return state._replace(
             sampler_state=rb.sampler.to_dense(state.sampler_state))
@@ -114,6 +114,7 @@ def dense_view(rb, state: ReplayState) -> ReplayState:
 
 def from_dense_view(rb, state: ReplayState) -> ReplayState:
     """The inverse of :func:`dense_view` onto ``rb``'s own shards."""
+    state = rb.partition(state)
     if hasattr(rb.sampler, "from_dense"):
         return state._replace(
             sampler_state=rb.sampler.from_dense(*state.sampler_state))
@@ -124,9 +125,7 @@ def replay_target(rb, example_transition: dict) -> ReplayState:
     """The restore target of ``rb``: its ``init`` on the meta device in
     the saved form (:func:`dense_view`): names, shapes, dtypes and the
     host counters, no memory."""
-    meta_rb = copy.copy(rb)
-    meta_rb.device = torch.device("meta")
-    meta_rb.sampler = on_meta(rb.sampler)
+    meta_rb = rb.on_meta()
     return dense_view(meta_rb, meta_rb.init(example_transition))
 
 

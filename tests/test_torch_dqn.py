@@ -298,6 +298,7 @@ def thirty_agent_steps(sampler, agent, n_step, fr_mode, mesh=None,
         jmax_before = np.asarray(js.buffer.max_priority)
         tmax_before = ts.buffer.max_priority.clone()
         arc = [(ts.buffer.pos + j) % kw["replay_size"] for j in range(4)]
+        adds_before = ts.buffer.total_adds
         js_before = js
         js, _ = step(js, jkeys[i])
         ts, tm = tdq.agent_step(ts, tkeys[i])
@@ -369,7 +370,7 @@ def thirty_agent_steps(sampler, agent, n_step, fr_mode, mesh=None,
         if sampler.startswith("amper"):
             explained = _trace_codes(
                 jb.sampler_state.pq, _dense(tb.sampler_state.pq).numpy(),
-                explained, arc if n_step == 1 or pixel else [], tm["idx"],
+                explained, arc[:tb.total_adds - adds_before], tm["idx"],
                 np.asarray(jtd), tm["td"], jmax_before, tmax_before,
                 tdq.cfg.v_max, one_code=not pixel)
         else:
