@@ -137,7 +137,8 @@ F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 SEED = 0
 SHARDS = 4                   # logical shards of the sharded phase, on one card
 PHASES = ("device", "match", "sample", "rank", "graph", "prng", "tcam",
-          "flash", "decode", "fused", "kernel", "sharded", "mesh", "fig9",
+          "flash", "decode", "fused", "kernel", "sharded", "mesh", "spmd",
+          "fig9",
           "launch_budget", "analysis", "examples", "table1", "pixel",
           "resume", "runtime", "serve",
           "lm_train", "lm_zoo", "lm_families", "dryrun")
@@ -1824,7 +1825,7 @@ EXAMPLES_LM_CKPT = os.path.join(ROOT, "build", "examples_lm_ckpt")
 EXAMPLES = (
     ("torch_quickstart", []),
     ("torch_dqn_cartpole", ["--num-envs", "16", "--steps", "400"]),
-    ("torch_lm_train", ["--steps", "20", "--ckpt-dir", EXAMPLES_LM_CKPT]),
+    ("torch_lm_train", ["--steps", "10", "--ckpt-dir", EXAMPLES_LM_CKPT]),
     ("torch_serve_decode", ["--arch", "hymba-1.5b"]),
     ("torch_serve_decode", ["--arch", "rwkv6-7b"]))
 EXAMPLES_TIMEOUT = 300
@@ -4474,8 +4475,27 @@ class LmSweep:
                   for r in results if r["status"] == "error"]
         if errors:
             fail("dryrun", f"the LM sweep's errors: {errors[:3]}")
+        ok = [r for r in results if r["status"] == "ok"]
+        # the sharded program's terms: every ok cell has them, and the
+        # deepseeks went through the shard-map dispatch
+        unset = [f"{r['arch']} x {r['shape']}" for r in ok if None in (
+            r["roofline"]["coll_bytes_per_dev"],
+            r["roofline"]["t_collective_s"],
+            r["memory"]["temp_bytes_per_dev"])]
+        if unset:
+            fail("dryrun", f"the LM sweep left terms unset: {unset[:3]}")
+        scatter = [f"{r['arch']} x {r['shape']}" for r in ok
+                   if r["arch"].startswith("deepseek")
+                   and set(r["moe_dispatch"]) != {"shard_map"}]
+        if scatter:
+            fail("dryrun", f"not through the shard-map dispatch: {scatter}")
+        terms = {f"{r['arch']} x {r['shape']}": {
+            "coll_bytes_per_dev": r["roofline"]["coll_bytes_per_dev"],
+            "t_collective_s": r["roofline"]["t_collective_s"],
+            "temp_bytes_per_dev": r["memory"]["temp_bytes_per_dev"],
+            "bottleneck": r["roofline"]["bottleneck"]} for r in ok}
         return {"cells": len(results),
-                "ok": sum(r["status"] == "ok" for r in results),
+                "ok": len(ok), "sharded_terms": terms,
                 "errors": len(errors),
                 "skips": {f"{r['arch']} x {r['shape']}": r["reason"]
                           for r in results if r["status"] == "skip"},
@@ -4638,12 +4658,12 @@ def phase_dryrun(state: dict, sweep: LmSweep) -> None:
 # ranks load the built libraries.  Every function a rank runs is defined at
 # module level here and imports only torch and the port.
 
-MESH_DQN_STEPS = 300      # (a): agent steps a mode (learn_start 100)
-MESH_DQN_TIMED = 100      # the last of them, timed
+MESH_DQN_STEPS = 200      # (a): agent steps a mode (learn_start 100)
+MESH_DQN_TIMED = 50       # the last of them, timed
 MESH_DQN_RANKS = 2        # (a) and (e): ranks (2 shards each in (a))
 MESH_CELL_RANKS = 4       # (b) and (d): ranks (4 of the 16 shards each)
 MESH_CELL_MODES = ("kernel", "fused")
-MESH_CELL_TIMED = 10      # (b), (c): draws timed a mode
+MESH_CELL_TIMED = 5       # (b), (c): draws timed a mode
 MESH_MOE_ARCH = "deepseek-moe-16b"
 MESH_MOE_TOKENS = (4, 256)
 MESH_MOE_TOL = 1e-5       # (d): atol = rtol against one process
@@ -4982,6 +5002,331 @@ def phase_mesh(state: dict) -> None:
           "phase_s": time.perf_counter() - t_phase})
 
 
+# --- the auto-SPMD side of the mesh (phase ``spmd``) -------------------------
+#
+# DTensor programs under the sharding rules.  (a) and (b) spawn ranks that
+# share the one card over gloo (as phase ``mesh``); (c) runs rank 0 of a fake
+# group of 256 in this process.
+
+SPMD_ARCH, SPMD_LAYERS = "stablelm-1.6b", 2
+SPMD_RANKS = 2             # (a): a 1 x 2 ("data", "model") mesh
+SPMD_TRAIN = (2, 256)      # (a): sequences, tokens of the train step
+SPMD_SERVE = (2, 1024, 8)  # (a): prompts, prompt tokens, decode steps
+SPMD_TOL = 1e-4            # (a): float32, max |err| / max |one process|
+SPMD_MOE_RANKS = 4         # (b): a 2 x 2 mesh
+SPMD_CELL = "prefill_32k"  # (c): stablelm-1.6b's serve cell, full depth
+SPMD_PEAK_RATIO = 2.0      # (c): traced and measured peaks within 2x
+
+
+def spmd_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (float32)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+
+
+def spmd_serve(model, params, prompts, steps, tokens=None) -> tuple:
+    """A prefill of ``prompts`` and ``steps`` decode steps: each step's
+    logits [B, V] (whole), and the tokens fed (greedy on these logits
+    unless ``tokens`` are given)."""
+    from repro_torch.distributed import sharding as shd
+
+    B, S = prompts.shape
+    logits, cache = model.prefill(params, {"tokens": prompts}, S + steps)
+    seen, fed = [], []
+    for i in range(steps + 1):
+        whole = logits.full_tensor() if shd.is_dtensor(logits) else logits
+        seen.append(whole.reshape(B, -1))
+        if i == steps:
+            break
+        tok = (tokens[i] if tokens is not None
+               else whole.reshape(B, -1).argmax(-1, keepdim=True)
+               .to(torch.int32))
+        fed.append(tok)
+        tok = shd.distribute(tok, ("batch", None))
+        logits, cache = model.decode_step(params, tok, cache)
+    return seen, fed
+
+
+def spmd_ranks_dense(rank: int, world: int, dev) -> dict:
+    """(a) on each rank, DTensor's all-gathers routed through c10d's
+    (``launch.mesh.c10d_gathers``: the functional one kills a gloo rank
+    holding CUDA tensors, ``tools/dist_probe.py``)."""
+    from repro_torch.launch.mesh import c10d_gathers
+
+    with c10d_gathers() as avoided:
+        out = spmd_dense_checks(world, dev)
+    out["avoided"] = [f"torch.distributed._functional_collectives.{n}"
+                      for n in avoided]
+    return out
+
+
+def spmd_dense_checks(world: int, dev) -> dict:
+    """(a) on each rank: stablelm-1.6b at full width, ``SPMD_LAYERS``
+    layers, float32 (params and tokens from ``SEED`` on the card, the
+    same on every rank), on a 1 x ``world`` mesh.  Under the training
+    rules: the loss and every gradient of the sharded program against
+    this rank's one-process unsharded run, and one sharded AdamW step
+    keeping every leaf's placements.  Under the serve rules: a prefill
+    and decode steps against the one-process greedy generate's logits,
+    fed its tokens, with the flash and decode kernels' launches."""
+    import dataclasses
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models.model_api import Model
+    from repro_torch.models.qhead import tree_leaves
+    from repro_torch.train import train_step as tts
+    from repro_torch.train.optimizer import AdamW
+
+    cfg = dataclasses.replace(get_config(SPMD_ARCH), n_layers=SPMD_LAYERS,
+                              dtype="float32")
+    model = Model.from_config(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = model.init_params(gen, dev)
+    B, S = SPMD_TRAIN
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous(),
+             "loss_mask": torch.ones((B, S), device=dev)}
+    pb, ps, steps = SPMD_SERVE
+    prompts = torch.randint(0, cfg.vocab_size, (pb, ps), generator=gen,
+                            device=dev, dtype=torch.int32)
+    mesh = make_process_mesh((1, world), ("data", "model"), backend="gloo",
+                             device=dev)
+
+    def grads(p, b):
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
+        loss, _ = model.loss(tts._unflatten_like(p, leaves), b)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    out = {}
+    t0 = time.perf_counter()
+    loss1, g1 = grads(params, batch)
+    rules = shd.ShardingRules(mesh, shd.TRAIN_RULES)
+    with shd.use_rules(rules), implicit_replication():
+        loss, g = grads(shd.distribute_tree(params, model.param_axes()),
+                        tts.shard_batch(batch, rules))
+        g = [x.full_tensor() for x in g]
+        loss = loss.full_tensor()
+    out["tp"] = {"loss": float(loss), "loss_one": float(loss1),
+                 "loss_err": abs(float(loss) - float(loss1))
+                 / abs(float(loss1)),
+                 "grad_err": max(spmd_rel_err(a, b) for a, b in zip(g, g1))}
+    del g, g1
+    opt = AdamW(1e-3)
+    state = tts.TrainState(step=torch.zeros((), dtype=torch.int32,
+                                            device=dev),
+                           params=params, opt_state=opt.init(params))
+    placed = tts.shard_train_state(state, model, opt, rules)
+    before = [tuple(t.placements) for t in tree_leaves(placed)
+              if t is not None]
+    new, met = tts.make_sharded_train_step(model, opt, rules)(
+        placed, tts.shard_batch(batch, rules))
+    out["tp"]["kept_placements"] = before == [
+        tuple(t.placements) for t in tree_leaves(new) if t is not None]
+    out["tp"]["step_loss"] = float(met["loss"].full_tensor())
+    del placed, new, state
+    torch.cuda.synchronize()
+    out["tp"]["s"] = time.perf_counter() - t0
+    # serve: the one-process greedy generate, then the sharded run fed
+    # its tokens
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                               dev)
+    want, fed = spmd_serve(model, params, prompts, steps)
+    rules = shd.ShardingRules(mesh, shd.SERVE_RULES)
+    ops.reset_launches()
+    with shd.use_rules(rules), implicit_replication():
+        got, _ = spmd_serve(model, shd.distribute_tree(
+            params, model.param_axes()), shd.distribute(
+                prompts, ("batch", None)), steps, fed)
+    torch.cuda.synchronize()
+    out["serve"] = {"logit_err": max(spmd_rel_err(a, b)
+                                     for a, b in zip(got, want)),
+                    "finite": all(bool(torch.isfinite(a).all())
+                                  for a in got),
+                    "launches": {k: v for k, v in ops.launches.items() if v},
+                    "s": time.perf_counter() - t0}
+    return out
+
+
+def spmd_moe_grads(mesh) -> dict:
+    """(b) on the 2 x 2 ``mesh``: a deepseek-moe-16b MoE layer at full
+    width (float32 weights, tokens and a loss weight from ``SEED``)
+    through ``moe_apply`` under the training rules, forward and backward:
+    fingerprints of the output, the metrics and every gradient (x, then
+    the params in ``tree_leaves`` order), and ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import common
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.qhead import tree_leaves
+
+    cfg = get_config(MESH_MOE_ARCH)
+    dev = mesh.home
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = common.init_params(gen, moe_mod.moe_specs(cfg, None), dev)
+    x = torch.randn(*MESH_MOE_TOKENS, cfg.d_model, generator=gen, device=dev)
+    w = torch.randn(*MESH_MOE_TOKENS, cfg.d_model, generator=gen, device=dev)
+    leaves = [t.requires_grad_(True) for t in [x] + tree_leaves(params)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with shd.use_rules(shd.ShardingRules(mesh, shd.TRAIN_RULES)):
+        out, m = moe_mod.moe_apply(cfg, params, x)
+        loss = ((out * w).sum() + 0.01 * m["moe_lb_loss"]
+                + 1e-3 * m["moe_z_loss"])
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return {"out": fingerprint(out), "finite": bool(torch.isfinite(
+        out).all()) and all(bool(torch.isfinite(g).all()) for g in grads),
+        "metrics": [fingerprint(v) for v in m.values()],
+        "grads": [fingerprint(g) for g in grads],
+        "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def spmd_ranks_moe(rank: int, world: int, dev) -> dict:
+    """(b) on each rank of a 2 x 2 process mesh."""
+    from repro_torch.launch.mesh import make_process_mesh
+
+    return spmd_moe_grads(make_process_mesh(
+        (2, 2), ("data", "model"), backend="gloo", device=dev))
+
+
+def spmd_production_device() -> dict:
+    """(c): stablelm-1.6b's ``SPMD_CELL`` under the serve rules as rank 0
+    of a fake group of 256, at full depth: the dry run's trace on
+    ``meta`` (arguments + temporaries a device), then the same program on
+    zeros on the card (``dryrun._trace(..., device="cuda")``), its
+    measured peak above the phase's baseline beside the traced one, the
+    flash kernel's launches and its per-device shape, timed."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    prog, mesh, rules, cfg, _ = dryrun.lower_cell(SPMD_ARCH, SPMD_CELL,
+                                                  False)
+    traced = dryrun._trace(prog, cfg, (False, rules.rules))  # on meta
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    shapes = []
+    wrap = ops._fa.flash_attention_cuda
+
+    def seen(q, k, v, *a):
+        shapes.append([tuple(q.shape), tuple(k.shape), str(q.dtype)])
+        return wrap(q, k, v, *a)
+
+    ops._fa.flash_attention_cuda = seen
+    t0 = time.perf_counter()
+    try:
+        q = dryrun._trace(prog, cfg, (False, rules.rules), device="cuda")
+    finally:
+        ops._fa.flash_attention_cuda = wrap
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    measured = torch.cuda.max_memory_allocated() - base
+    launches = {k: v for k, v in ops.launches.items() if v}
+    peak = traced["peak_live_bytes"]
+    ratio = max(measured, peak) / max(min(measured, peak), 1)
+    if ratio > SPMD_PEAK_RATIO:
+        fail("spmd", f"(c) traced peak {peak} B vs measured {measured} B: "
+             f"{ratio:.2f}x")
+    if launches.get("flash_attention") != cfg.n_layers:
+        fail("spmd", f"(c) flash launched {launches}, want {cfg.n_layers}")
+    qs, ks, dt = shapes[0]
+    dtype = getattr(torch, dt.split(".")[-1])
+    qq, kk, vv = (torch.randn(sh, device="cuda", dtype=dtype)
+                  for sh in (qs, ks, ks))
+    ms = device_time_ms(lambda: ops._fa.flash_attention_cuda(
+        qq, kk, vv, True, None, None), calls=10, reps=3)
+    return {"cell": SPMD_CELL, "ranks": 256, "layers": cfg.n_layers,
+            "argument_bytes_per_dev": traced["argument_bytes"],
+            "temp_bytes_per_dev": peak - traced["argument_bytes"],
+            "traced_peak_bytes": peak, "measured_peak_bytes": measured,
+            "card_run_live_peak_bytes": q["peak_live_bytes"],
+            "ratio": ratio, "launches": launches,
+            "collectives": traced["coll_counts"],
+            "flash_per_device": {"q": qs, "k": ks, "dtype": dt, "ms": ms},
+            "run_s": run_s}
+
+
+def phase_spmd(state: dict) -> None:
+    """The sharding rules as DTensor programs: (a) stablelm-1.6b under the
+    training and serve rules on 2 ranks against one process, the flash
+    and decode kernels launched on each rank's heads; (b) a full-width
+    deepseek-moe-16b MoE layer trained through the shard-map dispatch on
+    4 ranks, output and every gradient bit for bit against the
+    single-process 2 x 2 mesh; (c) one production device's program on
+    the card (``spmd_production_device``)."""
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_ranks
+
+    build.build_all()
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dense = run_ranks(spmd_ranks_dense, SPMD_RANKS, backend="gloo",
+                      device="cuda", timeout=MESH_RANK_TIMEOUT)
+    dense_s = time.perf_counter() - t0
+    pb, ps, steps = SPMD_SERVE
+    want = {"flash_attention": SPMD_LAYERS,
+            "decode_attention": SPMD_LAYERS * steps}
+    for r, got in enumerate(dense):
+        tp, sv = got["tp"], got["serve"]
+        if tp["loss_err"] > SPMD_TOL or tp["grad_err"] > SPMD_TOL:
+            fail("spmd", f"(a) rank {r}: tp loss err {tp['loss_err']}, "
+                 f"grad err {tp['grad_err']} > {SPMD_TOL}")
+        if not tp["kept_placements"]:
+            fail("spmd", f"(a) rank {r}: the train step moved a leaf")
+        if not sv["finite"] or sv["logit_err"] > SPMD_TOL:
+            fail("spmd", f"(a) rank {r}: serve logits err {sv['logit_err']}")
+        if sv["launches"] != want:
+            fail("spmd", f"(a) rank {r} launched {sv['launches']}, "
+                 f"want {want}")
+    add_launches(state, {k: v * SPMD_RANKS for k, v in want.items()})
+    t0 = time.perf_counter()
+    one = spmd_moe_grads(Mesh(np.full((2, 2), cuda, dtype=object),
+                              ("data", "model")))
+    torch.cuda.empty_cache()
+    four = run_ranks(spmd_ranks_moe, SPMD_MOE_RANKS, backend="gloo",
+                     device="cuda", timeout=MESH_RANK_TIMEOUT)
+    moe_s = time.perf_counter() - t0
+    if not one["finite"]:
+        fail("spmd", "(b) one process's MoE output or gradients not finite")
+    for r, got in enumerate(four):
+        for k in ("out", "metrics", "grads"):
+            if got[k] != one[k]:
+                fail("spmd", f"(b) rank {r}'s {k} != one process's")
+    prod = spmd_production_device()
+    add_launches(state, prod["launches"])
+    emit({"phase": "spmd", "ok": True, "card": state["smi"],
+          "backend": "gloo (CUDA tensors)",
+          "a_dense": {"arch": SPMD_ARCH, "layers": SPMD_LAYERS,
+                      "dtype": "float32", "mesh": [1, SPMD_RANKS],
+                      "avoided": {"collectives": dense[0]["avoided"],
+                                  "why": "segfaults a gloo rank with CUDA "
+                                         "tensors (tools/dist_probe.py); "
+                                         "c10d all_gather_into_tensor "
+                                         "in its place"},
+                      "train": list(SPMD_TRAIN), "serve": list(SPMD_SERVE),
+                      "tol": SPMD_TOL, "ranks": dense, "spawn_s": dense_s},
+          "b_moe": {"arch": MESH_MOE_ARCH, "tokens": list(MESH_MOE_TOKENS),
+                    "mesh": [2, 2], "bit_identical": True,
+                    "grads_compared": len(one["grads"]),
+                    "ms_one_process": one["ms"],
+                    "ms_ranks": [g["ms"] for g in four], "s": moe_s},
+          "c_production_device": prod,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5014,6 +5359,22 @@ def main(argv=None) -> int:
             sweep.stop()
 
 
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, then a line with the seconds it took."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    emit({"phase_seconds": name, "s": round(time.perf_counter() - t0, 2)})
+    return out
+
+
+def timed_call(fn, *args, **kw):
+    """:func:`timed` under the phase's name: a ``train_phase`` by its
+    second argument, any other by its function name."""
+    name = args[1] if fn is train_phase else fn.__name__.removeprefix(
+        "phase_")
+    return timed(name, fn, *args, **kw)
+
+
 def run_phases(phases, args, sweep: LmSweep | None) -> int:
     """Run the named phases in order and print the closing lines; the LM
     sweep (for ``dryrun``) runs beside the kernel phases."""
@@ -5025,57 +5386,60 @@ def run_phases(phases, args, sweep: LmSweep | None) -> int:
                      ("flash", phase_flash),
                      ("decode", phase_decode)):
         if name in phases:
-            fn(state)
+            timed(name, fn, state)
         if name == "device" and sweep is not None:
             sweep.start()
     if sweep is not None:
-        sweep.wait()
+        timed("dryrun_sweep_wait", sweep.wait)
     trace_dir = args.trace_dir if args.profile else None
     if "fused" in phases:
-        train_phase(state, "fused", 500, {"amper_sample": 1}, trace_dir,
-                    sampler="amper-fr", amper_fr_mode="fused")
+        timed_call(train_phase, state, "fused", 500, {"amper_sample": 1},
+                   trace_dir, sampler="amper-fr", amper_fr_mode="fused")
     if "kernel" in phases:
-        train_phase(state, "kernel", 150, {"multi_query_match": 1}, trace_dir,
-                    sampler="amper-fr", amper_fr_mode="kernel")
+        timed_call(train_phase, state, "kernel", 150,
+                   {"multi_query_match": 1}, trace_dir, sampler="amper-fr",
+                   amper_fr_mode="kernel")
     if "sharded" in phases:
         from repro_torch.distributed.sharding import Mesh
 
         mesh = Mesh([torch.device("cuda", 0)] * SHARDS)
-        train_phase(state, "sharded", 400,
-                    {"multi_query_match": SHARDS, "rank_select": SHARDS},
-                    trace_dir, mesh=mesh, sampler="amper-fr-sharded",
-                    amper_fr_mode="fused")
-        per_sharded_run(mesh)
+        timed_call(train_phase, state, "sharded", 400,
+                   {"multi_query_match": SHARDS, "rank_select": SHARDS},
+                   trace_dir, mesh=mesh, sampler="amper-fr-sharded",
+                   amper_fr_mode="fused")
+        timed_call(per_sharded_run, mesh)
     if "mesh" in phases:
-        phase_mesh(state)
+        timed_call(phase_mesh, state)
+    if "spmd" in phases:
+        timed_call(phase_spmd, state)
     if "fig9" in phases:
-        phase_fig9(state)
+        timed_call(phase_fig9, state)
     if "launch_budget" in phases:
-        phase_launch_budget(state)
+        timed_call(phase_launch_budget, state)
     if "analysis" in phases:
-        phase_analysis(state)
+        timed_call(phase_analysis, state)
     if "examples" in phases:
-        phase_examples(state)
+        timed_call(phase_examples, state)
     if "table1" in phases:
-        phase_table1(state)
+        timed_call(phase_table1, state)
     if "pixel" in phases:
-        phase_pixel(state, trace_dir)
+        timed_call(phase_pixel, state, trace_dir)
     if "resume" in phases:
-        phase_resume(state)
+        timed_call(phase_resume, state)
     if "runtime" in phases:
-        phase_runtime(state)
+        timed_call(phase_runtime, state)
     if "runtime_split" in phases:
-        phase_runtime_split(state)
+        timed_call(phase_runtime_split, state)
     if "serve" in phases:
-        phase_serve(state, trace_dir)
+        timed_call(phase_serve, state, trace_dir)
     if "lm_train" in phases:
-        phase_lm_train(state)
+        timed_call(phase_lm_train, state)
     if "lm_zoo" in phases:
-        phase_lm_zoo(state)
+        timed_call(phase_lm_zoo, state)
     if "lm_families" in phases:
-        phase_lm_families(state)
+        timed_call(phase_lm_families, state)
     if "dryrun" in phases:
-        phase_dryrun(state, sweep)
+        timed_call(phase_dryrun, state, sweep)
     emit({"phase": "profiler", "ok": True, "sessions_a_reading":
           PROFILER_SESSIONS, "retaken": PROFILER_RETAKES})
     rows = []

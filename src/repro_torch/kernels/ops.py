@@ -6,6 +6,10 @@ lie: on the CPU it runs the kernel's plain PyTorch version, on a CUDA
 device it launches the hand-written kernel, and anywhere else it raises.
 There is no fallback: a kernel that fails to build or launch raises.
 
+A DTensor raises: under the sharding rules a kernel runs on each rank's
+blocks inside a ``local_map`` region (``models.attention.head_parallel``),
+never on the global tensor and never through its plain version.
+
 The two attention wrappers also take ``meta`` tensors, the dry run's
 (``launch/dryrun.py``): after the same checks they return an empty
 ``meta`` tensor of the kernel's output shape, run nothing, count no
@@ -95,6 +99,11 @@ def _device_kind(fn: str, tensors, aligned: dict | None = None,
     CUDA) that each tensor of ``aligned`` (``{name: (tensor, bytes)}``)
     starts on its boundary; returns the device type, ``"meta"`` only
     where ``meta`` allows it."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{fn}: got a DTensor; a kernel runs on one rank's "
+                        "blocks (models.attention.head_parallel's local_map)")
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{fn}: tensors on several devices: {devices}")

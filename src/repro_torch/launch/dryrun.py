@@ -1,48 +1,56 @@
-"""Dry run: trace every (arch x shape x mesh) cell's step on ``meta``
-tensors, and draw the paper's own workload, the sharded AMPER-fr sampler
-over a 2^28-row priority table, on the card.
+"""Dry run: trace one device's program of every (arch x shape x mesh)
+cell on ``meta`` tensors, and draw the paper's own workload, the sharded
+AMPER-fr sampler over a 2^28-row priority table, on the card.
 
 Counterpart of ``repro/launch/dryrun.py``, which lowers and compiles each
-cell's jitted step for a TPU pod.  Here each cell builds the REAL step
-(``train_step.make_train_step``, ``Model.prefill`` or
-``Model.decode_step``, as ``launch/train.py`` and ``serving/engine.py``
-run them) and runs it once on empty ``meta`` tensors
-(``abstract_train_state``, ``Model.abstract_params``,
-``Model.input_specs``): no memory is allocated, and the run proves the
-shapes go through, torch's counterpart of ``.lower().compile()``.
-During that run it counts
+cell's jitted step for a TPU pod with ``in_shardings`` from the
+logical-axis rules and reads the per-device program XLA's partitioner
+makes.  Here each cell builds the REAL step (``train_step.make_train_step``,
+``Model.prefill`` or ``Model.decode_step``, as ``launch/train.py`` and
+``serving/engine.py`` run them) and runs it once as rank 0 of a fake
+process group of 256 (512 multi-pod) ranks (``launch/mesh.py::fake_group``):
+its inputs are DTensors on the production mesh placed by the rules
+(``distributed/sharding.py``, the divisible spec of each leaf), each
+rank's block an empty ``meta`` tensor, so no memory is allocated, and
+DTensor's sharding propagation issues the collectives XLA would insert
+(the fake group runs none).  The run proves the shapes go through,
+torch's counterpart of ``.lower().compile()``, and counts rank 0's own
+work:
 
-* FLOPs, by ``torch.utils.flop_counter.FlopCounterMode``.  The trace
-  runs every iteration of a PyTorch loop (the train step's
-  ``chunked_attention``, the rwkv sub-chunks, the selective scan), so
-  none of ``inner_corrections``' terms is added for them; the attention
-  kernels' calls are not in the count (their meta branch computes
-  nothing), and ``hlo_analysis.kernel_call_corrections`` adds their
-  closed form;
-* bytes, each operation's tensor arguments read once and its outputs
-  written once (views and empty allocations move none, an overwrite does
-  not read its target, a scatter writes only its rows): what the step
-  moves run op by op, eagerly;
-* the peak of the live ``meta`` storage bytes of the whole program, its
-  inputs included.
+* FLOPs, by ``torch.utils.flop_counter``'s formulas applied to each op
+  on rank 0's local tensors.  DTensor also runs each op once on
+  global-shaped fake tensors to propagate shapes (and caches that by op
+  signature); those calls are told apart by their ``FakeTensor``
+  arguments and not counted.  The trace runs every iteration of a
+  PyTorch loop, so none of ``inner_corrections``' terms is added for
+  them; the attention kernels' calls (rank 0's heads, their meta branch
+  computing nothing) get ``hlo_analysis.kernel_call_corrections``;
+* bytes, each local operation's tensor arguments read once and its
+  outputs written once (views and empty allocations move none, an
+  overwrite does not read its target, a scatter writes only its rows;
+  collectives move link bytes, counted apart);
+* the collectives, by ``hlo_analysis.record_collectives``: ring-weighted
+  bytes a device by kind (``coll_bytes_per_dev``, ``t_collective_s`` at
+  the H100's NVLink rate);
+* the peak of rank 0's live ``meta`` storage bytes, its inputs included:
+  ``peak_bytes_per_dev``, and ``temp_bytes_per_dev`` = peak - arguments.
 
 Stacks deeper than 12 layers are traced at the reference's two depths
 (``n_dense + 2`` and ``n_dense + 8``) and every count extrapolated
 linearly to the full depth, as the reference extrapolates its analysis
 builds; a train step adds ``n_dense + 5`` and a quadratic, since its
-bytes grow with the square of the depth (``_depths``).  The counts
-are global; the per-device roofline divides them by the mesh's device
-count, and each leaf's per-device argument bytes come from its shard
-shape under the logical-axis rules (``_divisible_sharding``).  The
-collective bytes and ``temp_bytes_per_dev`` need a per-device sharded
-program, which comes with the rules' sharding (ROADMAP A14b): they are
-null until then, with that reason.
+bytes grow with the square of the depth (``_depths``); the peak of live
+bytes is extrapolated on the line through the two deepest traces.  The mesh is part
+of the trace, so a trace is memoized per mesh.  The deepseeks take the
+shard-map MoE dispatch under the rules, as in the reference; a cell
+reports the dispatches its trace ran (``moe_dispatch``).
 
 ``run_amper_cell`` builds the sharded AMPER-fr sampler
 (``core/sharded.py::sharded_sample_fr``) over the production mesh's
 ("pod", "data") shards, 16 of 2^24 rows (or 32 of 2^23 multi-pod), fills
 the table from one seeded generator on ``--device`` and draws a batch of
-65,536 (the LM cells always trace on ``meta``).
+65,536 (the LM cells always trace on ``meta``); a second, traced draw
+records its collectives and its temporary bytes.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-34b --shape train_4k --multi-pod
@@ -65,51 +73,28 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as pytree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch import prng
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.launch import hlo_analysis
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import fake_group, make_production_mesh
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.model_api import SHAPE_CELLS, Model
 from repro_torch.train import train_step as ts_mod
 from repro_torch.train.optimizer import AdamW, cosine_schedule
 
 MAX_TRACED_LAYERS = 12   # deeper stacks: two depths, extrapolated
 AMPER_SEED = 0           # the AMPER cell's table and key
-NULL_UNTIL_MESH = ("needs a per-device sharded program: the rules' "
-                   "sharding, ROADMAP A14b")
-
-
-def _divisible_sharding(rules: shd.ShardingRules, spec_axes,
-                        shape) -> tuple:
-    """The partition spec of a leaf, dropping mesh axes that don't divide
-    the dim.  A spec that lays one mesh axis over two dims raises, as
-    ``jax.sharding.NamedSharding`` refuses it."""
-    parts, used = [], []
-    for i, entry in enumerate(rules.spec(spec_axes)):
-        if entry is None:
-            parts.append(None)
-            continue
-        axes = (entry,) if isinstance(entry, str) else entry
-        total = 1
-        for a in axes:
-            total *= rules.mesh.shape[a]
-        parts.append(entry if shape[i] % total == 0 else None)
-        used += axes if parts[-1] is not None else ()
-    if len(used) != len(set(used)):
-        raise ValueError(f"spec {tuple(parts)} of logical axes "
-                         f"{tuple(spec_axes)} lays a mesh axis over two dims")
-    return tuple(parts)
 
 
 def shard_shape(rules: shd.ShardingRules, spec_axes, shape) -> tuple:
     """One device's block of a leaf of ``shape`` under the rules."""
     out = []
-    for dim, entry in zip(shape, _divisible_sharding(rules, spec_axes,
-                                                     shape)):
+    for dim, entry in zip(shape, rules.divisible_spec(spec_axes,
+                                                      tuple(shape))):
         axes = () if entry is None else (
             (entry,) if isinstance(entry, str) else entry)
         for a in axes:
@@ -170,6 +155,11 @@ def _tensors(tree) -> list[torch.Tensor]:
     return [t for t in pytree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
+def _locals(tree) -> list[torch.Tensor]:
+    """The tensors of a tree, each DTensor as this rank's block."""
+    return [t.to_local() if shd.is_dtensor(t) else t for t in _tensors(tree)]
+
+
 def _moved_bytes(func, args, kwargs, outs) -> int:
     """Bytes one op reads and writes: each tensor argument read once and
     each output written once; a view or an empty allocation moves none,
@@ -187,15 +177,21 @@ def _moved_bytes(func, args, kwargs, outs) -> int:
 
 
 class _Trace(TorchDispatchMode):
-    """Bytes moved and live storage bytes over the ops dispatched inside
-    it.  A storage is live from the op that makes it until its last
-    tensor is gone (autograd's saved tensors included: a storage's
-    Python object lives as long as its storage); ``inputs`` are live
-    from the start."""
+    """FLOPs, bytes moved and live storage bytes over the ops dispatched
+    inside it on plain tensors: a DTensor op is left to DTensor, whose
+    local ops come back here, and an op on or making ``FakeTensor``s
+    (DTensor's shape propagation) is run uncounted.  A storage is live from the op
+    that makes it until its last tensor is gone (autograd's saved
+    tensors included: a storage's Python object lives as long as its
+    storage); ``inputs`` are live from the start.  Collectives move no
+    memory bytes here: each goes to ``record`` (when given) as
+    ``hlo_analysis.record_collectives`` records it."""
 
-    def __init__(self, inputs):
+    def __init__(self, inputs, record: list | None = None):
         super().__init__()
         self.live = self.peak = self.bytes = 0
+        self.flops = 0
+        self.record = record  # collectives, as hlo_analysis records them
         self._storages: dict = {}
         for t in inputs:
             self._track(t)
@@ -216,12 +212,28 @@ class _Trace(TorchDispatchMode):
         self._storages.pop(key, None)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         outs = _tensors(out)
+        if any(isinstance(t, FakeTensor) for t in _tensors((args, kwargs))
+               + outs):
+            return out
         for t in outs:
             self._track(t)
+        if hlo_analysis.is_collective(func):
+            entry = hlo_analysis.collective_entry(func, out)
+            if entry is not None and self.record is not None:
+                self.record.append(entry)
+            return out
         self.bytes += _moved_bytes(func, args, kwargs, outs)
+        count = flop_registry.get(func.overloadpacket)
+        if count is not None:
+            self.flops += count(*args, **kwargs, out_val=out)
         return out
 
 
@@ -280,17 +292,71 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
     return prog, mesh, rules, cfg, model_flops
 
 
-def _trace(prog: Program, cfg) -> dict:
-    """Run ``prog`` once on its meta inputs; the global counts."""
-    inputs = _tensors(prog.args)
-    with FlopCounterMode(display=False) as fc, \
-            ops.record_meta_calls() as calls, _Trace(inputs) as tr:
-        prog.fn(*prog.args)
+def _count(fn: Callable, args: tuple, cfg) -> dict:
+    """Run ``fn(*args)`` once; this rank's counts."""
+    inputs = _locals(args)
+    before = dict(moe_mod.dispatches)
+    from repro_torch.distributed import collectives as col
+
+    record: list = []
+    with ops.record_meta_calls() as calls, col.record() as notes, \
+            _Trace(inputs, record) as tr:
+        fn(*args)
+    record += notes
     corr = hlo_analysis.kernel_call_corrections(cfg, calls)
-    return {"flops": float(fc.get_total_flops()), "bytes": float(tr.bytes),
+    coll = hlo_analysis.collective_bytes(record)
+    return {"flops": float(tr.flops), "bytes": float(tr.bytes),
             "peak_live_bytes": float(tr.peak),
+            "argument_bytes": float(sum(_nbytes(t) for t in inputs)),
             "correction_flops": corr["flops"],
-            "correction_bytes": corr["bytes"], "terms": corr["terms"]}
+            "correction_bytes": corr["bytes"], "terms": corr["terms"],
+            "coll_counts": coll.counts, "coll_bytes": coll.bytes_by_kind,
+            "moe_dispatch": {k: moe_mod.dispatches[k] - before[k]
+                             for k in before
+                             if moe_mod.dispatches[k] != before[k]}}
+
+
+def _materialize(tree, device):
+    """Each DTensor leaf's meta block as zeros on ``device`` (a card: rank
+    0's real program)."""
+    from torch.distributed.tensor import DTensor
+
+    def real(_, t):
+        if not shd.is_dtensor(t):
+            return t
+        local = torch.zeros(t.to_local().shape, dtype=t.dtype, device=device)
+        return DTensor.from_local(local, t.device_mesh, t.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    return shd._tree_zip(real, tree, tree)
+
+
+def _trace(prog: Program, cfg, sharding: tuple | None = None,
+           device="meta") -> dict:
+    """Run ``prog`` once on its meta inputs.  ``sharding=(multi_pod,
+    rules)`` (a rule dict, ``shd.RULE_PRESETS``' values) runs it as rank
+    0 of the production mesh's fake group, each input placed by its axes
+    under the rules, and counts rank 0's work; None runs it whole, on
+    one device.  A sharded run on another ``device`` (a card) runs rank
+    0's program there on zeros: its kernels launch on rank 0's blocks
+    and its memory is real (the fake collectives write nothing, so the
+    values are not)."""
+    if sharding is None:
+        return _count(prog.fn, prog.args, cfg)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    multi_pod, rule_map = sharding
+    with fake_group(512 if multi_pod else 256) as group:
+        mesh = make_production_mesh(multi_pod=multi_pod, device=device,
+                                    group=group)
+        rules = shd.ShardingRules(mesh, rule_map)
+        args = tuple(shd.distribute_tree(a, ax, rules)
+                     for a, ax in zip(prog.args, prog.axes))
+        if torch.device(device).type != "meta":
+            args = tuple(_materialize(a, device) for a in args)
+        with shd.use_rules(rules), implicit_replication():
+            return _count(prog.fn, args, cfg)
 
 
 def _depths(cfg, kind: str) -> list[int]:
@@ -320,20 +386,24 @@ def _extrapolate(points: dict, at: int):
     return total
 
 
-def _traced_quantities(arch, shape, cfg, cfg_overrides, rules_preset,
-                       traces: dict | None) -> dict:
-    """The global counts of one cell at full depth: one trace, or the
-    traces at ``_depths`` extrapolated.  ``traces`` memoizes them across
-    meshes (the trace does not depend on the mesh)."""
+_DICTS = ("terms", "coll_counts", "coll_bytes", "moe_dispatch")  # per name
+
+
+def _traced_quantities(arch, shape, multi_pod, cfg, cfg_overrides,
+                       rules_preset, traces: dict | None) -> dict:
+    """Rank 0's counts of one cell at full depth: one trace, or the
+    traces at ``_depths`` extrapolated.  ``traces`` memoizes them by
+    cell, depth and mesh."""
     depths = _depths(cfg, SHAPE_CELLS[shape].kind)
     qs = {}
     for depth in depths:
-        key = (arch, shape, depth, repr(sorted((cfg_overrides or {}).items())))
+        key = (arch, shape, depth, repr(sorted((cfg_overrides or {}).items())),
+               multi_pod, rules_preset)
         if traces is None or key not in traces:
-            prog, _, _, dcfg, _ = lower_cell(
-                arch, shape, False, {**(cfg_overrides or {}),
-                                     "n_layers": depth}, rules_preset)
-            q = _trace(prog, dcfg)
+            prog, _, rules, dcfg, _ = lower_cell(
+                arch, shape, multi_pod, {**(cfg_overrides or {}),
+                                         "n_layers": depth}, rules_preset)
+            q = _trace(prog, dcfg, (multi_pod, rules.rules))
             if traces is not None:
                 traces[key] = q
         else:
@@ -343,19 +413,28 @@ def _traced_quantities(arch, shape, cfg, cfg_overrides, rules_preset,
     if depths == [L]:
         return {**qs[L], "depths": depths}
     out = {k: float(_extrapolate({d: q[k] for d, q in qs.items()}, L))
-           for k in qs[depths[0]] if k != "terms"}
-    names = set().union(*(q["terms"] for q in qs.values()))
-    out["terms"] = {k: round(_extrapolate(
-        {d: q["terms"].get(k, 0) for d, q in qs.items()}, L))
-        for k in names}
+           for k in qs[depths[0]] if k not in _DICTS}
+    # a peak is the largest of terms linear in the depth: past the
+    # shallowest trace, where another term may lead, it grows on a line
+    out["peak_live_bytes"] = float(_extrapolate(
+        {d: qs[d]["peak_live_bytes"] for d in depths[-2:]}, L))
+    for name in _DICTS:
+        keys = set().union(*(q[name] for q in qs.values()))
+        out[name] = {k: _extrapolate({d: q[name].get(k, 0)
+                                      for d, q in qs.items()}, L)
+                     for k in keys}
+        if name != "coll_bytes":
+            out[name] = {k: round(v) for k, v in out[name].items()}
+        else:
+            out[name] = {k: float(v) for k, v in out[name].items()}
     return {**out, "depths": depths}
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool,
              cfg_overrides: dict | None = None, rules_preset: str = "tp",
              traces: dict | None = None) -> dict:
-    """Trace one cell (see the module docstring) and report its memory,
-    FLOPs, corrections and roofline; ``traces`` as
+    """Trace one cell (see the module docstring) and report rank 0's
+    memory, FLOPs, corrections, collectives and roofline; ``traces`` as
     ``_traced_quantities``."""
     t0 = time.perf_counter()
     out = {"arch": arch, "shape": shape,
@@ -372,26 +451,25 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
         arg_bytes = sum(tree_shard_bytes(rules, a, t)
                         for a, t in zip(prog.axes, prog.args))
         global_args = sum(_nbytes(t) for t in _tensors(prog.args))
-        q = _traced_quantities(arch, shape, cfg, cfg_overrides,
+        q = _traced_quantities(arch, shape, multi_pod, cfg, cfg_overrides,
                                rules_preset, traces)
-        roof = hlo_analysis.Roofline(
-            flops=(q["flops"] + q["correction_flops"]) / n_dev,
-            bytes_accessed=(q["bytes"] + q["correction_bytes"]) / n_dev,
-            coll_bytes_per_dev=None, n_devices=n_dev,
-            model_flops=model_flops)
+        report = hlo_analysis.analyze(
+            {"flops": q["flops"], "bytes": q["bytes"],
+             "collectives": hlo_analysis.CollectiveStats(q["coll_counts"],
+                                                         q["coll_bytes"]),
+             "argument_bytes": arg_bytes,
+             "peak_live_bytes": q["peak_live_bytes"]},
+            n_dev, model_flops, corrections={"flops": q["correction_flops"],
+                                             "bytes": q["correction_bytes"]})
         out.update(
             status="ok", trace_s=round(time.perf_counter() - t0, 2),
             traced_depths=q["depths"],
-            memory={
-                "argument_bytes_per_dev": arg_bytes,
-                "output_bytes_per_dev": None,
-                "temp_bytes_per_dev": None,
-                "peak_bytes_per_dev": None,
-                "argument_bytes": global_args,
-                "peak_live_bytes": q["peak_live_bytes"],
-            },
-            null_reason=NULL_UNTIL_MESH,
-            roofline=roof.as_dict(),
+            memory={**report["memory"],
+                    "argument_bytes": global_args,
+                    "peak_live_bytes": q["peak_live_bytes"]},
+            roofline=report["roofline"],
+            collectives=report["collectives"],
+            moe_dispatch=q["moe_dispatch"],
             traced_flops=q["flops"], traced_bytes=q["bytes"],
             correction_flops=q["correction_flops"],
             correction_bytes=q["correction_bytes"],
@@ -469,7 +547,10 @@ def run_amper_cell(multi_pod: bool, table_log2: int = 28,
     ``device`` over the production mesh's shards.  ``compile_s`` is the
     seconds to build the sampler and its table plus the first draw;
     memory and the roofline are per shard (one shard a device of the
-    reference's mesh): its table read once."""
+    reference's mesh): its table read once.  A second draw, traced,
+    records the collectives (each one's result bytes on one shard) and
+    the peak of the draw's live storage above its inputs, over the
+    shards: ``temp_bytes_per_dev``."""
     out = {"arch": "amper-replay", "shape": f"sample_2^{table_log2}",
            "mesh": "2x16x16" if multi_pod else "16x16"}
     t0 = time.perf_counter()
@@ -482,18 +563,26 @@ def run_amper_cell(multi_pod: bool, table_log2: int = 28,
         n_local = cell.pq[0].shape[0]
         shard_bytes = n_local * (cell.pq[0].element_size()
                                  + cell.valid[0].element_size())
-        roof = hlo_analysis.Roofline(flops=0.0, bytes_accessed=shard_bytes,
-                                     coll_bytes_per_dev=None,
-                                     n_devices=cell.n_shards)
+        inputs = [*cell.pq, *cell.valid, cell.key]
+        with hlo_analysis.record_collectives() as record, \
+                _Trace(inputs) as tr:  # the draw's collectives: the port's
+            again = cell.draw(cell.pq, cell.valid, cell.key)
+        if not torch.equal(again, idx):
+            raise RuntimeError("the traced draw differs from the first")
+        temp = (tr.peak - sum(_nbytes(t) for t in inputs)) / cell.n_shards
+        report = hlo_analysis.analyze(
+            {"flops": 0.0, "bytes": float(shard_bytes), "collectives": record,
+             "argument_bytes": shard_bytes,
+             "peak_live_bytes": shard_bytes + temp}, cell.n_shards)
         out.update(
             status="ok", compile_s=round(compile_s, 2),
             device=str(cell.pq[0].device), fr_mode=cell.cfg.fr_mode,
             n_shards=cell.n_shards, rows_per_shard=n_local, batch=batch,
             draw_index_range=[lo, hi],
-            memory={"argument_bytes_per_dev": shard_bytes,
-                    "table_bytes": shard_bytes * cell.n_shards,
-                    "temp_bytes_per_dev": None},
-            null_reason=NULL_UNTIL_MESH, roofline=roof.as_dict())
+            memory={**report["memory"],
+                    "table_bytes": shard_bytes * cell.n_shards},
+            roofline=report["roofline"],
+            collectives=report["collectives"])
         if not 0 <= lo <= hi < n_local * cell.n_shards:
             out.update(status="error",
                        error=f"draw outside the table: [{lo}, {hi}]")

@@ -1,21 +1,24 @@
 """Roofline terms of the dry run's traced programs.
 
 Counterpart of ``repro/launch/hlo_analysis.py``, which reads compiled XLA
-programs (HLO).  The port has no HLO: ``launch/dryrun.py`` traces each
-PyTorch step on ``meta`` tensors and counts its FLOPs
-(``torch.utils.flop_counter``) and the bytes each operation reads and
-writes; this module turns those counts into the roofline.
+programs (HLO).  The port has no HLO: ``launch/dryrun.py`` runs each
+PyTorch step as one device's DTensor program on ``meta`` tensors and
+counts its FLOPs, the bytes each operation reads and writes and the
+collectives it issues; this module turns those counts into the roofline.
 
 * :class:`Roofline` takes the card's rates as fields, the H100's by
-  default (``H100_PEAK_FLOPS_BF16``, ``H100_HBM_BW``: the data sheet's
-  dense bf16 rate and memory rate at 700 W), where the reference fixes
+  default (``H100_PEAK_FLOPS_BF16``, ``H100_HBM_BW``,
+  ``H100_NVLINK_BW``: data-sheet constants), where the reference fixes
   TPU v5e's.
-* The collective term is null: the reference parses it from the sharded
-  program's collectives (``collective_bytes``), and the port traces no
-  program sharded by the rules yet (ROADMAP A14b).  The
-  reference's ``analyze`` reads a compiled executable and has no
-  counterpart either; the dry run builds its reports with
-  :class:`Roofline`.
+* :func:`record_collectives` records the collectives a program issues:
+  DTensor's (the ``_c10d_functional`` ops and DTensor's all-to-all, each
+  with its result's bytes) and the port's own
+  (``distributed/collectives.py``, the shard-map MoE dispatch's), under
+  the reference's kinds; :func:`collective_bytes` weighs them by the
+  reference's ring factors (``_TRAFFIC_FACTOR``) into one device's wire
+  bytes, as the reference sums them from the HLO text.
+* :func:`analyze` builds one cell's report from a trace's counts, as
+  the reference's reads a compiled executable.
 * ``_avg_kv``, ``inner_corrections``, ``analytic_model_flops`` and
   ``active_params`` are the reference's closed forms, verbatim;
   :func:`kernel_call_corrections` applies ``inner_corrections``'
@@ -24,20 +27,136 @@ writes; this module turns those counts into the roofline.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # --- NVIDIA H100 SXM per-card constants (data sheet, at 700 W) ---
 H100_PEAK_FLOPS_BF16 = 989e12   # FLOP/s, dense bf16 on the tensor cores
 H100_HBM_BW = 3.35e12           # B/s
+# NVLink 4: the data sheet's 900 GB/s counts both directions; a ring
+# collective sends each of its bytes one way
+H100_NVLINK_BW = 450e9          # B/s, one direction
+
+_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                "collective-permute")
+# ring traffic factor x result bytes (per-device bytes on the wire), the
+# reference's
+_TRAFFIC_FACTOR = {
+    "all-reduce": 2.0,          # reduce-scatter + all-gather
+    "all-gather": 1.0,          # output bytes ~ gathered size
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
+    "collective-permute": 1.0,
+}
+# torch's collective ops -> the reference's kinds
+_OP_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+    "broadcast": "collective-permute", "broadcast_": "collective-permute",
+}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
+                          "_dtensor", "c10d")
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    counts: dict
+    bytes_by_kind: dict
+
+    @property
+    def total_bytes(self) -> float:
+        return sum(self.bytes_by_kind.values())
+
+
+def collective_bytes(record) -> CollectiveStats:
+    """One device's collective traffic from a record of ``(kind, result
+    bytes)`` entries (:func:`record_collectives`): the count of each
+    kind and its bytes weighted by the ring factor, as the reference
+    sums its HLO text's collectives."""
+    counts: dict = {}
+    by_kind: dict = {}
+    for kind, nbytes in record:
+        counts[kind] = counts.get(kind, 0) + 1
+        by_kind[kind] = (by_kind.get(kind, 0.0)
+                         + nbytes * _TRAFFIC_FACTOR[kind])
+    return CollectiveStats(counts=counts, bytes_by_kind=by_kind)
+
+
+def is_collective(func) -> bool:
+    """True for a torch collective op (those :func:`record_collectives`
+    counts, and their waits)."""
+    return func.namespace in _COLLECTIVE_NAMESPACES
+
+
+def _nbytes(out) -> int:
+    if isinstance(out, torch.Tensor):
+        return out.numel() * out.element_size()
+    if isinstance(out, (list, tuple)):
+        return sum(_nbytes(t) for t in out)
+    return 0
+
+
+def collective_entry(func, out):
+    """``(kind, result bytes)`` of a torch collective op and its output,
+    or None for any other op."""
+    if not is_collective(func):
+        return None
+    kind = _OP_KINDS.get(func._schema.name.split("::")[-1])
+    return None if kind is None else (kind, _nbytes(out))
+
+
+class _Collectives(TorchDispatchMode):
+    """Each collective op on plain (local) tensors -> one record entry;
+    DTensor ops are left to DTensor, which issues them."""
+
+    def __init__(self, record: list):
+        super().__init__()
+        self.record = record
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        entry = collective_entry(func, out)
+        if entry is not None:
+            self.record.append(entry)
+        return out
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Yield a list that fills with one ``(kind, result bytes)`` entry per
+    collective issued inside the block: each torch collective op (what
+    DTensor's redistributions issue) and each collective of
+    ``distributed/collectives.py``."""
+    from repro_torch.distributed import collectives as col
+
+    record: list = []
+    with col.record() as notes, _Collectives(record):
+        yield record
+        record.extend(notes)
 
 
 @dataclasses.dataclass
 class Roofline:
-    """All quantities are PER-DEVICE (the dry run divides the traced
-    global counts by the mesh's device count).  ``coll_bytes_per_dev``
-    is None until the port has a sharded program (ROADMAP A14b); then
-    ``link_bw`` rates it."""
+    """All quantities are PER-DEVICE: the dry run traces one device's
+    DTensor program (rank 0's).  ``link_bw`` rates
+    ``coll_bytes_per_dev``; without either, the collective term is
+    left out."""
 
     flops: float                  # per-device traced flops (+ corrections)
     bytes_accessed: float         # per-device bytes read and written
@@ -46,7 +165,7 @@ class Roofline:
     model_flops: Optional[float] = None   # 6*N*D analytic (GLOBAL)
     peak_flops: float = H100_PEAK_FLOPS_BF16
     hbm_bw: float = H100_HBM_BW
-    link_bw: Optional[float] = None
+    link_bw: Optional[float] = H100_NVLINK_BW
 
     @property
     def t_compute(self) -> float:
@@ -101,6 +220,37 @@ class Roofline:
             "useful_flop_ratio": self.useful_flop_ratio,
             "roofline_fraction": self.mfu_bound,
         }
+
+
+def analyze(counts: dict, n_devices: int, model_flops: Optional[float] = None,
+            corrections: Optional[dict] = None) -> dict:
+    """One cell's report from one device's counts (``flops``, ``bytes``,
+    ``collectives``: a record of :func:`record_collectives` or its
+    :class:`CollectiveStats`, and optionally ``argument_bytes``,
+    ``peak_live_bytes`` and ``output_bytes``), as the reference's
+    ``analyze`` reads a compiled executable; ``corrections`` are that
+    device's ``{flops, bytes}`` the trace cannot see (the attention
+    kernels')."""
+    corr = corrections or {"flops": 0.0, "bytes": 0.0}
+    coll = counts["collectives"]
+    if not isinstance(coll, CollectiveStats):
+        coll = collective_bytes(coll)
+    roof = Roofline(flops=counts["flops"] + corr["flops"],
+                    bytes_accessed=counts["bytes"] + corr["bytes"],
+                    coll_bytes_per_dev=coll.total_bytes,
+                    n_devices=n_devices, model_flops=model_flops)
+    out = {"roofline": roof.as_dict(),
+           "traced_flops": counts["flops"],
+           "correction_flops": corr["flops"],
+           "collectives": {"counts": coll.counts,
+                           "bytes_by_kind": coll.bytes_by_kind}}
+    if "peak_live_bytes" in counts:
+        arg, peak = counts["argument_bytes"], counts["peak_live_bytes"]
+        out["memory"] = {"argument_bytes_per_dev": arg,
+                         "output_bytes_per_dev": counts.get("output_bytes"),
+                         "temp_bytes_per_dev": peak - arg,
+                         "peak_bytes_per_dev": peak}
+    return out
 
 
 def _avg_kv(S: int, window) -> float:

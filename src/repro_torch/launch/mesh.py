@@ -7,6 +7,9 @@ reference's axes and shape (16 x 16 chips a pod, 2 pods), with every
 slot on the given device, so the dry run reads its shard counts and the
 sharded replay runs its 256 or 512 logical shards on one card.
 
+:func:`fake_group` opens a fake default group of 256 or 512 ranks, and
+``make_production_mesh(group=...)`` lays the production mesh over it,
+one slot a rank, for one device's DTensor program (``launch/dryrun.py``).
 :func:`make_process_mesh` lays any of these layouts over the initialized
 default ``torch.distributed`` group instead: rank r holds a row-major
 block of the slots, on its own device.  :func:`run_ranks` starts R such ranks
@@ -16,6 +19,7 @@ raises with the traceback of a rank that raised.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import queue
@@ -31,13 +35,116 @@ from repro_torch import resolve_device
 from repro_torch.distributed.sharding import Mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device="cuda",
+                         group=None) -> Mesh:
     """16x16 = 256 slots per pod; 2 pods = 512 slots multi-pod, every
-    slot on ``device``."""
+    slot on ``device``.  With ``group`` (a process group of 256 or 512
+    ranks, such as :func:`fake_group`'s), a process mesh with one slot
+    a rank, whose :meth:`~Mesh.device_mesh` the sharding rules place
+    DTensors on."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     dev = resolve_device(device)
-    return Mesh(np.full(shape, dev, dtype=object), axes)
+    return Mesh(np.full(shape, dev, dtype=object), axes, group=group)
+
+
+@contextlib.contextmanager
+def fake_group(world: int, rank: int = 0):
+    """Open a default process group of ``world`` ranks in which this
+    process is rank ``rank`` and every collective is fake: it returns
+    at once and writes nothing, so one process runs one device's program
+    of a production mesh (the dry run's).  Yields ``dist.group.WORLD``.
+
+    The group is torch's test-suite fake backend (backend ``"fake"``,
+    registered by the private module
+    ``torch.testing._internal.distributed.fake_pg`` with its
+    ``FakeStore``).  A default group this process already holds is set
+    aside while the block runs and put back after, and the fake one is
+    destroyed on leaving, so it never reaches :func:`run_ranks` or
+    another caller."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    held = _set_aside_groups() if dist.is_initialized() else None
+    try:
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=world)
+        try:
+            yield dist.group.WORLD
+        finally:
+            dist.destroy_process_group()
+    finally:
+        if held is not None:
+            _put_back_groups(held)
+
+
+@contextlib.contextmanager
+def c10d_gathers():
+    """Route DTensor's all-gathers (``torch.distributed.
+    _functional_collectives.all_gather_single`` and, in older torch,
+    ``all_gather_tensor``) through c10d's ``all_gather_into_tensor`` for
+    the block.  On ``gloo`` with CUDA tensors the functional op kills
+    its rank (a segfault in torch 2.11, ``tools/dist_probe.py``) where
+    c10d's call works; the result is the same tensor, made eagerly (not
+    traceable, and counted by no dispatch mode as a collective)."""
+    import torch.distributed as dist
+    import torch.distributed.distributed_c10d as c10d
+    from torch.distributed import _functional_collectives as fc
+
+    def gather(self, gather_dim: int, group, tag: str = ""):
+        pg = c10d._resolve_process_group(fc._resolve_group_name(group, tag))
+        n = dist.get_world_size(pg)
+        x = self.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=pg)
+        return out if gather_dim == 0 else torch.cat(out.chunk(n), gather_dim)
+
+    names = [n for n in ("all_gather_single", "all_gather_tensor")
+             if hasattr(fc, n)]
+    held = {n: getattr(fc, n) for n in names}
+    try:
+        for n in names:
+            setattr(fc, n, gather)
+        yield names
+    finally:
+        for n, fn in held.items():
+            setattr(fc, n, fn)
+
+
+# c10d's module-level group tables (a default group's destruction clears
+# them, and the registry of group names)
+_C10D_TABLES = ("_pg_map", "_pg_names", "_pg_group_ranks",
+                "_pg_backend_config", "_tags_to_pg", "_pg_to_tag")
+
+
+def _set_aside_groups() -> dict:
+    """Take this process's groups out of c10d's tables (fresh empty ones
+    in their place) and return them for :func:`_put_back_groups`."""
+    import torch.distributed.distributed_c10d as c10d
+
+    held = {name: getattr(c10d, name) for name in _C10D_TABLES}
+    held["default"] = c10d._world.default_pg
+    held["count"] = c10d._world.group_count  # the fake group's names follow
+    for name in _C10D_TABLES:
+        setattr(c10d, name, type(held[name])())
+    c10d._world.default_pg = None
+    return held
+
+
+def _put_back_groups(held: dict) -> None:
+    """Restore the tables :func:`_set_aside_groups` took, and the group
+    names' registry the fake group's destruction cleared."""
+    import torch.distributed.distributed_c10d as c10d
+    from torch._C import _distributed_c10d as cc
+
+    for name in _C10D_TABLES:
+        setattr(c10d, name, held[name])
+    c10d._world.default_pg = held["default"]
+    c10d._world.group_count = held["count"]
+    for pg, name in held["_pg_names"].items():
+        with contextlib.suppress(RuntimeError):  # absent already
+            cc._unregister_process_group(name)
+        cc._register_process_group(name, pg)
 
 
 def _visible(device) -> list[torch.device]:

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import merge_dims, split_dim
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import make_mask_fn
 from repro_torch.models import common
@@ -54,6 +55,114 @@ def kernel_window(window):
     """A layer's window as the kernels take it: None for none, and for
     ``GLOBAL_WINDOW``, which hides no key of any sequence they take."""
     return None if window is None or window >= GLOBAL_WINDOW else window
+
+
+def head_parallel(fn: Callable, q, k, v, *extra):
+    """``fn(q, k, v, *extra)``, or, when q is a DTensor (a program under
+    the sharding rules), ``fn`` on each rank's own heads in a
+    ``local_map`` region: q, k and v [B, H, S, D] split over the rules'
+    "batch" and "heads" axes where they divide (k and v redistributed
+    to that split, an all-to-all for a cache whose "kv_seq" the serve
+    rules split), each rank runs ``fn`` (the kernel, or the chunked
+    route) on its block, and the output [B, Hq, S, Dv] comes back split
+    as q.  Where Hkv does not split as Hq does, k and v are replicated
+    over the head axes and each rank takes the kv heads of its q heads;
+    where that leaves a rank part of a kv head's group, the heads are
+    not split.  ``extra`` tensors (``cur_len``) enter replicated."""
+    from repro_torch.distributed import sharding as shd
+
+    if not shd.is_dtensor(q):
+        return fn(q, k, v, *extra)
+    from torch.distributed.tensor import Replicate
+
+    rules = shd.active_rules()
+    mesh = q.device_mesh
+    Hq, Hkv = q.shape[1], k.shape[1]
+    g = Hq // Hkv
+    qspec = rules.divisible_spec(("batch", "heads", None, None), q.shape)
+    kv_split = qspec[1] is not None and rules.divisible_spec(
+        ("batch", "heads", None, None), k.shape)[1] == qspec[1]
+    if qspec[1] is not None and not kv_split:
+        n = Hq // shd.local_block(mesh, rules.placements(qspec), 1, Hq)[1]
+        hl = Hq // n
+        if hl % g and g % hl:   # a rank would hold part of two groups
+            qspec = (qspec[0], None, None, None)
+    q_pl = rules.placements(qspec)
+    kv_pl = rules.placements(qspec if kv_split else
+                             (qspec[0], None, None, None))
+
+    def local(ql, kl, vl, *ex):
+        if qspec[1] is not None and not kv_split:
+            off = shd.local_block(mesh, q_pl, 1, Hq)[0]
+            lo, hi = off // g, (off + ql.shape[1] - 1) // g + 1
+            kl, vl = kl[:, lo:hi].contiguous(), vl[:, lo:hi].contiguous()
+        return fn(ql, kl, vl, *ex)
+
+    rep = (Replicate(),) * mesh.ndim
+    return shd.region(local, mesh, (q, k, v, *extra),
+                      (q_pl, kv_pl, kv_pl) + (rep,) * len(extra), (q_pl,))
+
+
+def write_at(cache, dim: int, pos: torch.Tensor, new):
+    """``cache.index_copy_(dim, [pos], new)`` with ``pos`` an int32 scalar
+    on the card (no host sync): one position of a cache written in
+    place.  On a DTensor cache split along ``dim`` (the serve rules'
+    "kv_seq"), ``new`` is replicated along it and each rank writes the
+    position only if its block holds it."""
+    from repro_torch.distributed import sharding as shd
+
+    if not shd.is_dtensor(cache):
+        return cache.index_copy_(dim, pos.reshape(1).to(torch.int64), new)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    new_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
+                   else p for p in pl)
+    off, size = shd.local_block(mesh, pl, dim, cache.shape[dim])
+
+    def local(c, n, p):
+        at = p.reshape(1).to(torch.int64) - off
+        inside = ((at >= 0) & (at < size)).reshape((1,) * c.ndim)
+        at = at.clamp(0, size - 1)
+        return c.index_copy_(dim, at, torch.where(
+            inside, n, c.index_select(dim, at)))
+
+    local_map(local, out_placements=(pl,),
+              in_placements=(pl, new_pl, (Replicate(),) * mesh.ndim),
+              device_mesh=mesh, redistribute_inputs=True)(cache, new, pos)
+    return cache
+
+
+def write_prefix(cache, dim: int, t) -> None:
+    """``cache.narrow(dim, 0, S).copy_(t)``, S being t's length along
+    ``dim`` (a prefill's keys into its cache).  On a DTensor cache split
+    along ``dim``: t redistributed to the cache's split where it fills
+    the cache, else replicated along ``dim`` and each rank copies the
+    part its block holds."""
+    from repro_torch.distributed import sharding as shd
+
+    S = t.shape[dim]
+    if not shd.is_dtensor(cache) or S == cache.shape[dim]:
+        target = cache if S == cache.shape[dim] else cache.narrow(dim, 0, S)
+        shd.copy_into(target, t)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    t_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
+                 else p for p in pl)
+    off, size = shd.local_block(mesh, pl, dim, cache.shape[dim])
+    lo, hi = min(off, S), min(off + size, S)
+
+    def local(c, tl):
+        if hi > lo:
+            c.narrow(dim, lo - off, hi - lo).copy_(tl.narrow(dim, lo, hi - lo))
+        return c
+
+    local_map(local, out_placements=(pl,), in_placements=(pl, t_pl),
+              device_mesh=mesh, redistribute_inputs=True)(cache, t)
 
 
 def records(*tensors) -> bool:
@@ -152,6 +261,30 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # GQA block
 # ---------------------------------------------------------------------------
 
+def _attend(cfg, causal, window, prefix_len, skip_info) -> Callable:
+    """The full-sequence attention of q, k, v: :func:`chunked_attention`
+    (blocks ``cfg.q_block`` / ``cfg.kv_block``) when autograd records,
+    else the flash kernel."""
+    def attend(q, k, v):
+        if records(q, k, v):
+            return chunked_attention(
+                q, k, v, make_mask_fn(causal, window, prefix_len),
+                bq=min(cfg.q_block, q.shape[2]),
+                bkv=min(cfg.kv_block, k.shape[2]), skip_info=skip_info)
+        return ops.flash_attention(q, k, v, causal=causal,
+                                   window=kernel_window(window),
+                                   prefix_len=prefix_len)
+    return attend
+
+
+def _decode(window) -> Callable:
+    """The decode kernel over a cache, for :func:`head_parallel`."""
+    def decode(q, k, v, cur):
+        return ops.decode_attention(q, k, v, cur,
+                                    window=kernel_window(window))
+    return decode
+
+
 def gqa_specs(cfg, stacked: int | None) -> dict:
     lead = (stacked,) if stacked else ()
     lx = ("layers",) if stacked else ()
@@ -170,9 +303,9 @@ def gqa_project(cfg, p, x, positions, *, rope: bool = True):
     B, S, _ = x.shape
     Hq, Hkv, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, Hq, Hd).transpose(1, 2)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, Hkv, Hd).transpose(1, 2)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, Hkv, Hd).transpose(1, 2)
+    q = split_dim(x @ p["wq"].to(dt), 2, (Hq, Hd)).transpose(1, 2)
+    k = split_dim(x @ p["wk"].to(dt), 2, (Hkv, Hd)).transpose(1, 2)
+    v = split_dim(x @ p["wv"].to(dt), 2, (Hkv, Hd)).transpose(1, 2)
     if rope:
         q = common.apply_rope(q, positions[:, None], cfg.rope_theta)
         k = common.apply_rope(k, positions[:, None], cfg.rope_theta)
@@ -193,17 +326,9 @@ def gqa_apply(cfg, p, x, positions, *, causal: bool = True,
     if kv_override is not None:
         k, v = kv_override
         skip_info = None
-    if records(q, k, v):
-        out = chunked_attention(q, k, v,
-                                make_mask_fn(causal, window, prefix_len),
-                                bq=min(cfg.q_block, S),
-                                bkv=min(cfg.kv_block, k.shape[2]),
-                                skip_info=skip_info)
-    else:
-        out = ops.flash_attention(q, k, v, causal=causal,
-                                  window=kernel_window(window),
-                                  prefix_len=prefix_len)
-    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    out = head_parallel(_attend(cfg, causal, window, prefix_len, skip_info),
+                        q, k, v)
+    out = merge_dims(out.transpose(1, 2), (B, S, cfg.n_heads * cfg.head_dim))
     out = out @ p["wo"].to(x.dtype)
     if return_kv:
         return out, (k, v)
@@ -227,14 +352,14 @@ def gqa_decode(cfg, p, x, cache: dict, *, window: int | None = None,
     pos = cache["len"]  # int32 scalar: tokens already in the cache
     positions = pos.expand(B, 1)
     q, k, v = gqa_project(cfg, p, x, positions, rope=rope)
-    at = pos.reshape(1).to(torch.int64)
-    k_cache = cache["k"].index_copy_(2, at, k)
-    v_cache = cache["v"].index_copy_(2, at, v)
+    k_cache = write_at(cache["k"], 2, pos, k)
+    v_cache = write_at(cache["v"], 2, pos, v)
     cur = pos + 1
     # causal holds for every cached key (kpos < cur_len = qpos + 1)
-    out = ops.decode_attention(q.reshape(B, Hkv, Hq // Hkv, Hd), k_cache,
-                               v_cache, cur, window=kernel_window(window))
-    out = out.reshape(B, 1, Hq * Hd) @ p["wo"].to(x.dtype)
+    q = split_dim(q[:, :, 0], 1, (Hkv, Hq // Hkv))  # (B, Hkv, group, Hd)
+    out = head_parallel(_decode(window), q,
+                        k_cache, v_cache, cur)
+    out = merge_dims(out[:, None], (B, 1, Hq * Hd)) @ p["wo"].to(x.dtype)
     return out, {"k": k_cache, "v": v_cache, "len": cur}
 
 
@@ -265,7 +390,7 @@ def _mla_qkv(cfg, p, x, positions):
     H = cfg.n_heads
     r, nope, rdim = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, H, nope + rdim)
+    q = split_dim(x @ p["wq"].to(dt), 2, (H, nope + rdim))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = common.apply_rope(q_rope.transpose(1, 2), positions[:, None],
                                cfg.rope_theta).transpose(1, 2)
@@ -282,7 +407,7 @@ def _mla_expand_kv(cfg, p, c_kv, dtype):
     vdim]."""
     H, nope, vdim = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
     kv = c_kv.to(dtype) @ p["wkv_b"].to(dtype)
-    kv = kv.reshape(*c_kv.shape[:-1], H, nope + vdim)
+    kv = split_dim(kv, -1, (H, nope + vdim))
     return kv[..., :nope], kv[..., nope:]
 
 
@@ -308,17 +433,10 @@ def mla_apply(cfg, p, x, positions, *, causal: bool = True,
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
     k_nope, v = _mla_expand_kv(cfg, p, c_kv, x.dtype)
     q, k, v = _mla_heads(q_nope, q_rope, k_nope, k_rope, v)
-    if records(q, k, v):
-        out = chunked_attention(q, k, v,
-                                make_mask_fn(causal, window, prefix_len),
-                                bq=min(cfg.q_block, S),
-                                bkv=min(cfg.kv_block, S),
-                                skip_info=skip_info)
-    else:
-        out = ops.flash_attention(q, k, v, causal=causal,
-                                  window=kernel_window(window),
-                                  prefix_len=prefix_len)
-    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.v_head_dim)
+    out = head_parallel(_attend(cfg, causal, window, prefix_len, skip_info),
+                        q, k, v)
+    out = merge_dims(out.transpose(1, 2),
+                     (B, S, cfg.n_heads * cfg.v_head_dim))
     out = out @ p["wo"].to(x.dtype)
     if return_latent:
         return out, torch.cat([c_kv, k_rope], dim=-1)
@@ -338,12 +456,11 @@ def mla_decode(cfg, p, x, cache: dict, *, window: int | None = None):
     positions = pos.expand(B, 1)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
     lat = torch.cat([c_kv, k_rope], dim=-1)                 # (B, 1, r+rdim)
-    lat_cache = cache["latent"].index_copy_(
-        1, pos.reshape(1).to(torch.int64), lat)
+    lat_cache = write_at(cache["latent"], 1, pos, lat)
     k_nope, v = _mla_expand_kv(cfg, p, lat_cache[..., :r], x.dtype)
     q, k, v = _mla_heads(q_nope, q_rope, k_nope, lat_cache[..., r:], v)
     cur = pos + 1
-    out = ops.decode_attention(q, k, v, cur,
-                               window=kernel_window(window))  # (B, H, 1, vdim)
-    out = out.reshape(B, 1, H * vdim) @ p["wo"].to(x.dtype)
+    out = head_parallel(_decode(window), q, k, v, cur)  # (B, H, 1, vdim)
+    out = merge_dims(out.transpose(1, 2), (B, 1, H * vdim)) @ p["wo"].to(
+        x.dtype)
     return out, {"latent": lat_cache, "len": cur}

@@ -113,6 +113,11 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def apply_norm(kind: str, x: torch.Tensor, p: dict) -> torch.Tensor:
+    """The norm of ``kind`` with params ``p`` (gathered over the FSDP
+    axes under the sharding rules: the final norm is in no layer)."""
+    from repro_torch.distributed.sharding import gather_fsdp
+
+    p = gather_fsdp(p)
     if kind == "layernorm":
         return layer_norm(x, p["scale"], p["bias"])
     return rms_norm(x, p["scale"])

@@ -24,6 +24,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import (active_rules, copy_into,
+                                              is_dtensor,
+                                              merge_dims,
+                                              recompute_context,
+                                              settle, split_dim,
+                                              zeros)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
@@ -31,7 +37,8 @@ from repro_torch.models.attention import records
 from repro_torch.models.common import (ParamSpec, apply_norm, norm_spec,
                                        scan_layers, sinusoidal_embedding)
 from repro_torch.models.qhead import tree_leaves
-from repro_torch.models.transformer import _adtype, _positions, unembed
+from repro_torch.models.transformer import (_adtype, _positions, lookup,
+                                           token_nll, unembed)
 
 
 def encdec_param_specs(cfg) -> dict:
@@ -65,8 +72,8 @@ def _run_stack(cfg, body, x, blocks, *extra):
     when autograd records and ``cfg.remat`` is set."""
     def step(carry, lp):
         if cfg.remat and records(carry, *tree_leaves(lp)):
-            return checkpoint(body, carry, lp, *extra,
-                              use_reentrant=False), None
+            return checkpoint(body, carry, lp, *extra, use_reentrant=False,
+                              context_fn=recompute_context), None
         return body(carry, lp, *extra), None
 
     return scan_layers(step, x, blocks)[0]
@@ -74,8 +81,8 @@ def _run_stack(cfg, body, x, blocks, *extra):
 
 def _enc_block(cfg, lp, x, positions):
     h = apply_norm(cfg.norm_kind, x, lp["norm1"])
-    x = x + attn_mod.gqa_apply(cfg, lp["attn"], h, positions, causal=False,
-                               rope=False)
+    x = x + attn_mod.gqa_apply(cfg, lp["attn"], h, positions,
+                                            causal=False, rope=False)
     h2 = apply_norm(cfg.norm_kind, x, lp["norm2"])
     return x + mlp_mod.mlp_apply("gelu", lp["mlp"], h2)
 
@@ -98,20 +105,19 @@ def _cross_kv(cfg, lp_cross, enc_out):
     B, T, _ = enc_out.shape
     Hkv, Hd = cfg.n_kv_heads, cfg.head_dim
     dt = enc_out.dtype
-    k = (enc_out @ lp_cross["wk"].to(dt)).reshape(B, T, Hkv, Hd)
-    v = (enc_out @ lp_cross["wv"].to(dt)).reshape(B, T, Hkv, Hd)
+    k = split_dim(enc_out @ lp_cross["wk"].to(dt), 2, (Hkv, Hd))
+    v = split_dim(enc_out @ lp_cross["wv"].to(dt), 2, (Hkv, Hd))
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
 def _dec_block(cfg, lp, x, positions, enc_out):
     h = apply_norm(cfg.norm_kind, x, lp["norm1"])
-    x = x + attn_mod.gqa_apply(cfg, lp["self"], h, positions, causal=True,
-                               rope=False)
+    x = x + attn_mod.gqa_apply(cfg, lp["self"], h, positions,
+                                            causal=True, rope=False)
     hx = apply_norm(cfg.norm_kind, x, lp["norm_x"])
-    x = x + attn_mod.gqa_apply(cfg, lp["cross"], hx, positions, causal=False,
-                               rope=False,
-                               kv_override=_cross_kv(cfg, lp["cross"],
-                                                     enc_out))
+    x = x + attn_mod.gqa_apply(
+        cfg, lp["cross"], hx, positions, causal=False, rope=False,
+        kv_override=_cross_kv(cfg, lp["cross"], enc_out))
     h2 = apply_norm(cfg.norm_kind, x, lp["norm2"])
     return x + mlp_mod.mlp_apply("gelu", lp["mlp"], h2)
 
@@ -119,7 +125,7 @@ def _dec_block(cfg, lp, x, positions, enc_out):
 def _embed_text(cfg, params, tokens, positions):
     """Token embeddings (gather, then cast) plus the sinusoidal positions
     at ``positions`` (broadcast over the batch)."""
-    x = params["embed"][tokens].to(_adtype(cfg))
+    x = lookup(params["embed"], tokens).to(_adtype(cfg))
     return x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
 
 
@@ -139,11 +145,12 @@ def encdec_loss(cfg, params, batch):
     """batch ``{tokens, targets, loss_mask, frames}`` -> (the mean NLL over
     the mask, ``{"nll": loss}``)."""
     logits = forward(cfg, params, batch["tokens"], batch["frames"])
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1,
-                        batch["targets"].to(torch.int64)[..., None])[..., 0]
+    nll = token_nll(logits, batch["targets"])
     mask = batch["loss_mask"].to(torch.float32)
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    # the sums whole before the divide (torch 2.11 cannot divide a split
+    # or partial sum's gradient)
+    loss = settle((nll * mask).sum()) / torch.clamp(settle(mask.sum()),
+                                                   min=1.0)
     return loss, {"nll": loss}
 
 
@@ -160,36 +167,37 @@ def encdec_cache_axes(cfg) -> dict:
             "len": ()}
 
 
-def init_cache(cfg, batch: int, max_len: int, device="cuda"):
+def init_cache(cfg, batch: int, max_len: int, device="cuda", rules=None):
     """Per decoder layer (stacked): the self-attention's k and v over
     ``max_len`` positions, the cross-attention's over ``enc_seq`` frames,
     zeros in the activation dtype; ``len`` an int32 scalar on the
-    device."""
+    device.  With ``rules``, DTensors placed by ``encdec_cache_axes``."""
     device = resolve_device(device)
     dt = _adtype(cfg)
     L, Hkv, Hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-
-    def z(*shape):
-        return torch.zeros(shape, dtype=dt, device=device)
-
-    return {"self_k": z(L, batch, Hkv, max_len, Hd),
-            "self_v": z(L, batch, Hkv, max_len, Hd),
-            "cross_k": z(L, batch, Hkv, cfg.enc_seq, Hd),
-            "cross_v": z(L, batch, Hkv, cfg.enc_seq, Hd),
-            "len": torch.zeros((), dtype=torch.int32, device=device)}
+    axes = encdec_cache_axes(cfg)
+    shapes = {"self_k": (L, batch, Hkv, max_len, Hd),
+              "self_v": (L, batch, Hkv, max_len, Hd),
+              "cross_k": (L, batch, Hkv, cfg.enc_seq, Hd),
+              "cross_v": (L, batch, Hkv, cfg.enc_seq, Hd)}
+    cache = {k: zeros(sh, dt, axes[k], device, rules)
+             for k, sh in shapes.items()}
+    cache["len"] = zeros((), torch.int32, (), device, rules)
+    return cache
 
 
 def prefill(cfg, params, frames, bos_tokens, max_len: int):
     """Encode, write every decoder layer's cross k and v, then decode the
     first token.  bos_tokens [B, 1] -> (logits [B, 1, V], cache)."""
     enc_out = encode(cfg, params, frames)
-    cache = init_cache(cfg, bos_tokens.shape[0], max_len, enc_out.device)
+    cache = init_cache(cfg, bos_tokens.shape[0], max_len, enc_out.device,
+                       active_rules() if is_dtensor(enc_out) else None)
 
     def kv_body(_, xs):
         lp_cross, ck, cv = xs
         k, v = _cross_kv(cfg, lp_cross, enc_out)
-        ck.copy_(k)
-        cv.copy_(v)
+        copy_into(ck, k)
+        copy_into(cv, v)
         return None, None
 
     scan_layers(kv_body, None, (params["dec_blocks"]["cross"],
@@ -219,9 +227,12 @@ def decode_step(cfg, params, tokens, cache):
         hx = apply_norm(cfg.norm_kind, x, lp["norm_x"])
         qx = attn_mod.gqa_project(cfg, lp["cross"], hx, zero_pos,
                                   rope=False)[0]            # (B, Hq, 1, Hd)
-        o = ops.decode_attention(qx.reshape(B, Hkv, Hq // Hkv, Hd), ck, cv,
-                                 enc_len)
-        x = x + o.reshape(B, 1, Hq * Hd) @ lp["cross"]["wo"].to(x.dtype)
+        o = attn_mod.head_parallel(attn_mod._decode(None),
+                                   split_dim(qx[:, :, 0], 1,
+                                             (Hkv, Hq // Hkv)), ck, cv,
+                                   enc_len)
+        x = x + merge_dims(o[:, None], (B, 1, Hq * Hd)) @ lp["cross"]["wo"].to(
+            x.dtype)
         h2 = apply_norm(cfg.norm_kind, x, lp["norm2"])
         return x + mlp_mod.mlp_apply("gelu", lp["mlp"], h2), None
 

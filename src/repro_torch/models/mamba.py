@@ -24,6 +24,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (active_rules, by_axes,
+                                              is_dtensor, settle, zeros)
 from repro_torch.models.common import ParamSpec
 
 
@@ -92,17 +94,23 @@ def mamba_apply(cfg, p, x, *, cache=None, return_cache: bool = False):
     dt_ = x.dtype
     d_inner = p["w_in"].shape[-1] // 2
     Ns = cfg.ssm_state
-    xz = x @ p["w_in"].to(dt_)
+    xz = settle(x @ p["w_in"].to(dt_))
     u, z = xz.chunk(2, dim=-1)
     conv_cache = None if cache is None else cache["conv"]
     u, new_conv = _conv1d(u, p["conv_w"], p["conv_b"], conv_cache)
     u = F.silu(u)
-    bdt = u @ p["w_bdt"].to(dt_)
+    bdt = settle(u @ p["w_bdt"].to(dt_))
     B_in, C_in, dt_low = bdt.split([Ns, Ns, bdt.shape[-1] - 2 * Ns], dim=-1)
-    dt = F.softplus(dt_low @ p["w_dt"].to(dt_) + p["dt_bias"].to(dt_))
-    state = (torch.zeros((B, d_inner, Ns), dtype=torch.float32,
-                         device=x.device) if cache is None else cache["h"])
-    y, state = _ssm_scan(u, dt, B_in, C_in, p["a_log"], p["d_skip"], state)
+    dt = F.softplus(settle(dt_low @ p["w_dt"].to(dt_))
+                    + p["dt_bias"].to(dt_))
+    state = (zeros((B, d_inner, Ns), torch.float32, ("batch", "qkv", None),
+                   x.device, active_rules() if is_dtensor(x) else None)
+             if cache is None else cache["h"])
+    seq, ch = ("batch", None, "qkv"), ("batch", None, None)
+    y, state = by_axes(_ssm_scan, (u, dt, B_in, C_in, p["a_log"],
+                                   p["d_skip"], state),
+                       (seq, seq, ch, ch, ("qkv", None), ("qkv",),
+                        ("batch", "qkv", None)), (0, 6))
     y = y.to(dt_) * F.silu(z)
     out = y @ p["w_out"].to(dt_)
     if cache is None and not return_cache:

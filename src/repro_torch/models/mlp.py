@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import gather_fsdp
 from repro_torch.models.common import ParamSpec
 
 
@@ -52,9 +53,10 @@ def mlp_apply(kind: str, p: dict, x: torch.Tensor,
         return (F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")
                 * (x @ p["w_up"].to(dt))) @ p["w_down"].to(dt)
     if kind == "gelu":
-        h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt),
-                   approximate="tanh")
-        return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+        # the biases whole over the FSDP axes (as the norms' params)
+        b_up, b_down = gather_fsdp(p["b_up"]), gather_fsdp(p["b_down"])
+        h = F.gelu(x @ p["w_up"].to(dt) + b_up.to(dt), approximate="tanh")
+        return h @ p["w_down"].to(dt) + b_down.to(dt)
     if kind == "rwkv_cmix":
         if x_prev is None:
             x_prev = token_shift(x)
@@ -66,5 +68,14 @@ def mlp_apply(kind: str, p: dict, x: torch.Tensor,
 
 
 def token_shift(x: torch.Tensor) -> torch.Tensor:
-    """RWKV token shift: x_{t-1} with zero at t = 0.  x: [B, S, D]."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    """RWKV token shift: x_{t-1} with zero at t = 0.  x: [B, S, D].  A
+    DTensor shifts on each rank's block with the sequence whole."""
+    from repro_torch.distributed import sharding as shd
+
+    if not shd.is_dtensor(x):
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in x.placements)
+    return shd.region(token_shift, x.device_mesh, (x,), (pl,), (pl,))

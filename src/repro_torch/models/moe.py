@@ -8,7 +8,9 @@ metrics.  ``moe_apply`` takes the explicit-collective dispatch
 (:func:`moe_apply_shard_map`) exactly when the reference does:
 ``cfg.moe_dispatch == "shard_map"`` under active sharding rules
 (``distributed.sharding.use_rules``); otherwise, as with no rules
-active, the scatter dispatch.
+active, the scatter dispatch, which takes the reference's six
+``logical_constraint``s (the tokens, the one-hot, the gathered entries,
+the expert inputs and outputs, the contributions).
 
 The dispatch keeps the reference's semantics to the entry: a float32
 router, top-k of the softmax with the gates renormalised, token groups
@@ -23,9 +25,12 @@ output is the same on every run.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import logical_constraint, reshape
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import ParamSpec
 
@@ -54,6 +59,10 @@ def _capacity(n_tokens: int, cfg) -> int:
     return max(cap, cfg.moe_top_k)
 
 
+# calls of each dispatch through moe_apply (the dry run reports them)
+dispatches = {"shard_map": 0, "scatter": 0}
+
+
 def moe_apply(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """x: [B, S, D] -> (out [B, S, D], metrics): the shard-map dispatch
     under active rules when the config names it, else the scatter one."""
@@ -61,68 +70,143 @@ def moe_apply(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
 
     if (getattr(cfg, "moe_dispatch", "scatter") == "shard_map"
             and active_rules() is not None):
+        dispatches["shard_map"] += 1
         return moe_apply_shard_map(cfg, p, x)
+    dispatches["scatter"] += 1
     return moe_apply_scatter(cfg, p, x)
 
 
 def moe_apply_shard_map(cfg, p: dict, x: torch.Tensor
                         ) -> tuple[torch.Tensor, dict]:
     """The explicit-collective dispatch over the active rules' mesh
-    (counterpart of the reference's ``moe_apply_shard_map``, forward
-    only): x [B, S, D] whole on every rank -> (out [B, S, D], metrics),
-    whole on every rank.
+    (counterpart of the reference's ``moe_apply_shard_map``): x [B, S, D]
+    -> (out [B, S, D], metrics), differentiable.
 
     Tokens split over the data axes ("pod", "data": G token groups),
-    experts over "model".  Each slot this process holds runs the
-    reference's per-slot body:
+    experts over "model".  Each slot runs the reference's per-slot body
+    (:func:`_slot_bodies`): route its token group into its own (E, Cl, D)
+    capacity slice, all-gather its experts' slices over the data axes,
+    run those experts' FFNs, all-gather its token group's slice from
+    every expert owner over "model", combine its tokens' K picks, and
+    ``pmean`` the three metrics over every slot.
 
-      * route its token group and build the group's own (E, Cl, D)
-        capacity slice (positions are prefix sums inside the group);
-      * all-gather its E / |model| experts' slices over the data axes ->
-        (E_loc, G * Cl, D), and run those experts' FFNs;
-      * all-gather its token group's slice from every expert owner over
-        "model" -> (E, Cl, D), and combine its tokens' K picks;
-      * the three metrics, ``pmean``-ed over every slot.
+    Two callers:
 
-    The token groups' outputs are gathered so that every rank returns
-    the whole output.  Where ``T % G`` or ``E % |model|`` the reference
-    runs its scatter dispatch, and so does this.
+    * plain tensors, whole on every rank (a single-process mesh or a
+      process mesh): each slot takes its blocks through
+      ``collectives.slot_inputs`` and the token groups' outputs are
+      exchanged, so every rank returns the whole output, and backward
+      gives the whole gradients on every rank, bit for bit those of the
+      single-process mesh;
+    * DTensors (a program under the rules on a process mesh with one
+      slot a rank): a ``local_map`` region, x Shard over the data axes
+      and the expert weights ``Shard(0)`` over "model", the reference's
+      ``in_specs``; the gradients of inputs a rank holds replicated come
+      back ``Partial`` (the transpose of the reference's unmapped axes),
+      and the output's cotangent is divided over "model", on whose
+      members the output is replicated, as ``shard_map``'s transpose
+      divides it.
+
+    Where ``T % G`` or ``E % |model|`` the reference runs its scatter
+    dispatch, and so does this.
     """
     from repro_torch.distributed import collectives as col
-    from repro_torch.distributed.sharding import active_rules
+    from repro_torch.distributed.sharding import active_rules, is_dtensor
 
     mesh = active_rules().mesh
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.moe_top_k
     T = B * S
-    dt = x.dtype
     dp_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     G = 1
     for a in dp_axes:
         G *= mesh.shape[a]
     n_model = mesh.shape.get("model", 1)
     if T % G or E % n_model:
+        if is_dtensor(x):
+            return _scatter_whole(cfg, p, x)
         return moe_apply_scatter(cfg, p, x)
-    Cl = max(-(-_capacity(T, cfg) // G), K)
-    E_loc = E // n_model
-    Tl = T // G
-    xt_all = x.reshape(T, D)
+    dims = _Dims(dp_axes, G, n_model, max(-(-_capacity(T, cfg) // G), K),
+                 E // n_model, T // G)
+    # token groups whole on each data shard: the reference's in_spec
+    xt = reshape(logical_constraint(x, ("batch", None, None)), (T, D))
+    if is_dtensor(x):
+        out, st = _shard_map_dtensor(cfg, p, xt, mesh, dims)
+    else:
+        out, st = _shard_map_plain(cfg, p, xt, mesh, dims, col)
+    if cfg.n_shared_experts:
+        out = out + mlp_mod.mlp_apply("swiglu", p["shared"], xt)
+    metrics = {"moe_lb_loss": st[0], "moe_z_loss": st[1],
+               "moe_drop_frac": st[2]}
+    return reshape(out, (B, S, D)), metrics
 
-    def token_group(slot: int) -> int:
-        c = mesh.coords(slot)
-        g = 0
-        for a in dp_axes:
-            g = g * mesh.shape[a] + c[a]
-        return g
 
-    slots = list(mesh.local_slots)
-    routed, mine, stats = {}, [], []
-    for slot in slots:
-        dev = mesh.devices.flat[slot]
-        g, me = token_group(slot), mesh.coords(slot).get("model", 0)
-        xt = xt_all[g * Tl:(g + 1) * Tl].to(dev)
-        logits, probs, gate_vals, expert_ids = route(cfg, xt,
-                                                     p["router"].to(dev))
+def _scatter_whole(cfg, p: dict, x):
+    """The scatter dispatch on DTensors whose shapes do not tile the mesh:
+    every input whole on each rank and the dispatch run there, its
+    output replicated."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import region
+    from repro_torch.models.qhead import tree_leaves
+
+    keys = sorted(p)
+    leaves = [tree_leaves(p[k]) for k in keys]
+    rep = (Replicate(),) * x.device_mesh.ndim
+
+    def whole(xl, *flat):
+        it = iter(flat)
+        local = {k: _rebuild(p[k], it) for k in keys}
+        out, m = moe_apply_scatter(cfg, local, xl)
+        return out, m["moe_lb_loss"], m["moe_z_loss"], m["moe_drop_frac"]
+
+    args = [x, *(t for ls in leaves for t in ls)]
+    out, lb, z, drop = region(whole, x.device_mesh, args, [rep] * len(args),
+                              [rep] * 4)
+    return out, {"moe_lb_loss": lb, "moe_z_loss": z, "moe_drop_frac": drop}
+
+
+def _rebuild(node, it):
+    """``node``'s nested dicts with the next leaves of ``it``, in
+    ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(node, dict):
+        return {k: _rebuild(node[k], it) for k in sorted(node)}
+    return next(it)
+
+
+class _Dims(NamedTuple):
+    dp_axes: tuple   # the token axes ("pod", "data") the mesh has
+    G: int           # token groups
+    n_model: int     # expert owners
+    Cl: int          # capacity of one expert in one token group
+    E_loc: int       # experts an owner holds
+    Tl: int          # tokens a group holds
+
+
+def _token_group(mesh, slot: int, dp_axes) -> int:
+    c = mesh.coords(slot)
+    g = 0
+    for a in dp_axes:
+        g = g * mesh.shape[a] + c[a]
+    return g
+
+
+def _slot_bodies(cfg, mesh, dims: _Dims, slots, xts, routers, wgs, wus,
+                 wds):
+    """The reference's per-slot body, for the slots this process holds
+    (``slots``, with each one's token group ``xts`` [Tl, D], router and
+    E_loc experts' weights): each slot's combined output [Tl, D] and
+    metrics [3], before any reduction over slots."""
+    from repro_torch.distributed import collectives as col
+
+    E, K, D = cfg.n_experts, cfg.moe_top_k, xts[0].shape[-1]
+    Cl, E_loc, Tl = dims.Cl, dims.E_loc, dims.Tl
+    dt = xts[0].dtype
+    routed, mine, stats = [], [], []
+    for slot, xt, router in zip(slots, xts, routers):
+        dev = xt.device
+        me = mesh.coords(slot).get("model", 0)
+        logits, probs, gate_vals, expert_ids = route(cfg, xt, router)
         flat_e = expert_ids.T.reshape(Tl * K)            # k-major
         eq = F.one_hot(flat_e, E)
         pos = torch.gather(torch.cumsum(eq, 0) - eq, 1, flat_e[:, None])[:, 0]
@@ -134,7 +218,7 @@ def moe_apply_shard_map(cfg, p: dict, x: torch.Tensor
             0, slot_of, torch.where(keep[:, None], xt[token_of], 0))
         buf = buf[:-1].reshape(E, Cl, D)
         mine.append(buf[me * E_loc:(me + 1) * E_loc].contiguous())
-        routed[slot] = (keep, slot_of, gate_vals, g, me, dev)
+        routed.append((keep, slot_of, gate_vals))
         ce = F.one_hot(expert_ids, E).sum(1).to(torch.float32).mean(0)
         stats.append(torch.stack([
             E * torch.sum(probs.mean(0) * ce) / K,
@@ -142,25 +226,21 @@ def moe_apply_shard_map(cfg, p: dict, x: torch.Tensor
             1.0 - keep.to(torch.float32).mean()]))
 
     # my experts' slices from every token group: (E_loc, G * Cl, D)
-    gathered = col.all_gather_groups(mesh, mine, dp_axes, dim=1)
+    gathered = (col.all_gather_groups(mesh, mine, dims.dp_axes, dim=1)
+                if dims.dp_axes else mine)
     sliced = []
-    for slot, xin in zip(slots, gathered):
-        _, _, _, g, me, dev = routed[slot]
-        experts = slice(me * E_loc, (me + 1) * E_loc)
-        h = torch.bmm(xin, p["w_gate"][experts].to(dev, dt))
-        u = torch.bmm(xin, p["w_up"][experts].to(dev, dt))
-        eo = torch.bmm(F.silu(h) * u, p["w_down"][experts].to(dev, dt))
-        sliced.append(eo.reshape(E_loc, G, Cl, D)[:, g].contiguous())
+    for slot, xin, wg, wu, wd in zip(slots, gathered, wgs, wus, wds):
+        g = _token_group(mesh, slot, dims.dp_axes)
+        h = torch.bmm(xin, wg.to(dt))
+        u = torch.bmm(xin, wu.to(dt))
+        eo = torch.bmm(F.silu(h) * u, wd.to(dt))
+        sliced.append(eo.reshape(E_loc, dims.G, Cl, D)[:, g].contiguous())
     # my token group's slice from every expert owner: (E, Cl, D)
-    every = col.all_gather_groups(mesh, sliced, ("model",), dim=0) \
-        if "model" in mesh.axis_names else sliced
+    every = (col.all_gather_groups(mesh, sliced, ("model",), dim=0)
+             if "model" in mesh.axis_names else sliced)
 
-    shards = mesh.shard_slots(dp_axes) if dp_axes else [0]
     outs = []
-    for slot, eo_all in zip(slots, every):
-        if slot not in shards:
-            continue  # its token group's output is its model-0 twin's
-        keep, slot_of, gate_vals, g, me, dev = routed[slot]
+    for (keep, slot_of, gate_vals), eo_all in zip(routed, every):
         picked = eo_all.reshape(E * Cl, D)[torch.clamp(slot_of,
                                                        max=E * Cl - 1)]
         contrib = torch.where(keep[:, None],
@@ -170,16 +250,84 @@ def moe_apply_shard_map(cfg, p: dict, x: torch.Tensor
         for k in range(1, K):
             out = out + contrib[k]
         outs.append(out)
-    groups = col.exchange(mesh, outs, [mesh.owner(s) for s in shards],
-                          (Tl, D), dt)
-    out = torch.cat([o.to(mesh.home) for o in groups])
+    return outs, stats
+
+
+def _shard_map_plain(cfg, p, xt, mesh, dims: _Dims, col):
+    """The dispatch on plain tensors whole on every rank: (out [T, D],
+    metrics [3]), both whole on every rank."""
+    E_loc, Tl = dims.E_loc, dims.Tl
+    slots = list(mesh.local_slots)
+
+    def tokens(s):
+        return (0, _token_group(mesh, s, dims.dp_axes) * Tl, Tl)
+
+    def experts(s):
+        return (0, mesh.coords(s).get("model", 0) * E_loc, E_loc)
+
+    ins = [col.slot_inputs(mesh, xt, tokens),
+           col.slot_inputs(mesh, p["router"]),
+           *(col.slot_inputs(mesh, p[w], experts)
+             for w in ("w_gate", "w_up", "w_down"))]
+    ins = [[t.to(mesh.devices.flat[s]) for s, t in zip(slots, ts)]
+           for ts in ins]
+    outs, stats = _slot_bodies(cfg, mesh, dims, slots, *ins)
+    # each token group's output from its model-0 slot (its twins over
+    # "model" hold the same)
+    out = col.gather_shards(mesh, outs, dims.dp_axes)
     st = col.pmean(mesh, stats, mesh.axis_names, (3,), torch.float32)
-    if cfg.n_shared_experts:
-        out = out + mlp_mod.mlp_apply("swiglu", p["shared"],
-                                      xt_all.to(mesh.home))
-    metrics = {"moe_lb_loss": st[0], "moe_z_loss": st[1],
-               "moe_drop_frac": st[2]}
-    return out.reshape(B, S, D), metrics
+    return out, st
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; backward multiplies the gradient by ``c``."""
+
+    @staticmethod
+    def forward(ctx, x, c):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
+def _shard_map_dtensor(cfg, p, xt, mesh, dims: _Dims):
+    """The dispatch as a ``local_map`` region over the rules' DeviceMesh
+    (one slot a rank): (out [T, D] Shard over the data axes, metrics [3]
+    replicated)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dmesh = mesh.device_mesh()
+    names = mesh.axis_names
+    tok = tuple(Shard(0) if a in dims.dp_axes else Replicate()
+                for a in names)
+    tok_grad = tuple(Shard(0) if a in dims.dp_axes else Partial()
+                     for a in names)
+    rep = (Replicate(),) * len(names)
+    part = (Partial(),) * len(names)
+    expert = tuple(Shard(0) if a == "model" else Replicate() for a in names)
+    expert_grad = tuple(Shard(0) if a == "model" else Partial()
+                        for a in names)
+    slot = mesh.local_slots[0]
+
+    def body(xl, router, wg, wu, wd):
+        from repro_torch.distributed import collectives as col
+
+        outs, stats = _slot_bodies(cfg, mesh, dims, [slot], [xl], [router],
+                                   [wg], [wu], [wd])
+        out = outs[0]
+        if dims.n_model > 1 and out.requires_grad:
+            out = _ScaleGrad.apply(out, 1.0 / dims.n_model)
+        return out, col.pmean(mesh, stats, names, (3,), torch.float32)
+
+    return local_map(body, out_placements=(tok, rep),
+                     in_placements=(tok, rep, expert, expert, expert),
+                     in_grad_placements=(tok_grad, part, expert_grad,
+                                         expert_grad, expert_grad),
+                     device_mesh=dmesh, redistribute_inputs=True)(
+        xt, p["router"], p["w_gate"], p["w_up"], p["w_down"])
 
 
 def route(cfg, xt: torch.Tensor, router: torch.Tensor):
@@ -206,7 +354,8 @@ def dispatch(cfg, expert_ids: torch.Tensor):
     Cg = max(-(-C // G), K)
     dev = expert_ids.device
     flat_e = expert_ids.reshape(G, Tg, K).transpose(1, 2).reshape(G, K * Tg)
-    eq = F.one_hot(flat_e, E)                                # (G, KTg, E)
+    eq = logical_constraint(F.one_hot(flat_e, E),
+                            ("tokens", None, None))          # (G, KTg, E)
     pos_in_e = torch.cumsum(eq, dim=1) - eq                  # local prefix
     pos = torch.gather(pos_in_e, 2, flat_e[..., None])[..., 0]
     keep = pos < Cg
@@ -225,26 +374,30 @@ def moe_apply_scatter(cfg, p: dict, x: torch.Tensor
     E, K = cfg.n_experts, cfg.moe_top_k
     T = B * S
     dt = x.dtype
-    xt = x.reshape(T, D)
+    xt = logical_constraint(x.reshape(T, D), ("tokens", None))
     logits, probs, gate_vals, expert_ids = route(cfg, xt, p["router"])
     slot, keep, token_of, G, Cg = dispatch(cfg, expert_ids)
     n_slots = E * G * Cg
 
     # each kept entry has a slot of its own; the dropped ones (zeros) share
     # the dummy slot, cut off after
-    gathered = torch.where(keep[:, None], xt[token_of], 0)
+    gathered = logical_constraint(torch.where(keep[:, None], xt[token_of], 0),
+                                  ("tokens", None))
     xin = torch.zeros((n_slots + 1, D), dtype=dt, device=x.device)
     xin = xin.index_copy(0, slot, gathered)
-    expert_in = xin[:-1].reshape(E, G * Cg, D)
+    expert_in = logical_constraint(xin[:-1].reshape(E, G * Cg, D),
+                                   ("experts", None, None))
 
     h = torch.bmm(expert_in, p["w_gate"].to(dt))
     u = torch.bmm(expert_in, p["w_up"].to(dt))
-    eo = torch.bmm(F.silu(h) * u, p["w_down"].to(dt))
+    eo = logical_constraint(torch.bmm(F.silu(h) * u, p["w_down"].to(dt)),
+                            ("experts", None, None))
 
     flat_gate = gate_vals.reshape(G, T // G, K).transpose(1, 2).reshape(-1)
     picked = eo.reshape(n_slots, D)[torch.clamp(slot, max=n_slots - 1)]
-    contrib = torch.where(keep[:, None], picked * flat_gate[:, None].to(dt),
-                          0).reshape(G, K, T // G, D)
+    contrib = logical_constraint(
+        torch.where(keep[:, None], picked * flat_gate[:, None].to(dt), 0),
+        ("tokens", None)).reshape(G, K, T // G, D)
     # the reference's scatter-add from zeros, in its order: k = 0 first
     out = contrib[:, 0]
     for k in range(1, K):

@@ -43,6 +43,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (active_rules, by_axes,
+                                              is_dtensor, merge_dims,
+                                              split_dim, zeros)
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import records
 from repro_torch.models.common import ParamSpec, rms_norm
@@ -95,7 +98,7 @@ def _rkvwg(cfg, p, x, x_prev):
     lw = torch.clamp(-torch.exp(w_raw), LW_MIN, LW_MAX)
 
     def heads(t):
-        return t.reshape(B, S, H, N).transpose(1, 2)
+        return split_dim(t, 2, (H, N)).transpose(1, 2)
 
     return heads(r), heads(k), heads(v), g, heads(lw)
 
@@ -173,15 +176,20 @@ def rwkv_apply(cfg, p, x, *, x_prev=None, state=None):
     if x_prev is None:
         x_prev = mlp_mod.token_shift(x)
     if state is None:
-        state = torch.zeros((B, H, N, N), dtype=torch.float32,
-                            device=x.device)
+        state = zeros((B, H, N, N), torch.float32,
+                      ("batch", "heads", None, None), x.device,
+                      active_rules() if is_dtensor(x) else None)
     r, k, v, g, lw = _rkvwg(cfg, p, x, x_prev)
     u = p["u"].to(torch.float32)
     if cfg.rwkv_mode == "chunked" and S % cfg.rwkv_chunk == 0 and S > 1:
-        y, state = wkv_chunked(r, k, v, lw, u, state, cfg.rwkv_chunk)
+        def wkv(*a):
+            return wkv_chunked(*a, cfg.rwkv_chunk)
     else:
-        y, state = wkv_recurrent(r, k, v, lw, u, state)
-    y = y.transpose(1, 2).reshape(B, S, D)
+        wkv = wkv_recurrent
+    heads = ("batch", "heads", None, None)
+    y, state = by_axes(wkv, (r, k, v, lw, u, state),
+                       (heads,) * 4 + (("heads", None), heads), (0, 5))
+    y = merge_dims(y.transpose(1, 2), (B, S, D))
     y = rms_norm(y.to(x.dtype), p["ln_x"])
     y = y * F.silu(g)
     return y @ p["wo"].to(x.dtype), state

@@ -18,9 +18,11 @@ a Python loop runs each stack, and with ``cfg.remat`` each block is
 checkpointed when autograd records, as the reference's scan remats
 each.  The MoE blocks' metrics (``moe_lb_loss``, ``moe_z_loss``,
 ``moe_drop_frac``) are averaged over the stack's layers, and
-``lm_loss`` adds the reference's aux terms.  The reference's
-``logical_constraint`` is dropped: one card, no mesh.  The
-encoder-decoder (whisper) is ``encdec.py``.
+``lm_loss`` adds the reference's aux terms.  Under the sharding rules
+the params and inputs are DTensors (``distributed/sharding.py``), and
+the reference's two ``logical_constraint``s (each block's input, the
+logits) redistribute them.  The encoder-decoder (whisper) is
+``encdec.py``.
 
 Caches are buffers the port owns, written in place: k and v (or MLA's
 latent) at ``len``; the rwkv block's float32 state and the last token's
@@ -42,6 +44,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import (active_rules, copy_into,
+                                              distribute, is_dtensor,
+                                              local_block,
+                                              logical_constraint,
+                                              recompute_context, region,
+                                              settle, settle_grad, zeros)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
@@ -148,10 +156,45 @@ def _adtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def lookup(table, tokens):
+    """``table[tokens]``.  On a DTensor table (the rules split its vocab
+    over "model") the vocab-parallel form in a ``local_map`` region:
+    each rank takes the rows its vocab block holds, zeros elsewhere, and
+    one all-reduce over the vocab's mesh dims sums them (one rank's row
+    and zeros: exact), so the table is never gathered."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rules = active_rules()
+    mesh = table.device_mesh
+    V = table.shape[0]
+    t_pl = rules.placements(rules.divisible_spec(("vocab", None),
+                                                 table.shape))
+    vocab = {i for i, p in enumerate(t_pl) if isinstance(p, Shard)}
+    tokens = distribute(tokens, ("batch",) + (None,) * (tokens.ndim - 1))
+    k_pl = tuple(Replicate() if i in vocab or not isinstance(p, Shard)
+                 or p.dim != 0 else p
+                 for i, p in enumerate(tokens.placements))
+    off, n = local_block(mesh, t_pl, 0, V)
+
+    def local(tl, kl):
+        at = kl.to(torch.int64) - off
+        hit = (at >= 0) & (at < n)
+        rows = tl[at.clamp(0, n - 1)]
+        return torch.where(hit[..., None], rows, torch.zeros((), dtype=
+                                                             rows.dtype))
+
+    out_pl = tuple(Partial() if i in vocab else p for i, p in enumerate(k_pl))
+    rows = region(local, mesh, (settle_grad(table), tokens), (t_pl, k_pl),
+                  (out_pl,))
+    return rows.redistribute(mesh, k_pl)  # one all-reduce of the rows
+
+
 def embed_tokens(cfg, params, tokens):
     # gather, then cast: the reference's cast-then-gather, without a cast
     # of the whole table
-    x = params["embed"][tokens].to(_adtype(cfg))
+    x = lookup(params["embed"], tokens).to(_adtype(cfg))
     if getattr(cfg, "scale_embed", False):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -168,9 +211,11 @@ def _embed(cfg, params, tokens, extra_embeds):
 
 
 def unembed(cfg, params, x):
-    """x: [B, S, D] -> float32 logits [B, S, V]."""
+    """x: [B, S, D] -> float32 logits [B, S, V], constrained to the rules'
+    ("batch", "seq_out", "vocab") split."""
     logits = x @ _unembed_weight(cfg, params, x.dtype)
-    return softcap(logits.to(torch.float32), cfg.logit_softcap)
+    logits = softcap(logits.to(torch.float32), cfg.logit_softcap)
+    return logical_constraint(logits, ("batch", "seq_out", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +297,9 @@ def block_prefill(cfg, lp, x, positions, window, prefix_len=None,
 def block_apply(cfg, lp, x, positions, window, prefix_len=None,
                 dense_mlp=False):
     """One block over the full sequence (training / forward): (x,
-    metrics)."""
+    metrics), the input constrained to the rules' ("batch", "seq")
+    split as the reference's is."""
+    x = logical_constraint(x, ("batch", "seq", None))
     return block_prefill(cfg, lp, x, positions, window, prefix_len,
                          dense_mlp)[:2]
 
@@ -267,7 +314,8 @@ def _scan_blocks(cfg, blocks, x, positions, prefix_len, dense_mlp: bool):
         args = (cfg, lp, carry, positions, next(windows), prefix_len,
                 dense_mlp)
         if cfg.remat and records(carry, *tree_leaves(lp)):
-            return checkpoint(block_apply, *args, use_reentrant=False)
+            return checkpoint(block_apply, *args, use_reentrant=False,
+                              context_fn=recompute_context)
         return block_apply(*args)
 
     x, per_layer = scan_layers(body, x, blocks)
@@ -299,9 +347,12 @@ def forward(cfg, params, tokens, *, extra_embeds=None):
 
 
 def _unembed_weight(cfg, params, dtype):
-    """The unembedding as a (D, V) matrix in ``dtype``."""
+    """The unembedding as a (D, V) matrix in ``dtype``.  A tied table's
+    gradient from here is summed before autograd adds the lookup's
+    (``settle_grad``: torch 2.11's DTensor cannot add a partial and a
+    split gradient)."""
     if cfg.tie_embeddings:
-        return params["embed"].to(dtype).T
+        return settle_grad(params["embed"]).to(dtype).T
     return params["lm_head"].to(dtype)
 
 
@@ -340,10 +391,70 @@ def blockwise_nll(cfg, params, x, targets):
     remat = records(x, W)
     for i in range(nblk):
         args = (cfg, x, targets, *carry, i, Wc[i])
-        carry = (checkpoint(_nll_block, *args, use_reentrant=False)
+        carry = (checkpoint(_nll_block, *args, use_reentrant=False,
+                            context_fn=recompute_context)
                  if remat else _nll_block(*args))
     m, s, tgt = carry
     return torch.log(torch.clamp(s, min=1e-30)) + m - tgt
+
+
+def token_nll(logits, targets):
+    """-log softmax(logits)[target]: logits [B, S, V] float32, targets
+    [B, S] -> [B, S].  A DTensor's logits split over the vocab (the
+    rules' "vocab" -> "model") take the vocab-parallel form in a
+    ``local_map`` region: each rank's max, exp-sum and target logit of
+    its vocab block, combined by all-reduces over the vocab's mesh dims,
+    so the [B, S, V] logits are never gathered."""
+    if not is_dtensor(logits):
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1,
+                             targets.to(torch.int64)[..., None])[..., 0]
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    V = logits.shape[-1]
+    vocab_dims = [i for i, p in enumerate(pl)
+                  if isinstance(p, Shard) and p.dim == 2]
+    row = tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+                for p in pl)
+    off = local_block(mesh, pl, 2, V)[0]
+
+    def local(lg, tg):
+        from torch.distributed import _functional_collectives as funcol
+
+        def over_vocab(t, op):
+            for i in vocab_dims:
+                t = funcol.all_reduce(t, op, (mesh, i))
+            return t
+
+        with torch.no_grad():  # a shift for stability: no gradient
+            m = over_vocab(lg.amax(-1), "max")
+        sumexp = _VocabSum.apply(torch.exp(lg - m[..., None]).sum(-1),
+                                 over_vocab)
+        loc = tg.to(torch.int64) - off
+        hit = (loc >= 0) & (loc < lg.shape[-1])
+        t = torch.gather(lg, -1, loc.clamp(0, lg.shape[-1] - 1)[..., None])
+        t = _VocabSum.apply(torch.where(hit, t[..., 0], 0.0), over_vocab)
+        return torch.log(sumexp) + m - t
+
+    return local_map(local, out_placements=(row,),
+                     in_placements=(pl, row), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, targets)
+
+
+class _VocabSum(torch.autograd.Function):
+    """A sum over the vocab's mesh dims whose result every rank holds:
+    backward hands each rank's block the result's gradient (the same on
+    every rank)."""
+
+    @staticmethod
+    def forward(ctx, t, over_vocab):
+        return over_vocab(t, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def lm_loss(cfg, params, batch):
@@ -362,11 +473,12 @@ def lm_loss(cfg, params, batch):
     if cfg.ce_block:
         nll = blockwise_nll(cfg, params, x, targets)
     else:
-        logp = torch.log_softmax(unembed(cfg, params, x), dim=-1)
-        nll = -torch.gather(logp, -1,
-                            targets.to(torch.int64)[..., None])[..., 0]
+        nll = token_nll(unembed(cfg, params, x), targets)
     mask = batch["loss_mask"].to(torch.float32)
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    # the sums whole before the divide (torch 2.11 cannot divide a split
+    # or partial sum's gradient)
+    loss = settle((nll * mask).sum()) / torch.clamp(settle(mask.sum()),
+                                                   min=1.0)
     if "moe_lb_loss" in metrics:
         loss = (loss + 0.01 * metrics["moe_lb_loss"]
                 + 1e-3 * metrics["moe_z_loss"])
@@ -420,36 +532,37 @@ def cache_axes(cfg) -> dict:
             "v": ("batch", None, "kv_seq", None)}
 
 
-def init_cache(cfg, batch: int, max_len: int, device="cuda"):
+def init_cache(cfg, batch: int, max_len: int, device="cuda", rules=None):
     """The stacked caches (``blocks``, and ``dense_blocks`` for deepseek's
     leading dense layers), zeros (each in its dtype), with the shared
-    length as an int32 scalar on the device."""
+    length as an int32 scalar on the device.  With ``rules``, each leaf
+    a DTensor placed by ``cache_axes`` (each rank allocates its block)."""
     _check_block(cfg)
     device = resolve_device(device)
     one = _layer_cache_shapes(cfg, batch, max_len)
+    axes = cache_axes(cfg)
     n_dense = _n_dense(cfg)
 
     def stack(n):
-        return {k: torch.zeros((n,) + sh, dtype=dt, device=device)
+        return {k: zeros((n,) + sh, dt, ("layers",) + axes[k], device, rules)
                 for k, (sh, dt) in one.items()}
 
     cache = {"blocks": stack(cfg.n_layers - n_dense),
-             "len": torch.zeros((), dtype=torch.int32, device=device)}
+             "len": zeros((), torch.int32, (), device, rules)}
     if n_dense:
         cache["dense_blocks"] = stack(n_dense)
     return cache
 
 
-def _write_entry(cache_l, entry: dict, S: int) -> None:
+def _write_entry(cache_l, entry: dict) -> None:
     """Write one layer's prefill entries into its cache: k and v at
     positions [0, S), the latent likewise, every other entry whole."""
     for name, t in entry.items():
-        if name in ("k", "v"):
-            cache_l[name][:, :, :S] = t
-        elif name == "latent":
-            cache_l[name][:, :S] = t
+        if name in ("k", "v", "latent"):
+            attn_mod.write_prefix(cache_l[name], 1 if name == "latent" else 2,
+                                  t)
         else:
-            cache_l[name].copy_(t)
+            copy_into(cache_l[name], t)
 
 
 def prefill(cfg, params, tokens, max_len: int, *, extra_embeds=None):
@@ -461,7 +574,8 @@ def prefill(cfg, params, tokens, max_len: int, *, extra_embeds=None):
     if S > max_len:
         raise ValueError(f"prefill: prompt of {S} tokens > max_len {max_len}")
     positions = _positions(x)
-    cache = init_cache(cfg, B, max_len, x.device)
+    cache = init_cache(cfg, B, max_len, x.device,
+                       active_rules() if is_dtensor(x) else None)
 
     for name, dense_mlp in STACKS:
         if name not in params:
@@ -472,7 +586,7 @@ def prefill(cfg, params, tokens, max_len: int, *, extra_embeds=None):
             lp, cache_l = xs
             y, _, entry = block_prefill(cfg, lp, carry, positions,
                                         next(windows), prefix_len, dense_mlp)
-            _write_entry(cache_l, entry, S)
+            _write_entry(cache_l, entry)
             return y, None
 
         x, _ = scan_layers(body, x, (params[name], cache[name]))
@@ -488,8 +602,8 @@ def _mix_decode(cfg, lp, h, cache_l, pos, window):
     input, the Mamba state and conv inputs)."""
     if cfg.block_kind == "rwkv":
         y, st = rwkv_mod.rwkv_decode(cfg, lp, h, cache_l)
-        cache_l["state"].copy_(st["state"])
-        cache_l["x_prev"].copy_(h)
+        copy_into(cache_l["state"], st["state"])
+        copy_into(cache_l["x_prev"], h)
         return y
     if cfg.block_kind == "hybrid":
         a, _ = attn_mod.gqa_decode(cfg, lp["attn"], h,
@@ -497,8 +611,8 @@ def _mix_decode(cfg, lp, h, cache_l, pos, window):
                                     "len": pos}, window=window)
         m, mc = mamba_mod.mamba_apply(cfg, lp["mamba"], h, cache={
             "h": cache_l["mamba_h"], "conv": cache_l["mamba_conv"]})
-        cache_l["mamba_h"].copy_(mc["h"])
-        cache_l["mamba_conv"].copy_(mc["conv"])
+        copy_into(cache_l["mamba_h"], mc["h"])
+        copy_into(cache_l["mamba_conv"], mc["conv"])
         return _hybrid_mix(cfg, lp, a, m)
     decode = (attn_mod.mla_decode if cfg.attn_kind == "mla"
               else attn_mod.gqa_decode)
@@ -514,7 +628,7 @@ def block_decode(cfg, lp, x, cache_l, pos, window, dense_mlp=False):
     if cfg.block_kind == "rwkv":
         out = mlp_mod.mlp_apply("rwkv_cmix", lp["mlp"], h2,
                                 x_prev=cache_l["cx_prev"])
-        cache_l["cx_prev"].copy_(h2)
+        copy_into(cache_l["cx_prev"], h2)
     else:
         out, _ = _mlp_apply(cfg, lp["mlp"], h2, dense_mlp)
     return x + out

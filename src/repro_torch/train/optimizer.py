@@ -8,6 +8,9 @@ computes it).  It writes the new moments and params into the old
 tensors in place, the counterpart of the reference's jitted step, which
 donates its state; the returned trees hold the same tensors.
 
+Under the sharding rules the leaves are DTensors: each gradient is
+redistributed to its param's placements before the update.
+
 The int8 compressor (``quantize_int8``, ``dequantize_int8``,
 ``ef_compress_tree``) is pure and gives the reference's integers bit for
 bit.  The reference's cross-pod gradient sync
@@ -71,7 +74,8 @@ class AdamW:
     def update(self, grads, state: AdamWState, params):
         """-> (params, state, {"grad_norm", "lr"}); params and state are
         updated in place."""
-        grads = [g.to(torch.float32) for g in tree_leaves(grads)]
+        grads = [_placed_like(g.to(torch.float32), p)
+                 for g, p in zip(tree_leaves(grads), tree_leaves(params))]
         gnorm = global_norm(grads)
         if self.clip_norm:
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -98,6 +102,18 @@ class AdamW:
             p.copy_(new.to(p.dtype))
         st = state._replace(count=count)
         return params, st, {"grad_norm": gnorm, "lr": lr}
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient redistributed to its param's placements (a
+    partial sum reduced, a gathered block split again); others as they
+    are."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(g, DTensor) and isinstance(p, DTensor) and (
+            tuple(g.placements) != tuple(p.placements)):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def global_norm(tree) -> torch.Tensor:

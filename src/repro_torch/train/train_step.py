@@ -9,6 +9,15 @@ writes the params and moments in place (the reference's jitted step
 donates its state).  ``abstract_train_state`` (the state as empty
 ``meta`` tensors) and ``train_state_axes`` (its logical axes) are what
 the dry run traces the step against (``launch/dryrun.py``).
+
+Under the sharding rules (``distributed/sharding.py``) the same step runs
+SPMD on DTensors: :func:`shard_train_state` and :func:`shard_batch`
+place the state by ``tree_shardings`` of its axes and the batch over
+"batch" (the reference's ``in_shardings``), and
+:func:`make_sharded_train_step` runs the step under the rules; AdamW
+updates each DTensor leaf in place, its gradient first redistributed to
+the leaf's placements, so the state comes back in the placements it
+went in with (the reference's ``out_shardings``).
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.qhead import tree_leaves, tree_map
 from repro_torch.train.optimizer import AdamWState
 
@@ -123,3 +133,34 @@ def make_train_step(model, optimizer, *, microbatches: int = 1):
                           opt_state=opt_state), {**metrics, **opt_metrics}
 
     return train_step
+
+
+def shard_train_state(state: TrainState, model, optimizer,
+                      rules) -> TrainState:
+    """``state`` (whole tensors on every rank) placed by the rules: each
+    leaf a DTensor of its block under ``tree_shardings`` of
+    :func:`train_state_axes`."""
+    return shd.distribute_tree(state, train_state_axes(model, optimizer),
+                               rules)
+
+
+def shard_batch(batch: dict, rules) -> dict:
+    """Each batch leaf placed with its leading dim over "batch"."""
+    return {k: shd.distribute(t, ("batch",) + (None,) * (t.ndim - 1), rules)
+            for k, t in batch.items()}
+
+
+def make_sharded_train_step(model, optimizer, rules, *,
+                            microbatches: int = 1):
+    """:func:`make_train_step` run under ``rules`` on a state and batch
+    placed by :func:`shard_train_state` and :func:`shard_batch`; returns
+    the state in the same placements and the metrics replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    step = make_train_step(model, optimizer, microbatches=microbatches)
+
+    def sharded_step(state: TrainState, batch):
+        with shd.use_rules(rules), implicit_replication():
+            return step(state, batch)
+
+    return sharded_step

@@ -118,8 +118,14 @@ def test_run_amper_cell_report(multi_pod):
     assert r["memory"]["argument_bytes_per_dev"] == 5 * 4096 // shards
     assert r["memory"]["table_bytes"] == 5 * 4096
     assert r["roofline"]["bytes_accessed"] == 5 * 4096 // shards
-    assert r["roofline"]["bottleneck"] == "memory"
-    assert r["roofline"]["t_collective_s"] is None
+    # the traced draw's collectives and temporaries, one shard's
+    roof, coll = r["roofline"], r["collectives"]
+    assert roof["coll_bytes_per_dev"] == sum(coll["bytes_by_kind"].values())
+    assert roof["coll_bytes_per_dev"] > 0 and coll["counts"]["all-gather"] > 0
+    assert roof["t_collective_s"] == roof["coll_bytes_per_dev"] / 450e9
+    assert r["memory"]["temp_bytes_per_dev"] > 0
+    terms = {k: roof[f"t_{k}_s"] for k in ("compute", "memory", "collective")}
+    assert roof["bottleneck"] == max(terms, key=terms.get)
     assert 0 <= r["draw_index_range"][0] <= r["draw_index_range"][1] < 4096
     assert r["fr_mode"] == "broadcast" and r["device"] == "cpu"
 
@@ -165,20 +171,22 @@ def test_reduced_sweep_ok_or_reference_skip(arch, jdry, monkeypatch):
             assert shape != "long_500k" or jcfg.supports_long_context
             mem, roof = r["memory"], r["roofline"]
             assert mem["argument_bytes_per_dev"] > 0
-            assert mem["peak_live_bytes"] >= mem["argument_bytes"]
-            assert mem["temp_bytes_per_dev"] is None
-            assert roof["coll_bytes_per_dev"] is None
-            n_dev = 512 if multi_pod else 256
+            # rank 0's program: its inputs are its blocks
+            assert mem["peak_bytes_per_dev"] >= mem["argument_bytes_per_dev"]
+            assert mem["temp_bytes_per_dev"] == (
+                mem["peak_bytes_per_dev"] - mem["argument_bytes_per_dev"])
+            assert roof["coll_bytes_per_dev"] is not None
+            assert roof["t_collective_s"] is not None
             assert roof["flops"] == pytest.approx(
-                (r["traced_flops"] + r["correction_flops"]) / n_dev)
+                r["traced_flops"] + r["correction_flops"])
             assert r["traced_flops"] > 0
             kind = SMALL_CELLS[shape].kind
             # the kernels' calls are corrected only where the step serves
             assert bool(r["corrected_terms"]) == (
                 kind != "train" and over["block_kind"] != "rwkv")
             n_ok += 1
-    # one trace a cell, shared by both meshes
-    assert len(traces) * 2 == n_ok
+    # one trace a cell and mesh: the mesh is part of the trace
+    assert len(traces) == n_ok
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
@@ -195,16 +203,16 @@ def test_depth_extrapolation_is_exact(shape, monkeypatch):
     assert r["status"] == "ok", r.get("traceback")
     train = shape == "train_4k"
     assert r["traced_depths"] == ([2, 5, 8] if train else [2, 8])
-    prog, _, _, cfg, _ = dryrun.lower_cell("stablelm-1.6b", shape, False,
-                                           cfg_overrides=over)
-    full = dryrun._trace(prog, cfg)
+    prog, _, rules, cfg, _ = dryrun.lower_cell("stablelm-1.6b", shape, False,
+                                               cfg_overrides=over)
+    full = dryrun._trace(prog, cfg, (False, rules.rules))
     assert r["traced_flops"] == full["flops"]
     assert r["traced_bytes"] == full["bytes"]
     assert r["memory"]["peak_live_bytes"] == full["peak_live_bytes"]
     assert r["correction_flops"] == pytest.approx(full["correction_flops"])
     assert r["corrected_terms"] == full["terms"]
-    line = dryrun._extrapolate({d: q["bytes"] for (_, _, d, _), q in
-                                traces.items() if d in (2, 8)}, 14)
+    line = dryrun._extrapolate({key[2]: q["bytes"] for key, q in
+                                traces.items() if key[2] in (2, 8)}, 14)
     assert (line == full["bytes"]) != train
 
 
