@@ -2579,7 +2579,7 @@ def resume_flat(state: dict, root: str) -> dict:
     """(a) and (d): CartPole fused AMPER-fr at 1M rows."""
     from repro_torch import obs, prng
     from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.rl.dqn import REPLAYED_DRAWS, make_dqn
+    from repro_torch.rl.dqn import make_dqn
 
     cfg = resume_cfg()
     n, interval = RESUME_A
@@ -2626,15 +2626,15 @@ def resume_flat(state: dict, root: str) -> dict:
     metrics = [r for r in obs.read_jsonl(log)
                if r["kind"] == "snapshot"][-1]["metrics"]
     spans = {name: metrics[f"span_{name}_ms"]["count"]
-             for name in ("replay_sample", "checkpoint_save")}
-    # a replayed draw records no span but counts in REPLAYED_DRAWS: the
-    # eager learn steps and the warm-up record spans, the replays count
-    replayed = metrics[REPLAYED_DRAWS]["value"]
+             for name in ("replay_sample", "checkpoint_save", "steady_step")}
+    # a replayed draw records no replay_sample span: the eager learn
+    # steps and the warm-up record one, and every steady step (the
+    # warm-up and the replays) a steady_step span
     steady = steady_learn_steps(cfg, 0, n)
     if spans != {"replay_sample": learn_steps_between(cfg, 0, n)
-                 - steady + 1, "checkpoint_save": n // interval} \
-            or replayed != steady - 1:
-        fail("resume_d", f"span counts {spans}, {replayed} replayed draws")
+                 - steady + 1, "checkpoint_save": n // interval,
+                 "steady_step": steady}:
+        fail("resume_d", f"span counts {spans}")
     if not same_state(st_a, st_d):
         fail("resume_d", "the run with telemetry ended in another state")
     del st_d
@@ -2658,7 +2658,7 @@ def resume_flat(state: dict, root: str) -> dict:
                   "resume_s": resume_s,
                   "equal_resumed_uninterrupted_train": True, **saves},
             "d": {"launches": got_d, "run_s": run_d_s,
-                  "span_counts": spans, "replayed_draws": replayed,
+                  "span_counts": spans,
                   "span_checkpoint_save_ms": metrics[
                       "span_checkpoint_save_ms"],
                   "span_replay_sample_ms_mean": metrics[

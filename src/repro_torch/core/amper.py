@@ -446,10 +446,12 @@ class AmperSampler:
     def update(self, state: AmperState, idx: torch.Tensor,
                priority: torch.Tensor) -> AmperState:
         """Priority write (a TCAM row write in hardware), in place."""
-        w = last_writer(idx)
-        p = priority[w]
-        state.pq[idx] = qz.quantize(p, self.cfg.v_max, self.cfg.frac_bits)
-        state.valid[idx] = p > 0
+        with span("priority_write", device_time=True, rows=idx.shape[0]):
+            w = last_writer(idx)
+            p = priority[w]
+            state.pq[idx] = qz.quantize(p, self.cfg.v_max,
+                                        self.cfg.frac_bits)
+            state.valid[idx] = p > 0
         return state
 
     def build_csp(self, state: AmperState, key: torch.Tensor) -> CspResult:
@@ -519,9 +521,10 @@ class UniformSampler:
 
     def update(self, state: UniformState, idx: torch.Tensor,
                priority: torch.Tensor) -> UniformState:
-        p = priority.to(torch.float32)[last_writer(idx)]
-        state.priorities[idx] = p
-        state.valid[idx] = p > 0
+        with span("priority_write", device_time=True, rows=idx.shape[0]):
+            p = priority.to(torch.float32)[last_writer(idx)]
+            state.priorities[idx] = p
+            state.valid[idx] = p > 0
         return state
 
     def sample(self, state: UniformState, key: torch.Tensor, batch: int,

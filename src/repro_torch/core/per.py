@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import prng, resolve_device
 from repro_torch.core.amper import last_writer
+from repro_torch.obs.tracing import span
 from repro_torch.xla_float import div_const
 
 
@@ -81,20 +82,21 @@ class SumTreePER:
         """Set the priorities at ``idx``: per-level delta scatter-adds from
         the leaves to the root, in place.  Only the last occurrence of a
         duplicated row carries its delta, as in the reference."""
-        tree = state.tree
-        idx = idx.to(torch.int64)
-        leaf = idx + self.n_pow2
-        delta = priority.to(torch.float32) - tree[leaf]
-        order = torch.arange(1, idx.shape[0] + 1, device=idx.device)
-        last = torch.zeros(self.capacity, dtype=torch.int64,
-                           device=idx.device).scatter_reduce_(
-                               0, idx, order, "amax")
-        delta = torch.where(last[idx] == order, delta,
-                            torch.zeros_like(delta))
-        node = leaf
-        for _ in range(self.depth + 1):  # leaf level up to the root
-            tree.index_add_(0, node, delta)
-            node = node // 2
+        with span("priority_write", device_time=True, rows=idx.shape[0]):
+            tree = state.tree
+            idx = idx.to(torch.int64)
+            leaf = idx + self.n_pow2
+            delta = priority.to(torch.float32) - tree[leaf]
+            order = torch.arange(1, idx.shape[0] + 1, device=idx.device)
+            last = torch.zeros(self.capacity, dtype=torch.int64,
+                               device=idx.device).scatter_reduce_(
+                                   0, idx, order, "amax")
+            delta = torch.where(last[idx] == order, delta,
+                                torch.zeros_like(delta))
+            node = leaf
+            for _ in range(self.depth + 1):  # leaf level up to the root
+                tree.index_add_(0, node, delta)
+                node = node // 2
         return state
 
     def sample(self, state: SumTreeState, key: torch.Tensor, batch: int,
@@ -137,7 +139,9 @@ class CumsumPER:
 
     def update(self, state: CumsumState, idx: torch.Tensor,
                priority: torch.Tensor) -> CumsumState:
-        state.priorities[idx] = priority.to(torch.float32)[last_writer(idx)]
+        with span("priority_write", device_time=True, rows=idx.shape[0]):
+            state.priorities[idx] = priority.to(torch.float32)[
+                last_writer(idx)]
         return state
 
     def sample(self, state: CumsumState, key: torch.Tensor, batch: int,

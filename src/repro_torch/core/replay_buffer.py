@@ -453,7 +453,7 @@ class ReplayBuffer:
         overrides the constructor's IS exponent for this draw.  In frame
         mode ``transitions`` is the materialized float batch
         (:meth:`materialize`); the uint8 frames never leave the buffer."""
-        with span("replay_sample"):
+        with span("replay_sample", device_time=True):
             idx = self.sampler.sample(state.sampler_state, key, batch)
         idx_l = idx.to(torch.int64)
         if self.frame_store is not None:

@@ -377,10 +377,11 @@ class ShardedAmperSampler(_Shards):
                priority: torch.Tensor) -> ShardedAmperState:
         """Priority write at global rows ``idx`` (a TCAM row write), in
         place; a duplicated row takes its last value."""
-        p = priority.to(torch.float32)
-        self._write(state.pq, idx,
-                    qz.quantize(p, self.cfg.v_max, self.cfg.frac_bits))
-        self._write(state.valid, idx, p > 0)
+        with span("priority_write", device_time=True, rows=idx.shape[0]):
+            p = priority.to(torch.float32)
+            self._write(state.pq, idx,
+                        qz.quantize(p, self.cfg.v_max, self.cfg.frac_bits))
+            self._write(state.valid, idx, p > 0)
         return state
 
     def sample(self, state: ShardedAmperState, key: torch.Tensor, batch: int,
@@ -388,7 +389,7 @@ class ShardedAmperSampler(_Shards):
         del stratified  # CSP sampling is uniform by construction
         body = _fr_sample_body(self.cfg, batch, self.mesh, self.axis_names,
                                self.local_csp_capacity)
-        with span("sharded_sample"):
+        with span("sharded_sample", device_time=True):
             return body(state.pq, state.valid, key)
 
     def membership(self, state: ShardedAmperState,
@@ -439,7 +440,8 @@ class ShardedPERSampler(_Shards):
 
     def update(self, state: ShardedPERState, idx: torch.Tensor,
                priority: torch.Tensor) -> ShardedPERState:
-        self._write(state.priorities, idx, priority.to(torch.float32))
+        with span("priority_write", device_time=True, rows=idx.shape[0]):
+            self._write(state.priorities, idx, priority.to(torch.float32))
         return state
 
     def sample(self, state: ShardedPERState, key: torch.Tensor, batch: int,

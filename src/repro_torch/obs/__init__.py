@@ -5,11 +5,15 @@ Counterpart of ``repro/obs``, in four layers, each usable alone:
 * :mod:`~repro_torch.obs.metrics` — the registry: counters, gauges and
   histograms with one private cell per writer thread, cumulative
   Prometheus-style semantics, and ``Snapshot.diff`` for per-run views.
-* :mod:`~repro_torch.obs.tracing` — ``span("name")`` wall-time spans
-  recording into ``span_<name>_ms`` histograms of the current registry;
-  no-ops when the registry is disabled (the process default) or inside
-  a CUDA graph capture or ``torch.compile`` trace, and a
-  ``record_function`` range under a profiler or with ``profile=True``.
+* :mod:`~repro_torch.obs.tracing` — ``span("name", **attrs)`` spans
+  recording into ``span_<name>_ms`` histograms and the span log of the
+  current registry, with device times on a card
+  (``span_<name>_device_ms``, ``Registry.spans()``; under a profiler
+  only for spans opened with ``device_time=True``); they record while
+  the registry is enabled, or on the process default while a
+  ``torch.profiler`` runs, open a ``record_function`` range under a
+  profiler, and no-op inside a CUDA graph capture or ``torch.compile``
+  trace.
 * :mod:`~repro_torch.obs.probes` — replay health: the Fig. 7 binning and
   divergences, the windowed :class:`SamplingErrorMonitor`, and the draw
   probe behind :class:`ReplayHealth`.
@@ -22,9 +26,12 @@ The instrument names are the reference's (its catalog in
 ``span_csp_rebuild_ms``, ``span_sharded_sample_ms``,
 ``span_checkpoint_save_ms``, ``checkpoint_full_bytes``,
 ``checkpoint_delta_bytes``, ``checkpoint_chain_len`` and the health
-gauges, and one of its own: ``replay_sample_replayed_total``, the draws
-that a captured agent step ran in CUDA graph replays, where no span is
-recorded (:mod:`repro_torch.rl.dqn`).  Instrumentation is host-side only: it adds no device launch,
+gauges, and spans of its own: ``priority_write`` (attribute ``rows``),
+the DQN runner's ``runner_advance`` (``steps``), ``steady_step`` and
+``eager_step`` (one of the two a runner step; a captured step's replay
+is a ``steady_step``, in which the draw records no ``replay_sample``:
+:mod:`repro_torch.rl.dqn`).  A span timed on a card adds
+``span_<name>_device_ms``.  Instrumentation adds no kernel launch,
 enabled or not.
 """
 from typing import NamedTuple, Optional
@@ -34,7 +41,8 @@ from repro_torch.obs.exporters import (JsonlExporter, PrometheusServer,
                                        read_jsonl, write_prometheus)
 from repro_torch.obs.metrics import (INT_BUCKETS, TIME_BUCKETS_MS,
                                      US_BUCKETS, Counter, Gauge, Histogram,
-                                     Registry, Snapshot, hist_stats)
+                                     Registry, Snapshot, SpanRecord,
+                                     hist_stats)
 from repro_torch.obs.probes import (BINS, ReplayHealth, SamplingErrorMonitor,
                                     chi_square, kl_nats, make_replay_probe,
                                     priority_bin_counts)
@@ -52,7 +60,6 @@ class Telemetry(NamedTuple):
         run finishes.
       probe_every: replay-health probe cadence in draws (0 disables it).
       window: SamplingErrorMonitor window, in probed draws.
-      profile: spans also open ``torch.profiler.record_function`` ranges.
     """
 
     registry: Optional[Registry] = None
@@ -60,13 +67,13 @@ class Telemetry(NamedTuple):
     prometheus_out: Optional[str] = None
     probe_every: int = 16
     window: int = 200
-    profile: bool = False
 
 
 __all__ = [
     "BINS", "Counter", "Gauge", "Histogram", "INT_BUCKETS",
     "JsonlExporter", "PrometheusServer", "Registry", "ReplayHealth",
-    "SamplingErrorMonitor", "Snapshot", "TIME_BUCKETS_MS", "Telemetry",
+    "SamplingErrorMonitor", "Snapshot", "SpanRecord", "TIME_BUCKETS_MS",
+    "Telemetry",
     "US_BUCKETS", "chi_square", "get_registry", "hist_stats", "kl_nats",
     "make_replay_probe", "parse_prometheus", "priority_bin_counts",
     "prometheus_text", "read_jsonl", "set_registry", "span",

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/obs/exporters.py`` with the same schema: a JSONL
 line is one self-describing record (``kind``: ``snapshot`` | ``event``,
-``schema`` 1), and the Prometheus text uses the same series names
-(``repro_`` prefix, ``_total`` counters, cumulative ``_bucket{le=...}``
-histograms).  So either package's ``read_jsonl``, ``parse_prometheus``
+``schema`` 1; the port's closed spans are events named ``span``), and
+the Prometheus text uses the same series names (``repro_`` prefix,
+``_total`` counters, cumulative ``_bucket{le=...}`` histograms).  So
+either package's ``read_jsonl``, ``parse_prometheus``
 and ``report`` read the other's output.  A crashed run keeps every
 flushed line; ``read_jsonl`` skips a torn last line.
 """
@@ -71,6 +72,13 @@ class JsonlExporter:
         written, preemption, run start/end)."""
         self._write({"kind": "event", "schema": SCHEMA_VERSION,
                      "ts": time.time(), "event": name, **fields})
+
+    def write_spans(self, spans) -> None:
+        """One ``event=span`` line for each closed span of ``spans``
+        (records of :meth:`Registry.spans`, device times resolved)."""
+        for s in spans:
+            self._write({"kind": "event", "schema": SCHEMA_VERSION,
+                         "ts": time.time(), "event": "span", **s._asdict()})
 
     def close(self) -> None:
         with self._lock:

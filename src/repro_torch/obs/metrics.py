@@ -17,14 +17,23 @@ percentiles from equal observations.  All of it runs on the host.
 
 Instruments are cumulative (Prometheus-style); ``Snapshot.diff(base)``
 subtracts counters and histogram buckets for a per-run view.
+
+A registry also keeps the bounded log of its spans (:class:`SpanLog`,
+written by :mod:`repro_torch.obs.tracing`).  A span timed on the card
+holds a pair of CUDA events until a read (:meth:`Registry.spans`,
+:meth:`Registry.snapshot`) turns them into device times on the host's
+``perf_counter_ns`` clock; this module calls only the events' own
+methods and imports no torch.
 """
 from __future__ import annotations
 
 import bisect
+import collections
+import itertools
 import math
 import threading
 import time
-from typing import Any, Iterable
+from typing import Any, Iterable, NamedTuple
 
 from repro_torch.analysis.locks import make_lock
 
@@ -290,18 +299,152 @@ class Snapshot:
         return out
 
 
+# The span log's bound: past it a new record drops the oldest one.
+SPAN_LOG_LIMIT = 65_536
+
+
+class SpanRecord(NamedTuple):
+    """One closed span, as :meth:`Registry.spans` returns it.  Times are
+    nanoseconds on ``time.perf_counter_ns``'s clock; the device pair is
+    None where the span was not timed on a card."""
+
+    seq: int              # position in the order spans closed
+    id: int
+    parent: int           # the enclosing span's id on this thread, or 0
+    root: int             # the outermost enclosing span's id (own if none)
+    name: str
+    attrs: dict
+    host_start_ns: int
+    host_end_ns: int
+    self_ns: int          # host time less that of the direct children
+    device_start_ns: int | None
+    device_end_ns: int | None
+
+    @property
+    def host_ms(self) -> float:
+        return (self.host_end_ns - self.host_start_ns) / 1e6
+
+    @property
+    def device_ms(self) -> float | None:
+        if self.device_start_ns is None:
+            return None
+        return (self.device_end_ns - self.device_start_ns) / 1e6
+
+
+class _SpanEntry:
+    """A record in the log; ``events`` is (device, start, end) until a
+    read resolves it into ``device_ns``."""
+
+    __slots__ = ("seq", "id", "parent", "root", "name", "attrs", "t0", "t1",
+                 "self_ns", "events", "device_ns")
+
+    def record(self) -> SpanRecord:
+        d0, d1 = self.device_ns or (None, None)
+        return SpanRecord(self.seq, self.id, self.parent, self.root,
+                          self.name, self.attrs, self.t0, self.t1,
+                          self.self_ns, d0, d1)
+
+
+class SpanLog:
+    """A registry's closed spans, oldest first, at most ``limit`` of them
+    (``dropped`` counts the records the bound pushed out).
+
+    A writer appends without a lock.  Timing events come from a pool per
+    device and go back to it once read.  ``anchors`` maps a device to
+    one event and a host time no earlier than the card ran it (taken
+    after a synchronise), which places every other event of that device
+    on the host's clock; ``streams`` keeps the streams they record on.
+    The records that still hold a pair wait in a queue of their own, so
+    a read visits only those.  Dropping a record whose end event is
+    still pending waits for it, so that a pooled event is never in
+    flight.
+    """
+
+    def __init__(self, registry: "Registry", limit: int = SPAN_LOG_LIMIT):
+        self._registry = registry
+        self.limit = limit
+        self.dropped = 0
+        self._records: collections.deque = collections.deque()
+        self._pending: collections.deque = collections.deque()
+        self._seq = itertools.count()
+        self.pools: dict[int, list] = {}
+        self.anchors: dict[int, tuple] = {}
+        self.streams: dict[int, Any] = {}
+
+    def __len__(self) -> int:
+        return len(self._records)
+
+    def append(self, entry: _SpanEntry) -> None:
+        if len(self._records) >= self.limit:
+            self._drop()
+        entry.seq = next(self._seq)
+        self._records.append(entry)
+        if entry.events is not None:
+            self._pending.append(entry)
+
+    def _drop(self) -> None:
+        with self._registry._lock:
+            if len(self._records) < self.limit:
+                return
+            old = self._records.popleft()
+            self.dropped += 1
+            events, old.events = old.events, None
+        if events is not None:
+            dev, start, end = events
+            if not end.query():
+                end.synchronize()
+            self.pools[dev] += (start, end)
+
+    def resolve(self, wait: bool) -> None:
+        """Turn event pairs into device times on the host clock and add
+        each to ``span_<name>_device_ms``, oldest first; without ``wait``
+        a read stops at the first pair still pending."""
+        done = []
+        with self._registry._lock:
+            pending = self._pending
+            while pending:
+                e = pending[0]
+                if e.events is not None:
+                    dev, start, end = e.events
+                    if not end.query():
+                        if not wait:
+                            break
+                        end.synchronize()
+                    # an elapsed time is a float32 of ms: the start's
+                    # place drifts by its rounding (0.5 us at 6 s from
+                    # the anchor), the duration, timed from the start,
+                    # does not
+                    anchor, anchor_ns = self.anchors[dev]
+                    d0 = anchor_ns + round(anchor.elapsed_time(start) * 1e6)
+                    e.device_ns = (d0,
+                                   d0 + round(start.elapsed_time(end) * 1e6))
+                    e.events = None
+                    self.pools[dev] += (start, end)
+                    done.append((e.name,
+                                 (e.device_ns[1] - e.device_ns[0]) / 1e6))
+                pending.popleft()
+        for name, ms in done:
+            self._registry.histogram(
+                f"span_{name}_device_ms", help=f"device time of {name} (ms)",
+                bounds=TIME_BUCKETS_MS).observe(ms)
+
+    def records(self) -> list[SpanRecord]:
+        return [e.record() for e in list(self._records)]
+
+
 class Registry:
     """Named instrument container.
 
     ``enabled=False`` turns every record call into one attribute check.
-    Instrumentation is host-side only, so it never adds a device launch
-    either way.
+    Instruments record on the host; a span timed on a card records a pair
+    of CUDA events, and no instrument adds a kernel launch either way.
     """
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self._lock = make_lock("obs.registry")
         self._instruments: dict[str, Instrument] = {}
+        self.span_log = SpanLog(self)
 
     def _get(self, name: str, factory) -> Any:
         inst = self._instruments.get(name)
@@ -328,7 +471,14 @@ class Registry:
         with self._lock:
             return dict(self._instruments)
 
+    def spans(self) -> list[SpanRecord]:
+        """Every span in the log, oldest first, device times resolved
+        (waiting for the card where a pair is still pending)."""
+        self.span_log.resolve(wait=True)
+        return self.span_log.records()
+
     def snapshot(self) -> Snapshot:
+        self.span_log.resolve(wait=False)
         insts = self.instruments()
         data = {name: inst.read() for name, inst in insts.items()}
         meta = {name: {"kind": inst.kind,

@@ -74,17 +74,13 @@ from repro_torch.core.replay_buffer import FrameStore, ReplayBuffer
 from repro_torch.core.samplers import make_sampler
 from repro_torch.kernels import ops
 from repro_torch.models.qhead import make_qhead, tree_leaves, tree_map
-from repro_torch.obs.tracing import get_registry
+from repro_torch.obs.tracing import span
 from repro_torch.rl import envs as envs_mod
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import replay_checkpoint as rck
 from repro_torch.xla_float import fma32
 
 RETURN_RING = 64  # completed-episode returns kept for the train metric
-# the telemetry counter of draws run by graph replays (a replayed draw
-# records no ``replay_sample`` span: spans plus this count every draw)
-REPLAYED_DRAWS = "replay_sample_replayed_total"
-REPLAYED_DRAWS_HELP = "replay draws run inside a CUDA graph replay"
 
 # agent name -> (Q-head kind, use Double-DQN targets); pixel envs promote
 # the head kind to its conv counterpart.
@@ -565,22 +561,24 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
                 self.idx.append(idx)
 
         def _eager(self, t: int) -> None:
-            learn_now = learns(t)
-            new, ret_mean, loss, idx, _ = step_core(
-                self.state, self.keys[t], self.tab.eps[t], self.tab.lr[t],
-                self.tab.beta[t], learn_now, t % cfg.target_sync == 0)
-            if self.capture:  # into the static buffers
-                _assign(self.state, new)
-                self.state = self.state._replace(
-                    step=new.step, buffer=self.state.buffer._replace(
-                        pos=new.buffer.pos, size=new.buffer.size,
-                        total_adds=new.buffer.total_adds,
-                        add_gen=new.buffer.add_gen))
-                self.card_stale = True
-            else:
-                self.state = new
-            self.info["eager_steps"] += 1
-            self._record(t, ret_mean, loss, idx)
+            with span("eager_step"):
+                learn_now = learns(t)
+                new, ret_mean, loss, idx, _ = step_core(
+                    self.state, self.keys[t], self.tab.eps[t],
+                    self.tab.lr[t], self.tab.beta[t], learn_now,
+                    t % cfg.target_sync == 0)
+                if self.capture:  # into the static buffers
+                    _assign(self.state, new)
+                    self.state = self.state._replace(
+                        step=new.step, buffer=self.state.buffer._replace(
+                            pos=new.buffer.pos, size=new.buffer.size,
+                            total_adds=new.buffer.total_adds,
+                            add_gen=new.buffer.add_gen))
+                    self.card_stale = True
+                else:
+                    self.state = new
+                self.info["eager_steps"] += 1
+                self._record(t, ret_mean, loss, idx)
 
         def _body(self) -> None:
             """The steady learn step on the static buffers, at the card's
@@ -599,33 +597,32 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
             self.ctr.add_(1)
 
         def _steady(self, t: int) -> None:
-            if self.card_stale:  # eager steps ran: the card's counters
-                b = self.card.buffer
-                for x, v in ((self.ctr, t), (b.pos, self.state.buffer.pos),
-                             (b.size, self.state.buffer.size),
-                             (b.total_adds, self.state.buffer.total_adds),
-                             (b.add_gen, self.state.buffer.add_gen)):
-                    x.fill_(v)
-                self.card_stale = False
-            if dev.type != "cuda":
-                self._body()
-            elif self.graph is None:
-                self._warm_up_and_capture()
-            else:
-                self.graph.replay()
-                ops.replayed(self.info["replay_launches"])
-                self.info["graph_replays"] += 1
-                # the replayed draw records no span (nothing runs on the
-                # host): telemetry counts it here
-                reg = get_registry()
-                if reg.enabled:
-                    reg.counter(REPLAYED_DRAWS, help=REPLAYED_DRAWS_HELP
-                                ).add()
-            self.state = self.state._replace(
-                step=t + 1, buffer=rb.advance(self.state.buffer,
-                                              cfg.num_envs))
-            self._record(t, self.ret_tab[t], self.loss_tab[t],
-                         self.idx_tab[t] if self.idx is not None else None)
+            # a replay's draw, learn and write record no span of their
+            # own (nothing runs on the host): this span counts them
+            with span("steady_step"):
+                if self.card_stale:  # eager steps ran: the card's counters
+                    b = self.card.buffer
+                    for x, v in ((self.ctr, t),
+                                 (b.pos, self.state.buffer.pos),
+                                 (b.size, self.state.buffer.size),
+                                 (b.total_adds, self.state.buffer.total_adds),
+                                 (b.add_gen, self.state.buffer.add_gen)):
+                        x.fill_(v)
+                    self.card_stale = False
+                if dev.type != "cuda":
+                    self._body()
+                elif self.graph is None:
+                    self._warm_up_and_capture()
+                else:
+                    self.graph.replay()
+                    ops.replayed(self.info["replay_launches"])
+                    self.info["graph_replays"] += 1
+                self.state = self.state._replace(
+                    step=t + 1, buffer=rb.advance(self.state.buffer,
+                                                  cfg.num_envs))
+                self._record(t, self.ret_tab[t], self.loss_tab[t],
+                             self.idx_tab[t] if self.idx is not None
+                             else None)
 
         def _warm_up_and_capture(self) -> None:
             """Step t on a side stream (the kernels' scratch for it is made
@@ -655,12 +652,14 @@ def make_dqn(cfg: DQNConfig, device="cuda", mesh=None) -> DQN:
 
         def advance(self, stop: int) -> AgentState:
             """Run steps ``state.step .. stop - 1``; returns the state."""
-            for t in range(self.state.step, stop):
-                if (self.capture and learns(t)
-                        and t % cfg.target_sync != 0):
-                    self._steady(t)
-                else:
-                    self._eager(t)
+            start = self.state.step
+            with span("runner_advance", steps=max(stop - start, 0)):
+                for t in range(start, stop):
+                    if (self.capture and learns(t)
+                            and t % cfg.target_sync != 0):
+                        self._steady(t)
+                    else:
+                        self._eager(t)
             return self.state
 
     def lockstep(keys: torch.Tensor, n_steps: int):

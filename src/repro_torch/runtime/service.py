@@ -181,10 +181,13 @@ class _RunTelemetry:
             help="pipeline pause per snapshot: COW capture cost in async "
                  "mode, the blocking save in sync mode (microseconds)")
         self.base = r.snapshot()
+        # the run's spans are those logged after this one
+        self.span_base = max((s.seq for s in r.span_log.records()),
+                             default=-1)
         self.exporter = (obs.JsonlExporter(self.spec.metrics_out)
                          if self.spec.metrics_out else None)
         self.health: obs.ReplayHealth | None = None
-        self._prev = obs.set_registry(r, profile=self.spec.profile)
+        self._prev = obs.set_registry(r)
         self._finished = False
 
     def probe_hook(self, sampler, batch: int):
@@ -212,12 +215,15 @@ class _RunTelemetry:
             self.exporter.write_event(name, **fields)
 
     def finish(self, extra: dict | None = None) -> None:
-        """Final JSONL snapshot + Prometheus dump, then restore the
-        previously installed global registry.  Idempotent."""
+        """The run's spans and a final snapshot into the JSONL log, the
+        Prometheus dump, then restore the previously installed global
+        registry.  Idempotent."""
         if self._finished:
             return
         self._finished = True
         if self.exporter is not None:
+            self.exporter.write_spans(s for s in self.registry.spans()
+                                      if s.seq > self.span_base)
             self.exporter.write_snapshot(self.diff(), extra=extra)
             self.exporter.close()
         if self.spec.prometheus_out:

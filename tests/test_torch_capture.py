@@ -34,7 +34,7 @@ import pytest
 import torch
 
 from repro.rl import dqn as jd
-from repro_torch import interop, prng
+from repro_torch import interop, obs, prng
 from repro_torch.kernels import ops
 from repro_torch.models.qhead import tree_leaves
 from repro_torch.rl import dqn as td
@@ -210,6 +210,58 @@ def test_runner_continues_and_refuses_other_paths():
         other = td.make_dqn(dataclasses.replace(cfg, **kw), device="cpu")
         with pytest.raises(ValueError, match="capture needs"):
             other.runner(other.init(key), key, 10, capture=True)
+
+
+@pytest.mark.parametrize("capture", [True, False], ids=["static", "eager"])
+def test_runner_spans_count_its_steps(capture):
+    """With a registry the runner logs one ``runner_advance`` an advance
+    (its ``steps`` attribute), one ``steady_step`` or ``eager_step`` a
+    step, a ``priority_write`` of ``num_envs`` rows a step (the ring's
+    inserts), and a ``replay_sample`` and a ``priority_write`` of
+    ``batch`` rows a learn step on the CPU; and it runs bit for bit as
+    it does untraced."""
+    cfg = td.DQNConfig(**CFG, amper_fr_mode="fused")
+    dqn = td.make_dqn(cfg, device="cpu")
+    key, stops = prng.key(6), (10, 21, 26, 50, 70)
+    plain = dqn.runner(dqn.init(key), key, 70, capture=capture,
+                       record_idx=True)
+    traced = dqn.runner(dqn.init(key), key, 70, capture=capture,
+                        record_idx=True)
+    reg = obs.Registry()
+    for stop in stops:
+        plain.advance(stop)
+        with obs.use_registry(reg):
+            traced.advance(stop)
+    _same_state(plain.state, traced.state)
+    for x, y in zip(plain.idx, traced.idx):
+        assert (x is None and y is None) or torch.equal(x, y)
+    spans = reg.spans()
+    names = [s.name for s in spans]
+    adv = [s for s in spans if s.name == "runner_advance"]
+    assert [s.attrs["steps"] for s in adv] == [
+        b - a for a, b in zip((0,) + stops, stops)]
+    steady, eager = names.count("steady_step"), names.count("eager_step")
+    assert steady + eager == 70
+    learn = 70 - cfg.learn_start
+    syncs = sum(1 for t in range(cfg.learn_start, 70)
+                if t % cfg.target_sync == 0)
+    assert steady == (learn - syncs if capture else 0)
+    assert eager == traced.info["eager_steps"]
+    assert names.count("replay_sample") == learn
+    assert "learn" not in names  # the TD step has no span of its own
+    rows = [s.attrs["rows"] for s in spans if s.name == "priority_write"]
+    assert (rows.count(cfg.num_envs), rows.count(cfg.batch)) == (70, learn)
+    # every step span sits inside an advance, and its draw inside it
+    ids = {s.id: s for s in spans}
+    for s in spans:
+        if s.name in ("steady_step", "eager_step"):
+            assert ids[s.parent].name == "runner_advance"
+        if s.name in ("replay_sample", "priority_write"):
+            assert ids[s.parent].name in ("steady_step", "eager_step")
+    for s in adv:
+        kids = [c for c in spans if c.parent == s.id]
+        assert s.self_ns == (s.host_end_ns - s.host_start_ns) - sum(
+            c.host_end_ns - c.host_start_ns for c in kids)
 
 
 def test_capture_defaults_off_without_a_card():

@@ -188,18 +188,238 @@ def test_span_opens_a_profiler_range(enabled):
     assert ("span_replay_sample_ms" in reg.instruments()) == enabled
 
 
-def test_set_registry_profile_opens_ranges():
-    from repro_torch.obs.tracing import _NULL_SPAN, _Span
-
-    prev = obs.set_registry(Registry(enabled=False), profile=True)
-    try:
-        sp = obs.span("csp_rebuild")
-        assert isinstance(sp, _Span) and sp is not _NULL_SPAN
-        with sp:
+def test_span_log_parent_ids_and_self_time():
+    """Nested spans name their parent and root; a span's self time is its
+    host time less its direct children's."""
+    reg = Registry()
+    with obs.span("outer", registry=reg, steps=3):
+        with obs.span("inner", registry=reg):
+            with obs.span("leaf", registry=reg, rows=7):
+                torch.ones(8).sum()
+        with obs.span("inner", registry=reg):
             pass
+    with obs.span("alone", registry=reg):
+        pass
+    spans = reg.spans()
+    # closed in exit order: leaf, inner, inner, outer, alone
+    assert [s.name for s in spans] == ["leaf", "inner", "inner", "outer",
+                                       "alone"]
+    assert [s.seq for s in spans] == sorted(s.seq for s in spans)
+    leaf, in1, in2, outer, alone = spans
+    assert outer.parent == 0 and outer.root == outer.id
+    assert in1.parent == in2.parent == outer.id and leaf.parent == in1.id
+    assert {s.root for s in (leaf, in1, in2)} == {outer.id}
+    assert alone.parent == 0 and alone.root == alone.id != outer.id
+    assert outer.attrs == {"steps": 3} and leaf.attrs == {"rows": 7}
+    for s in spans:
+        assert s.host_end_ns >= s.host_start_ns
+        assert s.device_start_ns is None and s.device_ms is None  # no card
+    took = lambda s: s.host_end_ns - s.host_start_ns  # noqa: E731
+    assert outer.self_ns == took(outer) - took(in1) - took(in2)
+    assert in1.self_ns == took(in1) - took(leaf)
+    assert leaf.self_ns == took(leaf)
+    assert in1.host_start_ns <= leaf.host_start_ns <= leaf.host_end_ns \
+        <= in1.host_end_ns
+    assert reg.instruments()["span_inner_ms"].read()["count"] == 2
+
+
+def test_span_log_bound_and_dropped_count():
+    reg = Registry()
+    assert reg.span_log.limit == 65_536
+    reg.span_log.limit = 4
+    for i in range(10):
+        with obs.span(f"s{i}", registry=reg):
+            pass
+    spans = reg.spans()
+    assert [s.name for s in spans] == ["s6", "s7", "s8", "s9"]
+    assert len(reg.span_log) == 4 and reg.span_log.dropped == 6
+    # the histograms keep every span
+    assert sum(reg.instruments()[f"span_s{i}_ms"].read()["count"]
+               for i in range(10)) == 10
+
+
+def test_span_log_resolves_pairs_oldest_first():
+    """Event pairs (stood in for) become device times on the host clock
+    through the anchor: a read without waiting stops at the first pair
+    still pending, ``spans()`` waits for the rest, and a dropped record's
+    pair goes back to the pool unread."""
+    from repro_torch.obs.metrics import _SpanEntry
+
+    class Ev:  # a CUDA timing event at ``ms`` on the card's clock
+        def __init__(self, ms, done=True):
+            self.ms, self.done, self.waited = ms, done, False
+
+        def query(self):
+            return self.done
+
+        def synchronize(self):
+            self.done = self.waited = True
+
+        def elapsed_time(self, later):
+            return later.ms - self.ms
+
+    reg = Registry()
+    log = reg.span_log
+    log.limit = 4
+    log.anchors[0] = (Ev(10.0), 5_000_000)  # card 10 ms = host 5 ms
+    log.pools[0] = []
+
+    def plant(name, t0, t1, done=True):
+        e = _SpanEntry()
+        e.id, e.parent, e.root, e.name, e.attrs = 1, 0, 1, name, {}
+        e.t0 = e.t1 = e.self_ns = 0
+        e.device_ns = None
+        e.events = (0, Ev(t0), Ev(t1, done))
+        log.append(e)
+        return e
+
+    first = plant("a", 11.0, 11.5)
+    plant("a", 12.0, 12.25, done=False)
+    plant("b", 13.0, 14.0)
+    reg.snapshot()
+    assert first.device_ns == (6_000_000, 6_500_000)
+    assert [r.device_ms for r in log.records()] == [0.5, None, None]
+    assert reg.instruments()["span_a_device_ms"].read()["count"] == 1
+    plant("c", 15.0, 15.5)
+    late = plant("c", 16.0, 16.5, done=False)  # drops the first record
+    assert log.dropped == 1 and len(log.pools[0]) == 2  # pooled at its read
+    spans = reg.spans()
+    assert [s.device_ms for s in spans] == [0.25, 1.0, 0.5, 0.5]
+    assert spans[0].device_start_ns == 7_000_000
+    assert late.events is None and late.device_ns == (11_000_000,
+                                                      11_500_000)
+    assert len(log.pools[0]) == 2 * 5 and not log._pending
+    assert reg.instruments()["span_a_device_ms"].read()["count"] == 2
+    assert reg.instruments()["span_c_device_ms"].read()["count"] == 2
+    # a pending pair pushed out by the bound is waited for and pooled
+    pend = plant("d", 17.0, 17.5, done=False)
+    for t in range(4):
+        plant("e", 18.0 + t, 18.5 + t)
+    assert pend.events is None and pend.device_ns is None
+    assert log.dropped == 6 and len(log.pools[0]) == 2 * 6
+    assert "span_d_device_ms" not in reg.instruments()
+
+
+def test_default_registry_records_only_under_a_profiler():
+    """The process default (disabled) logs spans while a profiler runs,
+    and no histogram; a disabled registry installed or passed explicitly
+    stays silent, though the range still opens."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.tracing import _NULL_SPAN, _default_registry
+
+    prev = obs.set_registry(None)
+    try:
+        default = obs.get_registry()
+        assert default is _default_registry and not default.enabled
+        n0 = len(default.span_log)
+        assert obs.span("off_window") is _NULL_SPAN
+        silent = Registry(enabled=False)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with obs.span("in_window", rows=5):
+                with obs.span("passed_disabled", registry=silent):
+                    torch.ones(4).sum()
+            obs.set_registry(silent)
+            with obs.span("installed_disabled"):
+                pass
+            obs.set_registry(None)
+        new = default.span_log.records()[n0:]
+        assert [(s.name, s.attrs) for s in new] == [("in_window",
+                                                     {"rows": 5})]
+        assert len(silent.span_log) == 0 and not silent.instruments()
+        assert "span_in_window_ms" not in default.instruments()
+        assert {"in_window", "passed_disabled", "installed_disabled"} <= {
+            e.key for e in prof.key_averages()}
+        assert obs.span("after_window") is _NULL_SPAN
+        assert len(default.span_log) == n0 + 1
     finally:
         obs.set_registry(prev)
-    assert obs.span("csp_rebuild") is _NULL_SPAN
+
+
+def test_off_span_is_the_null_span_and_allocates_nothing(monkeypatch):
+    """No enabled registry and no profiler: one branch, no timing event,
+    no clock read, and nothing left allocated."""
+    import sys
+
+    from repro_torch.obs import tracing
+
+    def no_event(*a, **k):
+        raise AssertionError("a timing event was made")
+
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    monkeypatch.setattr(tracing, "time", None)  # any clock read raises
+    prev = obs.set_registry(None)
+    try:
+        for _ in range(100):  # warm every cache first
+            obs.span("priority_write", rows=64)
+        before = sys.getallocatedblocks()
+        for _ in range(10_000):
+            sp = obs.span("priority_write", rows=64)
+            with sp:
+                pass
+        after = sys.getallocatedblocks()
+        assert sp is tracing._NULL_SPAN
+        assert after - before <= 8  # not one a call
+        assert len(obs.get_registry().span_log) == len(
+            tracing._default_registry.span_log)
+    finally:
+        obs.set_registry(prev)
+
+
+def test_spans_reach_the_jsonl_exporter(tmp_path):
+    reg = Registry()
+    with obs.span("runner_advance", registry=reg, steps=100):
+        with obs.span("priority_write", registry=reg, rows=65_536):
+            pass
+    path = str(tmp_path / "spans.jsonl")
+    exp = obs.JsonlExporter(path)
+    exp.write_spans(reg.spans())
+    exp.close()
+    recs = [r for r in obs.read_jsonl(path) if r["event"] == "span"]
+    assert [r["name"] for r in recs] == ["priority_write", "runner_advance"]
+    write, adv = recs
+    assert write["attrs"] == {"rows": 65_536} and adv["attrs"] == {
+        "steps": 100}
+    assert write["parent"] == adv["id"] and adv["parent"] == 0
+    assert write["kind"] == "event" and write["device_start_ns"] is None
+    assert write["host_end_ns"] >= write["host_start_ns"]
+    assert exp.lines_written == 2
+
+
+@pytest.mark.parametrize("profiled", [False, True],
+                         ids=["no_profiler", "profiler"])
+@pytest.mark.parametrize("device_time", [False, True],
+                         ids=["plain", "device_time"])
+def test_device_pair_taken_where_wanted(monkeypatch, profiled, device_time):
+    """On a card (stood in for: the span is made, never entered) a span
+    of an enabled registry takes a device pair; under a profiler, whose
+    trace lays the span's range on the device timeline, only one opened
+    with ``device_time=True`` does, on the default registry too."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.tracing import _NULL_SPAN
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    want = 0 if device_time or not profiled else None
+    prev = obs.set_registry(None)
+    try:
+        with (profile(activities=[ProfilerActivity.CPU]) if profiled
+              else contextlib.nullcontext()):
+            sp = obs.span("priority_write", registry=Registry(),
+                          device_time=device_time, rows=8)
+            assert sp._dev == want
+            default = obs.span("steady_step", device_time=device_time)
+            if profiled:
+                assert default._dev == want
+            else:
+                assert default is _NULL_SPAN
+    finally:
+        obs.set_registry(prev)
 
 
 def test_use_registry_thread_local_override():

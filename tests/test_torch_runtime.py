@@ -27,6 +27,7 @@ daemon thread joined with a timeout (:func:`run_bounded`), so a hang
 fails its test instead of hanging the whole test run.
 """
 import ast
+import collections
 import dataclasses
 import pathlib
 import queue
@@ -559,6 +560,15 @@ def test_service_async_telemetry_jsonl(tmp_path, capsys):
             assert name in mm, name
         assert mm["staleness_steps"]["count"] == 40
         assert mm["learner_steps_total"]["value"] == 40
+        # the run's spans, each on a line of its own before the last
+        # snapshot: as many of each name as its histogram counts
+        spans = collections.Counter(
+            r["name"] for r in pkg.read_jsonl(jpath)
+            if r["kind"] == "event" and r["event"] == "span")
+        assert spans["learn"] > 0 and spans == {
+            k[5:-3]: v["count"] for k, v in mm.items()
+            if k.startswith("span_") and k.endswith("_ms")
+            and not k.endswith("_device_ms")}
         assert 0.0 <= mm["csp_occupancy"]["value"] <= 1.0
         series = pkg.parse_prometheus(open(ppath).read())
         assert series["repro_learner_steps_total_total"] == 40.0

@@ -22,12 +22,13 @@ from repro.core.amper import AmperConfig as JConfig
 from repro.core.amper import AmperState as JState
 from repro.core.sharded import ShardedAmperSampler as JSharded
 from repro.kernels import ops as jops
-from repro_torch import prng
+from repro_torch import obs, prng
 from repro_torch.core import replay_buffer as trb
 from repro_torch.core import samplers as tsamplers
 from repro_torch.core.amper import AmperConfig, fr_intervals, \
     group_representatives
-from repro_torch.core.sharded import (ShardedAmperSampler, repartition,
+from repro_torch.core.sharded import (ShardedAmperSampler,
+                                      ShardedPERSampler, repartition,
                                       sharded_sample_fr)
 from repro_torch.distributed.sharding import Mesh
 from repro_torch.kernels import ops
@@ -467,6 +468,53 @@ def test_sharded_update_matches_reference(shards):
     back = repartition(ts, repartition(four, tst))
     assert torch.equal(torch.cat(back.pq), torch.cat(tst.pq))
     assert repartition(object(), tst) is tst
+
+
+@pytest.mark.parametrize("kind", ["amper-fr-fused", "per"])
+def test_sharded_request_spans(kind):
+    """A learner's request (draw, write-back of the drawn rows, inserts at
+    the running maximum) logs two ``priority_write`` spans of the drawn
+    and the inserted rows, and draws and writes bit for bit as it does
+    untraced."""
+    batch, inserts = 128, 16
+    pq, valid = _table(N, seed=3)
+    if kind == "per":
+        ts = ShardedPERSampler(N, _tmesh(4), axis_names=("data",))
+        fresh = lambda: ts.from_dense(  # noqa: E731
+            torch.from_numpy(np.where(valid, pq, 0).astype(np.float32)))
+    else:
+        ts = ShardedAmperSampler(AmperConfig(**CFG, fr_mode="fused"),
+                                 _tmesh(4), axis_names=("data",))
+        fresh = lambda: ts.from_dense(*_t(pq, valid))  # noqa: E731
+    rng = np.random.default_rng(5)
+    vals = [torch.from_numpy(rng.uniform(0, 8, batch).astype(np.float32))
+            for _ in range(3)]
+
+    def requests(state):
+        drawn = []
+        for r, v in enumerate(vals):
+            idx = ts.sample(state, prng.key(r), batch)
+            ts.update(state, idx, v)
+            rows = (torch.arange(inserts) + r * inserts) % N
+            ts.update(state, rows, torch.full((inserts,), 8.0))
+            drawn.append(idx)
+        return drawn, state
+
+    plain = requests(fresh())
+    reg = obs.Registry()
+    with obs.use_registry(reg):
+        traced = requests(fresh())
+    for a, b in zip(plain[0], traced[0]):
+        assert torch.equal(a, b)
+    for a, b in zip(plain[1], traced[1]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    writes = [s.attrs["rows"] for s in reg.spans()
+              if s.name == "priority_write"]
+    assert writes == [batch, inserts] * len(vals)
+    assert all(s.parent == 0 for s in reg.spans())
+    draws = [s for s in reg.spans() if s.name == "sharded_sample"]
+    assert len(draws) == (len(vals) if kind != "per" else 0)
 
 
 def test_sharded_sampler_refuses_uneven_shards_and_unknown_axes():
