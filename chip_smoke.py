@@ -789,6 +789,93 @@ def phase_rank(state: dict) -> None:
           "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
           "kernel_ms_n1e6": ms_full, "bound_ms_n1e6": bound_full,
           "slab_rows": SLAB_ROWS, **slab, "ops_per_call_and_us": split})
+    write_last_check(state)
+
+
+# The replay cell's table (perfbench/configs/amper-fr-2e28.json): 16
+# shards of 2^24 rows; a request writes its 65,536 drawn rows (int32, as
+# ShardedAmperSampler.sample returns them) and 8,192 ring rows (int64).
+WRITE_SHARDS, WRITE_SHARD_ROWS = 16, 1 << 24
+WRITE_DRAWN, WRITE_INSERTS = 65_536, 8_192
+
+
+def write_last_check(state: dict) -> None:
+    """``ops.write_last`` at both of the replay cell's calls against the
+    plain version on the card, over the cell's table: the drawn rows
+    (half as many distinct rows as positions, so most rows repeat) and
+    a ring arc that wraps past the last row.  Every shard's code and
+    live flag equal after each call, twice over the same slots; then
+    each call timed."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import write_last_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    shards = list(range(WRITE_SHARDS))
+    n = WRITE_SHARDS * WRITE_SHARD_ROWS
+
+    def drawn():
+        pool = torch.randint(0, n, (WRITE_DRAWN // 2,), generator=g,
+                             device=dev, dtype=torch.int32)
+        at = torch.randint(0, pool.numel(), (WRITE_DRAWN,), generator=g,
+                           device=dev)
+        return pool[at]
+
+    def ring():
+        pos = n - WRITE_INSERTS // 2 - int(torch.randint(
+            0, 64, (1,), generator=g, device=dev))
+        return (pos + torch.arange(WRITE_INSERTS, device=dev)) % n
+
+    def values(b):
+        return [torch.randint(0, 1 << 24, (b,), generator=g, device=dev,
+                              dtype=torch.int32),
+                torch.rand(b, generator=g, device=dev) < 0.7]
+
+    tables = [[torch.randint(0, 1 << 24, (WRITE_SHARD_ROWS,), generator=g,
+                             device=dev, dtype=torch.int32)
+               for _ in shards],
+              [torch.zeros(WRITE_SHARD_ROWS, dtype=torch.bool, device=dev)
+               for _ in shards]]
+    want = [[t.clone() for t in f] for f in tables]
+    calls = {}
+    for call, rows in enumerate((drawn, ring) * 2):
+        idx = rows()
+        vals = values(idx.numel())
+        before = ops.launches["write_last"]
+        ops.write_last(idx, vals, tables, shards, WRITE_SHARD_ROWS)
+        write_last_ref(idx, vals, want, shards, WRITE_SHARD_ROWS)
+        torch.cuda.synchronize()
+        if ops.launches["write_last"] != before + 1:
+            fail("rank", "write_last: not one launch a call")
+        if not all(torch.equal(x, y) for f, h in zip(tables, want)
+                   for x, y in zip(f, h)):
+            fail("rank", f"write_last call {call} ({rows.__name__}, "
+                 f"{idx.dtype}): kernel != plain")
+        calls[rows.__name__] = (idx, vals)
+    def timed(idx, vals) -> dict:
+        distinct = int(torch.unique(idx).numel())
+        return {
+            "rows": idx.numel(), "dtype": str(idx.dtype).split(".")[-1],
+            "distinct_rows": distinct,
+            "kernel_ms": device_time_ms(lambda: ops.write_last(
+                idx, vals, tables, shards, WRITE_SHARD_ROWS)),
+            "plain_ms": device_time_ms(lambda: write_last_ref(
+                idx, vals, want, shards, WRITE_SHARD_ROWS), calls=10,
+                reps=3),
+            "bound_ms": (nbytes(idx, *vals) + 5 * distinct)
+            / HBM_BYTES_PER_S * 1e3}
+
+    out = {name: timed(*args) for name, args in calls.items()}
+    d = out["drawn"]
+    state["kernels"]["write_last"] = {
+        "name": "write_last", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/write_last.cu",
+        "replaces": "none: the reference's sharded update is XLA's scatter",
+        "max_abs_err": 0, "ms": d["kernel_ms"], "plain_ms": d["plain_ms"],
+        "bound_ms": d["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "ms_inserts": out["ring"]["kernel_ms"]}
+    emit({"phase": "write_last", "ok": True, "shards": WRITE_SHARDS,
+          "shard_rows": WRITE_SHARD_ROWS, **out})
 
 
 GRAPH_REPLAYS = 20
@@ -1411,10 +1498,11 @@ def train_phase(state: dict, phase: str, steps: int, kernels: dict,
     (``train`` is ``runner(init(key), key, n).advance(n)``: step keys and
     schedules on the card, the steady step captured where it can be) and
     check that the run launched each kernel ``kernels[name]`` times per
-    learn step (a graph replay counts the launches it holds) and the PRNG
-    kernel; then time steady learn steps, the host PRNG and the draw,
-    and hold the draw on the trained buffer (indices and IS weights)
-    against the same sampler's plain broadcast match.  The ``fused``
+    learn step (a graph replay counts the launches it holds), the PRNG
+    kernel and ``write_last`` as ``sharded_writes`` derives; then time
+    steady learn steps, the host PRNG and the draw, and hold the draw on
+    the trained buffer (indices and IS weights) against the same
+    sampler's plain broadcast match.  The ``fused``
     phase adds the captured run's parity and report (``fused_capture``)."""
     from repro_torch import prng
     from repro_torch.core.replay_buffer import ReplayBuffer
@@ -1455,10 +1543,15 @@ def train_phase(state: dict, phase: str, steps: int, kernels: dict,
                  f"replayed), not {per_step} a learn step")
         state["launches"][kernel] = (state["launches"].get(kernel, 0)
                                      + launches[kernel])
+    writes = sharded_writes(cfg, 0, steps)["write_last"]
+    if launches["write_last"] != writes:
+        fail(phase, f"write_last launched {launches['write_last']} times in "
+             f"{steps} steps and {learn_steps} learn steps, not {writes}")
     if launches["prng"] < 1:
         fail(phase, "the run's step keys never reached the prng kernel")
-    state["launches"]["prng"] = (state["launches"].get("prng", 0)
-                                 + launches["prng"])
+    for kernel in ("write_last", "prng"):
+        state["launches"][kernel] = (state["launches"].get(kernel, 0)
+                                     + launches[kernel])
     flat = tree_leaves(st.params)
     if not all(bool(torch.isfinite(t).all()) for t in flat):
         fail(phase, "non-finite params")
@@ -2200,11 +2293,13 @@ def pixel_check(phase: str, dqn, st, key) -> dict:
 
 
 def pixel_launches(phase: str, launches: dict, per_step: dict,
-                   learn_steps: int) -> None:
+                   learn_steps: int, writes: dict) -> None:
     """Fail unless the run launched each replay kernel ``per_step`` times a
-    learn step and no other kernel (the PRNG kernel aside: ``train``'s
-    keys live on the card)."""
+    learn step, ``write_last`` as ``writes`` says (``sharded_writes``),
+    and no other kernel (the PRNG kernel aside: ``train``'s keys live on
+    the card)."""
     want = {k: per_step.get(k, 0) * learn_steps for k in launches}
+    want.update(writes)
     want["prng"] = launches["prng"]
     if launches != want:
         fail(phase, f"launches {launches}, want {want} ({learn_steps} "
@@ -2248,7 +2343,8 @@ def pixel_run(state: dict, run, trace_dir: str | None) -> None:
     launches = dict(ops.launches)
     learn_steps = sum(1 for t in range(steps)
                       if t >= cfg.learn_start and t % cfg.train_every == 0)
-    pixel_launches(phase, launches, per_step, learn_steps)
+    pixel_launches(phase, launches, per_step, learn_steps,
+                   sharded_writes(cfg, 0, steps))
     for k, n in launches.items():
         state["launches"][k] = state["launches"].get(k, 0) + n
     if st.obs.dtype != torch.uint8 or \
@@ -2340,7 +2436,8 @@ def pixel_train_many(state: dict, run, trace_dir: str | None) -> None:
                       if t >= cfg.learn_start and t % cfg.train_every == 0)
     pixel_launches(phase, launches, {k: PIXEL_SEEDS * n
                                      for k, n in per_step.items()},
-                   learn_steps)
+                   learn_steps, {"write_last": PIXEL_SEEDS * sharded_writes(
+                       cfg, 0, steps)["write_last"]})
     for k, n in launches.items():
         state["launches"][k] = state["launches"].get(k, 0) + n
     losses = metrics["loss"][:, cfg.learn_start:]
@@ -2442,6 +2539,15 @@ def resume_cfg(**kw):
                 amper_fr_mode="fused")
     base.update(kw)
     return DQNConfig(**base)
+
+
+def sharded_writes(cfg, a: int, b: int) -> dict:
+    """``write_last``'s launches in a DQN's steps ``[a, b)`` on one card:
+    a sharded sampler's update launches it once, and the run updates once
+    an add (every step, 1-step returns) and once a learn step; a dense
+    sampler never launches it."""
+    n = (b - a) + learn_steps_between(cfg, a, b)
+    return {"write_last": n if cfg.sampler.endswith("-sharded") else 0}
 
 
 def counted(phase: str, want: dict, fn):
@@ -2719,7 +2825,8 @@ def resume_pixel(state: dict, root: str) -> dict:
 
     def sharded(s, a, b):
         k = learn_steps_between(cfg, a, b) * s
-        return {"multi_query_match": k, "rank_select": k}
+        return {"multi_query_match": k, "rank_select": k,
+                **sharded_writes(cfg, a, b)}
 
     dqn4 = make_dqn(cfg, device="cuda", mesh=Mesh([cuda] * SHARDS))
     mgr = CheckpointManager(f"{root}/b", save_interval=interval)
@@ -2907,7 +3014,10 @@ def runtime_run(phase: str, svc, key, n: int, per_draw: dict,
     health probe).  ``seen``: the counters of a ``checked_draws`` wrap
     already in place.  The run records into a registry of its own, whose
     span means (``RUNTIME_SPANS``) join the counters.  Returns (result,
-    draw counters, launches)."""
+    draw counters, launches).  A sharded sampler's updates launch
+    ``write_last`` once each: once a block added and once a feedback
+    applied, as the run's ``add_block`` and ``apply_feedback`` spans
+    count them."""
     from repro_torch import obs
     from repro_torch.kernels import ops
     from repro_torch.models.qhead import tree_leaves
@@ -2928,6 +3038,16 @@ def runtime_run(phase: str, svc, key, n: int, per_draw: dict,
     probes = int(m.get("health", {}).get("probe_draws", 0))
     want = {k: per_draw.get(k, 0) * seen["draws"] for k in got}
     want["multi_query_match"] += probes
+    snap = reg.snapshot()
+    seen["host_ms"] = {}
+    for span in RUNTIME_SPANS:
+        st = obs.hist_stats(snap.data[f"span_{span}_ms"],
+                            snap.meta[f"span_{span}_ms"]["bounds"])
+        seen["host_ms"][span] = {"count": st["count"], "mean": st["mean"],
+                                 "p95": st["p95"]}
+    if svc.dqn.cfg.sampler.endswith("-sharded"):
+        want["write_last"] = (seen["host_ms"]["add_block"]["count"]
+                              + seen["host_ms"]["apply_feedback"]["count"])
     if got != want:
         fail(phase, f"launches {got} for {seen['draws']} slab draws and "
              f"{probes} probes, want {want}")
@@ -2938,13 +3058,6 @@ def runtime_run(phase: str, svc, key, n: int, per_draw: dict,
         fail(phase, f"metric keys missing: {sorted(RUNTIME_KEYS - set(m))}")
     if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(res.params)):
         fail(phase, "non-finite params")
-    snap = reg.snapshot()
-    seen["host_ms"] = {}
-    for span in RUNTIME_SPANS:
-        st = obs.hist_stats(snap.data[f"span_{span}_ms"],
-                            snap.meta[f"span_{span}_ms"]["bounds"])
-        seen["host_ms"][span] = {"count": st["count"], "mean": st["mean"],
-                                 "p95": st["p95"]}
     return res, seen, got
 
 

@@ -55,7 +55,7 @@ from repro_torch import prng
 from repro_torch.core import quantize as qz
 from repro_torch.core.amper import (FR_MODES, AmperConfig, AmperState,
                                     fr_intervals, fr_match,
-                                    group_representatives, last_writer)
+                                    group_representatives)
 from repro_torch.distributed.collectives import all_gather, exchange, psum
 from repro_torch.distributed.sharding import Mesh
 from repro_torch.kernels import ops
@@ -237,17 +237,6 @@ def repartition(sampler, state):
 # --- mesh-native Sampler implementations -------------------------------------
 
 
-def _write_rows(buf: torch.Tensor, local: torch.Tensor, keep: torch.Tensor,
-                values: torch.Tensor) -> None:
-    """``buf[local[j]] = values[j]`` for the rows with ``keep[j]``, the last
-    one winning, in place and with static shapes.  Every other row
-    rewrites its slot with the value a kept row writes there, or with
-    what it holds, so all writes to one slot agree (a scatter's winner
-    among duplicates is undefined on CUDA)."""
-    w = last_writer(local, keep)
-    buf[local] = torch.where(w >= 0, values[w.clamp(min=0)], buf[local])
-
-
 class _Shards:
     """What both sharded samplers share: the mesh, the shards this
     process holds and their devices, and the split of a global row index
@@ -267,6 +256,10 @@ class _Shards:
         self.n_local = capacity // self.n_shards
         self.local = mesh.local_shards(self.axis_names)
         self.local_devices = [self.devices[s] for s in self.local]
+        # the positions in ``local`` of the shards on each device
+        self.on_device: dict = {}
+        for k, d in enumerate(self.local_devices):
+            self.on_device.setdefault(d, []).append(k)
         self.owners = [mesh.owner(s)
                        for s in mesh.shard_slots(self.axis_names)]
         self.device = mesh.home
@@ -297,13 +290,15 @@ class _Shards:
         return tuple(x[lo:hi].to(d, copy=True)
                      for (lo, hi), d in zip(self.rows(), self.local_devices))
 
-    def _write(self, bufs, idx: torch.Tensor, values: torch.Tensor) -> None:
-        """Write ``values`` at global rows ``idx`` on the shards held
-        here."""
-        idx = idx.to(torch.int64)
-        shard, local = idx // self.n_local, idx % self.n_local
-        for s, buf, d in zip(self.local, bufs, self.local_devices):
-            _write_rows(buf, local.to(d), (shard == s).to(d), values.to(d))
+    def _write(self, idx: torch.Tensor, fields) -> None:
+        """Write each ``(bufs, values)`` field at global rows ``idx`` of the
+        shards held here, a duplicated row taking its last value: one
+        :func:`~repro_torch.kernels.ops.write_last` for each device."""
+        for d, ks in self.on_device.items():
+            ops.write_last(idx.to(d),
+                           [v.to(d).contiguous() for _, v in fields],
+                           [[bufs[k] for k in ks] for bufs, _ in fields],
+                           [self.local[k] for k in ks], self.n_local)
 
     def _gather(self, parts, dtype: torch.dtype) -> torch.Tensor:
         """The global ``[capacity]`` ``dtype`` tensor on ``self.device``,
@@ -379,9 +374,9 @@ class ShardedAmperSampler(_Shards):
         place; a duplicated row takes its last value."""
         with span("priority_write", device_time=True, rows=idx.shape[0]):
             p = priority.to(torch.float32)
-            self._write(state.pq, idx,
-                        qz.quantize(p, self.cfg.v_max, self.cfg.frac_bits))
-            self._write(state.valid, idx, p > 0)
+            self._write(idx, [(state.pq, qz.quantize(p, self.cfg.v_max,
+                                                     self.cfg.frac_bits)),
+                              (state.valid, p > 0)])
         return state
 
     def sample(self, state: ShardedAmperState, key: torch.Tensor, batch: int,
@@ -441,7 +436,8 @@ class ShardedPERSampler(_Shards):
     def update(self, state: ShardedPERState, idx: torch.Tensor,
                priority: torch.Tensor) -> ShardedPERState:
         with span("priority_write", device_time=True, rows=idx.shape[0]):
-            self._write(state.priorities, idx, priority.to(torch.float32))
+            self._write(idx, [(state.priorities,
+                               priority.to(torch.float32))])
         return state
 
     def sample(self, state: ShardedPERState, key: torch.Tensor, batch: int,

@@ -34,13 +34,14 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import prng as _pr
 from repro_torch.kernels import tcam_match as _tm
+from repro_torch.kernels import write_last as _wl
 from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
                                      multi_query_match_ref, rank_select_ref,
-                                     tcam_match_ref)
+                                     tcam_match_ref, write_last_ref)
 
 launches = {"multi_query_match": 0, "amper_sample": 0, "rank_select": 0,
             "tcam_match": 0, "flash_attention": 0, "decode_attention": 0,
-            "prng": 0}
+            "prng": 0, "write_last": 0}
 
 
 # launches recorded into CUDA graphs being captured, per wrapper
@@ -233,6 +234,59 @@ def rank_select(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
     out = _as.rank_select_cuda(pq, valid, lo, hi, rank)
     _launched("rank_select")
     return out
+
+
+_WRITE_DTYPES = (torch.int32, torch.bool, torch.float32)
+
+
+def write_last(idx: torch.Tensor, values, tables, shards,
+               n_local: int) -> None:
+    """The sharded priority write: for every field f, ``tables[f][k]
+    [idx[j] % n_local] = values[f][j]`` where row ``idx[j]`` lies in shard
+    ``shards[k]`` (``idx[j] // n_local``), in place; a duplicated row
+    takes its last value, and rows of shards not in ``shards`` (held
+    elsewhere) or below 0 are skipped.
+
+    ``idx`` is int32 or int64 [b]; ``values`` holds one [b] tensor a field
+    (int32, bool or float32) and ``tables`` one list a field of the held
+    shards' [n_local] tensors of its dtype, in the order of ``shards``.
+    One launch on CUDA whatever the shard and field counts (none for
+    b = 0 or no shard); the kernel takes at most 2 fields and 32 shards
+    (``kernels/write_last.py`` refuses more).
+    """
+    values, shards = list(values), [int(s) for s in shards]
+    tables = [list(t) for t in tables]
+    if idx.dtype not in (torch.int32, torch.int64) or idx.ndim != 1:
+        raise TypeError(f"write_last: idx must be int32 or int64 [b], got "
+                        f"{idx.dtype} {tuple(idx.shape)}")
+    if not values or len(tables) != len(values):
+        raise ValueError(f"write_last: need one list of tables for each of "
+                         f"1 or more fields, got {len(values)} fields and "
+                         f"{len(tables)} lists")
+    if n_local < 1 or len(set(shards)) != len(shards) or any(
+            s < 0 for s in shards):
+        raise ValueError(f"write_last: need n_local >= 1 and distinct "
+                         f"shards >= 0, got {n_local} / {shards}")
+    for f, (v, ts) in enumerate(zip(values, tables)):
+        if v.dtype not in _WRITE_DTYPES or tuple(v.shape) != tuple(idx.shape):
+            raise TypeError(f"write_last: field {f} must be int32, bool or "
+                            f"float32 [b = {idx.shape[0]}], got {v.dtype} "
+                            f"{tuple(v.shape)}")
+        if len(ts) != len(shards) or any(
+                t.dtype != v.dtype or tuple(t.shape) != (n_local,)
+                for t in ts):
+            raise ValueError(f"write_last: field {f} needs one {v.dtype} "
+                             f"[{n_local}] table for each of the "
+                             f"{len(shards)} shards")
+    kind = _device_kind("write_last",
+                        (idx, *values, *(t for ts in tables for t in ts)))
+    if kind == "cpu":
+        write_last_ref(idx, values, tables, shards, n_local)
+        return
+    if idx.shape[0] == 0 or not shards:
+        return  # nothing to write: no launch
+    _wl.write_last_cuda(idx, values, tables, shards, n_local)
+    _launched("write_last")
 
 
 def tcam_match(pq: torch.Tensor, query, mask) -> torch.Tensor:

@@ -6,7 +6,7 @@ them on the card.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
@@ -64,6 +64,28 @@ def rank_select_ref(pq: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
     pos = torch.searchsorted(cum, r.clamp(min=0) + 1)
     idx = torch.where(hit, pos, torch.zeros_like(pos))
     return idx.to(torch.int32), count.to(torch.int32)
+
+
+def write_last_ref(idx: torch.Tensor, values: Sequence[torch.Tensor],
+                   tables: Sequence[Sequence[torch.Tensor]],
+                   shards: Sequence[int], n_local: int) -> None:
+    """``tables[f][k][idx[j] % n_local] = values[f][j]`` for j in order,
+    where ``idx[j] // n_local`` is ``shards[k]``, for every field f: the
+    last write of a row wins, and rows of shards not in ``shards`` are
+    skipped.  A stable sort of the rows; the last position of each run
+    is scattered once, so no two writes meet."""
+    rows = idx.to(torch.int64)
+    order = torch.sort(rows, stable=True).indices
+    sorted_rows = rows[order]
+    last = torch.ones_like(sorted_rows, dtype=torch.bool)
+    last[:-1] = sorted_rows[1:] != sorted_rows[:-1]
+    win = order[last]
+    shard = torch.div(rows[win], n_local, rounding_mode="floor")
+    local = rows[win] - shard * n_local
+    for k, s in enumerate(shards):
+        mine = shard == s
+        for f, v in enumerate(values):
+            tables[f][k][local[mine]] = v[win[mine]]
 
 
 def tcam_match_ref(pq: torch.Tensor, query, mask) -> torch.Tensor:

@@ -33,7 +33,9 @@ from repro_torch.core.sharded import (ShardedAmperSampler,
 from repro_torch.distributed.sharding import Mesh
 from repro_torch.kernels import ops
 from repro_torch.kernels import amper_sample as tsample
-from repro_torch.kernels.ref import rank_select_ref, tcam_match_ref
+from repro_torch.kernels import write_last as twrite
+from repro_torch.kernels.ref import (rank_select_ref, tcam_match_ref,
+                                     write_last_ref)
 from test_torch_amper import (INC, MAX_EPOCH, _interleave, _Scratch, _tiles,
                               _resolve, _walk)
 from test_torch_dqn import thirty_agent_steps
@@ -444,14 +446,23 @@ def test_sharded_amper_sampler_bit_identical(shards, mode, jax_membership):
                                       .numpy())
 
 
-@pytest.mark.parametrize("shards", [2, 8])
-def test_sharded_update_matches_reference(shards):
+@pytest.mark.parametrize("shards,repeated", [(2, False), (8, False),
+                                             (2, True), (8, True)],
+                         ids=["2", "8", "2-repeated", "8-repeated"])
+def test_sharded_update_matches_reference(shards, repeated):
     """Global rows map to (shard, local row); a duplicated row takes its
-    last value, and a priority of 0 invalidates the row."""
+    last value, and a priority of 0 invalidates the row.  ``repeated``:
+    one row written at 40 places across the batch, each time at another
+    priority, the last one 0."""
     rng = np.random.default_rng(shards)
     idx = rng.integers(0, N, 300).astype(np.int32)   # with duplicates
     prio = rng.uniform(0, 9, 300).astype(np.float32)
     prio[::11] = 0.0
+    if repeated:
+        at = np.sort(rng.choice(300, 40, replace=False))
+        idx[at] = N // 2 + 3
+        prio[at] = rng.uniform(0.5, 9, 40).astype(np.float32)
+        prio[at[-1]] = 0.0
     js = JSharded(JConfig(**CFG), _jmesh(shards), axis_names=("data",))
     jst = jax.jit(js.update)(js.init(), idx, prio)
     ts = ShardedAmperSampler(AmperConfig(**CFG), _tmesh(shards))
@@ -463,11 +474,213 @@ def test_sharded_update_matches_reference(shards):
                                   ts.priorities(tst).numpy())
     np.testing.assert_allclose(float(js.total(jst)), float(ts.total(tst)),
                                rtol=1e-6)
+    if repeated:
+        assert not bool(torch.cat(tst.valid)[N // 2 + 3])
     # repartition: 2 or 8 shards -> 4 and back leaves every value in place
     four = ShardedAmperSampler(AmperConfig(**CFG), _tmesh(4))
     back = repartition(ts, repartition(four, tst))
     assert torch.equal(torch.cat(back.pq), torch.cat(tst.pq))
     assert repartition(object(), tst) is tst
+
+
+# --- (c'): the sharded priority write (ops.write_last) ------------------------
+
+
+def _write_loop(idx, values, tables, shards, n_local):
+    """The write as a sequential loop over the positions."""
+    for j, r in enumerate(idx.tolist()):
+        if r >= 0 and r // n_local in shards:
+            k = shards.index(r // n_local)
+            for f, v in enumerate(values):
+                tables[f][k][r % n_local] = v[j]
+
+
+# (idx, shards of the mesh, shards held here, n_local); every table starts
+# from distinct values, so a row written by mistake shows
+WRITE_CASES = {
+    "duplicates_over_shards": (
+        np.random.default_rng(1).integers(0, 8 * 64, 300), 8,
+        list(range(8)), 64),
+    "one_row_many_times": (
+        np.concatenate([np.full(50, 77), [3, 77, 500, 77, 9]]), 8,
+        list(range(8)), 64),
+    "every_row_in_one_shard": (
+        np.random.default_rng(2).integers(3 * 64, 4 * 64, 200), 8,
+        list(range(8)), 64),
+    "b1": (np.array([130]), 4, list(range(4)), 64),
+    "held_elsewhere": (
+        np.concatenate([np.random.default_rng(3).integers(0, 8 * 64, 300),
+                        [-1, -64, 8 * 64, 9 * 64 + 5]]), 8, [6, 1, 4], 64),
+}
+
+
+def _write_args(case, fields, idx_dtype=torch.int64):
+    idx, _, held, n_local = WRITE_CASES[case]
+    rng = np.random.default_rng(len(idx))
+    b = len(idx)
+    if fields == "amper":
+        values = [torch.from_numpy(rng.integers(0, 2 ** 24, b).astype(
+                      np.int32)),
+                  torch.from_numpy(rng.random(b) < 0.7)]
+        tables = [[torch.arange(n_local, dtype=torch.int32) + 1000 * s
+                   for s in held],
+                  [torch.from_numpy(rng.random(n_local) < 0.5)
+                   for _ in held]]
+    else:
+        values = [torch.from_numpy(rng.uniform(0, 9, b).astype(np.float32))]
+        tables = [[torch.arange(n_local, dtype=torch.float32) - s
+                   for s in held]]
+    return (torch.from_numpy(idx).to(idx_dtype), values, tables, list(held),
+            n_local)
+
+
+@pytest.mark.parametrize("fields", ["amper", "per"])
+@pytest.mark.parametrize("case", list(WRITE_CASES))
+def test_write_last_plain_equals_sequential_loop(case, fields):
+    """``ops.write_last`` on the CPU (``write_last_ref``) against a loop
+    over the positions in order: duplicates within and across shards,
+    one row written many times, every row in one shard, b = 1, and rows
+    of shards held elsewhere (or out of the table) skipped, with
+    AMPER-fr's int32 code and bool live flag or PER's float32 priority;
+    int32 and int64 rows alike."""
+    for idx_dtype in (torch.int32, torch.int64):
+        idx, values, tables, held, n_local = _write_args(case, fields,
+                                                         idx_dtype)
+        want = [[t.clone() for t in ts] for ts in tables]
+        _write_loop(idx, values, want, held, n_local)
+        before = dict(ops.launches)
+        ops.write_last(idx, values, tables, held, n_local)
+        assert ops.launches == before  # the plain version launches nothing
+        for got_f, want_f in zip(tables, want):
+            for g, w in zip(got_f, want_f):
+                assert torch.equal(g, w)
+
+
+def _write_last_emulated(idx, values, tables, shards, n_local, slots, rng):
+    """``csrc/write_last.cu``'s two passes in Python, each over the
+    positions in a random order (blocks run in no order): the claim pass
+    into the open-addressing slots (CAS into an empty slot, max in the
+    row's own), then the write pass, where the slot's last position
+    stores every field and empties the slot."""
+    b = idx.shape[0]
+    bits = twrite.slot_bits(b)
+    assert len(slots) >= 1 << bits >= 2 * b
+    mask = (1 << bits) - 1
+    where = [-1] * b
+    for j in rng.permutation(b):
+        r = int(idx[j])
+        if r < 0 or r // n_local not in shards:
+            continue
+        mine = (r + 1) << 32 | (j + 1)
+        h = ((r * 0x9E3779B97F4A7C15) % 2 ** 64) >> (64 - bits)
+        while slots[h] and slots[h] >> 32 != mine >> 32:
+            h = (h + 1) & mask
+        slots[h] = max(slots[h], mine)
+        where[j] = h
+    for j in rng.permutation(b):
+        h = where[j]
+        if h < 0 or slots[h] & 0xFFFFFFFF != j + 1:
+            continue
+        r = (slots[h] >> 32) - 1
+        k = shards.index(r // n_local)
+        for f, v in enumerate(values):
+            tables[f][k][r % n_local] = v[j]
+        slots[h] = 0
+
+
+@pytest.mark.parametrize("case", list(WRITE_CASES))
+def test_write_last_kernel_design_equals_plain(case):
+    """The kernel's claim-and-write design, emulated with its slot sizing,
+    equals the plain version in any order of the positions, and leaves
+    every slot empty, so three calls in a row over one slots buffer (of
+    the largest call's size) need no fill between them."""
+    rng = np.random.default_rng(7)
+    slots = [0] * (1 << twrite.slot_bits(400))
+    for fields in ("amper", "per", "amper"):
+        idx, values, tables, held, n_local = _write_args(case, fields)
+        want = [[t.clone() for t in ts] for ts in tables]
+        write_last_ref(idx, values, want, held, n_local)
+        _write_last_emulated(idx, values, tables, held, n_local, slots, rng)
+        for got_f, want_f in zip(tables, want):
+            for g, w in zip(got_f, want_f):
+                assert torch.equal(g, w)
+        assert not any(slots)
+
+
+def test_write_last_checks_arguments_and_never_falls_back():
+    idx, values, tables, held, n_local = _write_args("b1", "amper")
+    with pytest.raises(TypeError, match="idx"):
+        ops.write_last(idx.to(torch.int16), values, tables, held, n_local)
+    with pytest.raises(ValueError, match="one list of tables"):
+        ops.write_last(idx, values, tables[:1], held, n_local)
+    with pytest.raises(ValueError, match="distinct"):
+        ops.write_last(idx, values, tables, [0, 0, 1, 2], n_local)
+    with pytest.raises(TypeError, match="field 0"):
+        ops.write_last(idx, [values[0].long(), values[1]], tables, held,
+                       n_local)
+    with pytest.raises(ValueError, match="field 1"):
+        ops.write_last(idx, values, [tables[0], tables[1][:2]], held,
+                       n_local)
+    before = dict(ops.launches)
+    meta = lambda t: torch.empty_like(t, device="meta")  # noqa: E731
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.write_last(meta(idx), [meta(v) for v in values],
+                       [[meta(t) for t in ts] for ts in tables], held,
+                       n_local)
+    assert ops.launches == before
+
+
+@pytest.mark.parametrize("case", ["arguments", "failed_launch",
+                                  "capture_without_scratch"])
+def test_write_last_wrapper_launch(monkeypatch, case):
+    """The CUDA wrapper with the launch recorded instead of run: one
+    launch with every field's values and its tables field-major, the
+    element sizes, the held shards, and a slots scratch of int64 zeros of
+    2^bits >= 2b made once per stream; a launch that raises drops the
+    scratch, and under graph capture a call without one is refused."""
+    calls = []
+
+    def launch(name, argtypes, device, *args):
+        assert name == "write_last" and len(args) == len(argtypes)
+        calls.append(args)
+        if case == "failed_launch":
+            raise RuntimeError("write_last launch failed")
+
+    monkeypatch.setattr(twrite.build, "_scratch", {})
+    monkeypatch.setattr(twrite.build, "_retired", [])
+    monkeypatch.setattr(twrite.build, "stream_key", lambda dev: 0)
+    monkeypatch.setattr(twrite.build, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(twrite.build, "launch", launch)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: case == "capture_without_scratch")
+    idx, values, tables, held, n_local = _write_args("held_elsewhere",
+                                                     "amper")
+
+    def scratch():
+        return twrite.build._scratch.get(("write_last", CPU, 0))
+
+    if case == "capture_without_scratch":
+        with pytest.raises(RuntimeError, match="before capturing"):
+            twrite.write_last_cuda(idx, values, tables, held, n_local)
+        assert calls == [] and scratch() is None
+        return
+    if case == "failed_launch":
+        with pytest.raises(RuntimeError, match="launch failed"):
+            twrite.write_last_cuda(idx, values, tables, held, n_local)
+        assert scratch() is None and len(twrite.build._retired) == 1
+        return
+    twrite.write_last_cuda(idx, values, tables, held, n_local)
+    (a,) = calls
+    b, bits = idx.shape[0], twrite.slot_bits(idx.shape[0])
+    slots = scratch()
+    assert slots.dtype == torch.int64 and slots.numel() == 1 << bits
+    assert not bool(slots.any()) and (1 << bits) >= 2 * b > (1 << bits) // 2
+    assert a[:5] == (idx.data_ptr(), 1, b, n_local, 2)
+    assert list(a[5]) == [v.data_ptr() for v in values]
+    assert list(a[6]) == [4, 1]
+    assert list(a[7]) == [t.data_ptr() for ts in tables for t in ts]
+    assert a[8] == 3 and list(a[9]) == held
+    assert a[10:12] == (slots.data_ptr(), bits) and a[13] == 132
 
 
 @pytest.mark.parametrize("kind", ["amper-fr-fused", "per"])
